@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: build the hand-written
-kernels, hold each against its plain version, then serve recommendations
-with the full-width Medium model.
+kernels, hold each against its plain version, serve recommendations with the
+full-width Medium model, then train it.
 
 Run from the repository root on a CUDA host (one card)::
 
@@ -10,11 +10,19 @@ Run from the repository root on a CUDA host (one card)::
 Phases, one line each; a failing phase raises and the exit code is not 0:
 
 1. device: the card's name and power limit, torch and CUDA versions.
-2. build: ``nvcc`` of ``gnn_recsys_tpu_torch/csrc/*.cu`` for sm_90a, with the
-   compiler's register / shared-memory / spill summary.
-3. kernels: each MIPS kernel against its plain version at a serving shape
-   (U=4096 users, I=30,000 items, D=128, k=26), a tied case, a bf16 case,
-   and times (CUDA events) beside the bound and a library yardstick.
+2. build: ``nvcc`` of ``gnn_recsys_tpu_torch/csrc/*.cu`` for sm_90a (one
+   process a source, all at once), with the compiler's register /
+   shared-memory / spill summary.
+3. kernels: each kernel against its plain version; its time (``ms``: the
+   device time of its kernels under ``torch.profiler``; ``events_ms``: CUDA
+   events around back-to-back calls, host overhead included) beside the
+   bound, the plain version's device time and, where one PyTorch call
+   computes the same function, that call's.  The MIPS kernels at a serving shape (U=4096 users,
+   I=30,000 items, D=128, k=26), a tied case, a bf16 case; ``leaf_mean_nn``
+   forward and backward at the training step's widest leaf (P=18,432, K=8,
+   F=8, H=256) in f32 and bf16, a ragged P and an all-masked row;
+   ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding and ragged
+   B and P.
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -23,6 +31,16 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    launch counters must grow, every rec is a catalog id or -1, no
    already-bought item is recommended, and the kernel route agrees with the
    ``torch`` route.
+5. train: the ``bench.py`` training step (dense pool of 2560, fanouts (8, 4),
+   2048 edges a batch, batch-edge exclusion, max-margin loss, Adam) with the
+   leaf and pool-mask kernels, about 200 steps on the same graph and model:
+   median step time (CUDA events, batch assembly included), edges a second
+   (all steps' edges over their host time), peak memory, the loss curve, launch
+   counts that must grow by the exact per-step count, then 5 steps under
+   ``torch.profiler`` (device time by kernel group, idle share); one step of
+   the kernel route against the plain route (same parameters and draws);
+   the trained model's recall@10, which must beat the random weights' of
+   phase 4.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -31,6 +49,7 @@ a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,12 +64,22 @@ from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.models.layers import l2_normalize
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
+from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
+from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config, save_run
-from gnn_recsys_tpu_torch.train.full_batch import compute_embeddings
+from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings, init_model
+from gnn_recsys_tpu_torch.train.minibatch import (
+    EdgeStore,
+    MinibatchConfig,
+    iter_edge_batches,
+    make_minibatch_loss,
+    make_minibatch_step,
+)
 from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
@@ -58,9 +87,16 @@ from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-5  # f32 sums in another order than the plain version's product
+GRAD_REL = 1e-5  # dW / db: sums of K*P terms, relative to the largest entry
+BF16_RTOL = 2.0**-7  # one bf16 ulp: both sides round the same f32 sums
+# One step, kernel route against plain route: the CPU tests' tolerances
+# (tests/test_torch_minibatch.py).
+LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-5, 1e-4, 1e-6
 BUYS = ("user", "buys", "item")
-SOURCE = "gnn_recsys_tpu_torch/csrc/topk_mips.cu"
-TPU_SOURCE = "gnn_recsys_tpu/ops/pallas/topk_mips.py"
+MIPS = ("gnn_recsys_tpu_torch/csrc/topk_mips.cu", "gnn_recsys_tpu/ops/pallas/topk_mips.py")
+LEAF = ("gnn_recsys_tpu_torch/csrc/leaf_agg.cu", "gnn_recsys_tpu/ops/pallas/leaf_agg.py")
+POOL = ("gnn_recsys_tpu_torch/csrc/pool_mask.cu", "gnn_recsys_tpu/ops/pallas/pool_mask.py")
+NO_YARDSTICK = "no one-call PyTorch yardstick computes this function"
 
 
 def say(phase: str, **fields) -> None:
@@ -73,7 +109,9 @@ def sync(dev: torch.device) -> None:
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms (CUDA events, after warm-up)."""
+    """Mean time a call of ``fn`` in ms between CUDA events around
+    back-to-back calls (after warm-up).  Where the host takes longer to
+    issue a call than the card to run it, this measures the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -85,6 +123,37 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_kernels(run, n: int):
+    """``run`` ``n`` times under ``torch.profiler`` (after one warm-up call):
+    (host ms a run, [(kernel name, launches, device us)])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            kernels.append((evt.key, evt.count, evt.self_cuda_time_total if us is None else us))
+    return host_ms, kernels
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms: the summed durations of the
+    kernels it launches (``torch.profiler``).  Raises where the profiler
+    records no kernel, so that ``ms`` always means device time."""
+    _, kernels = profiled_kernels(fn, reps)
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no CUDA kernel for a call that launches one")
+    return sum(us for _, _, us in kernels) / 1e3 / reps
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -144,14 +213,16 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build(["topk_mips"])
+    build.build(["topk_mips", "leaf_agg", "pool_mask"])
     say("build", seconds=time.perf_counter() - t0, info=build.build_info)
 
 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
-                  weight=1.0, timed=True, seed=0) -> list:
+                  weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
+                  timed=True, seed=0) -> list:
     """Each kernel against its plain version on ``dev``; returns the rows of
-    the kernels line (without launches)."""
+    the kernels line (without launches).  ``leaf`` is (K, P, F, H),
+    ``pool`` (B, K, P)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ue = l2_normalize(torch.randn(num_users, dim, generator=gen, device=dev))
     ie = l2_normalize(torch.randn(num_items, dim, generator=gen, device=dev))
@@ -159,18 +230,25 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     exact = dot_scores(ue, ie)
     rows = []
 
-    def record(name, tpu_line, err, kernel, plain, library, flops, nbytes):
+    def record(name, files, tpu_line, err, kernel, plain, library, flops, nbytes):
         b_ms, b_by = bound(flops, nbytes)
-        row = {"name": name, "route": "cuda", "source": SOURCE,
-               "replaces": f"{TPU_SOURCE}:{tpu_line}", "launches": None,
+        row = {"name": name, "route": "cuda", "source": files[0],
+               "replaces": f"{files[1]}:{tpu_line}", "launches": None,
                "max_abs_err": err, "ms": None, "plain_ms": None,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if library is None:
+            row["library"] = NO_YARDSTICK
         if timed:
             with tm.full_f32_matmul():
-                row.update(ms=time_ms(kernel), plain_ms=time_ms(plain, reps=3),
-                           library_ms=time_ms(library, reps=3))
+                row.update(ms=device_ms(kernel), events_ms=time_ms(kernel),
+                           plain_ms=device_ms(plain, reps=3))
+                if library is not None:
+                    row["library_ms"] = device_ms(library, reps=3)
         rows.append(row)
         say("kernel", **row)
+
+    def mips(name, tpu_line, err, kernel, plain, library, flops, nbytes):
+        record(name, MIPS, tpu_line, err, kernel, plain, library, flops, nbytes)
 
     flops = 2.0 * num_users * num_items * dim
     emb_bytes = 4.0 * (num_users + num_items) * dim
@@ -191,7 +269,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     err_bf16 = check_topk("mips_topk bf16", bvals, bidx, brvals, bridx,
                           dot_scores(ue.bfloat16(), ie.bfloat16()))
     say("kernel_bf16", name="mips_topk", max_abs_err=err_bf16)
-    record("mips_topk", 52, max(err, err_bf16),
+    mips("mips_topk", 52, max(err, err_bf16),
            lambda: tm.mips_topk(ue, ie, k), lambda: tm.mips_topk_reference(ue, ie, k),
            lambda: torch.topk(ue @ ie.T, k, dim=1), flops, emb_bytes + topk_bytes)
 
@@ -201,7 +279,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     err = float(((m.double() + s.double().log()) - (rm.double() + rs.double().log())).abs().max())
     if not err <= TOL:
         raise AssertionError(f"mips_lse: log-sum-exp differs by {err}")
-    record("mips_lse", 108, err, lambda: tm.mips_lse(ue, ie),
+    mips("mips_lse", 108, err, lambda: tm.mips_lse(ue, ie),
            lambda: tm.mips_lse_reference(ue, ie),
            lambda: torch.logsumexp(ue @ ie.T, dim=1), flops, emb_bytes + 8.0 * num_users)
 
@@ -215,12 +293,84 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     _, tidx = tm.mips_topk_boosted(ue, ie_tied, torch.zeros_like(pop), k, weight=weight)
     if not torch.equal(tidx, torch.arange(k, device=dev).expand(num_users, k)):
         raise AssertionError("mips_boost: ties must go to the lowest indices")
-    record("mips_boost", 141, err,
+    mips("mips_boost", 141, err,
            lambda: tm.mips_boost(ue, ie, pop, rm, rs, k, weight=weight),
            lambda: tm.mips_boost_reference(ue, ie, pop, rm, rs, k, weight=weight),
            lambda: torch.topk(torch.softmax(ue @ ie.T, dim=1) + weight * pop, k, dim=1),
            flops, emb_bytes + 4.0 * num_items + 8.0 * num_users + topk_bytes)
+    leaf_rows(dev, gen, record, *leaf)
+    pool_rows(dev, gen, record, *pool)
     return rows
+
+
+def leaf_case(dev, gen, k, p, f, h, dtype=torch.float32):
+    """Random leaf inputs: x [K, P, F], mask_scaled [P, K] with an all-masked
+    row, w [F, H], b [H], and a cotangent g [P, H]."""
+    x = torch.randn(k, p, f, generator=gen, device=dev)
+    mask = (torch.rand(p, k, generator=gen, device=dev) < 0.7).float()
+    mask[p // 2] = 0.0
+    ms = mask / mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+    w = 0.3 * torch.randn(f, h, generator=gen, device=dev)
+    b = 0.1 * torch.randn(h, generator=gen, device=dev)
+    g = torch.randn(p, h, generator=gen, device=dev)
+    return x.to(dtype), ms, w.to(dtype), b.to(dtype), g.to(dtype)
+
+
+def leaf_rows(dev, gen, record, k, p, f, h) -> None:
+    """``leaf_mean_nn`` forward and backward against their plain versions:
+    f32 at the shape given, bf16 (forward) and a ragged P."""
+    errs, grad_errs = [], []
+    for pp in (p, p - 5 if p > 5 else p):
+        x, ms, w, b, g = leaf_case(dev, gen, k, pp, f, h)
+        out = la.leaf_mean_nn_fwd(x, ms, w, b)
+        errs.append(float((out - la.leaf_mean_nn_reference(x, ms, w, b)).abs().max()))
+        if not errs[-1] <= TOL or not (out[pp // 2] == 0).all():
+            raise AssertionError(f"leaf_mean_nn_fwd P={pp}: differs by {errs[-1]} "
+                                 f"or the all-masked row is not 0")
+        dw, db = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+        for got, want in zip((dw, db), la.leaf_mean_nn_bwd_reference(x, ms, w, b, g)):
+            grad_errs.append(float((got - want).abs().max()))
+            if not grad_errs[-1] <= GRAD_REL * max(1.0, float(want.abs().max())):
+                raise AssertionError(f"leaf_mean_nn_bwd P={pp}: differs by {grad_errs[-1]}")
+        dw2, db2 = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            raise AssertionError("leaf_mean_nn_bwd: two runs differ")
+    xb, msb, wb, bb, _ = leaf_case(dev, gen, k, p, f, h, torch.bfloat16)
+    outb = la.leaf_mean_nn_fwd(xb, msb, wb, bb).float()
+    refb = la.leaf_mean_nn_reference(xb, msb, wb, bb).float()
+    if not ((outb - refb).abs() <= BF16_RTOL * refb.abs() + 1e-6).all():
+        raise AssertionError("leaf_mean_nn_fwd bf16: beyond one bf16 ulp")
+    say("kernel_bf16", name="leaf_mean_nn_fwd", max_abs_err=float((outb - refb).abs().max()))
+
+    x, ms, w, b, g = leaf_case(dev, gen, k, p, f, h)
+    io = 4.0 * (k * p * f + p * k + f * h + h)  # x, the mask, w, b
+    record("leaf_mean_nn_fwd", LEAF, 78, max(errs),
+           lambda: la.leaf_mean_nn_fwd(x, ms, w, b),
+           lambda: la.leaf_mean_nn_reference(x, ms, w, b), None,
+           float(k * p * h * (2 * f + 4)), io + 4.0 * p * h)
+    record("leaf_mean_nn_bwd", LEAF, 94, max(grad_errs),
+           lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
+           lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
+           float(k * p * h * (4 * f + 4)), io + 4.0 * (p * h + f * h + h))
+
+
+def pool_rows(dev, gen, record, b, k, p) -> None:
+    """``pool_membership_mask`` against its plain version: -1 padded rows,
+    the shape given and a ragged (B, P)."""
+    for bb, pp in ((b, p), (b - 24 if b > 24 else b, p - 60 if p > 60 else p)):
+        rows = torch.randint(0, 30_000, (bb, k), generator=gen, device=dev, dtype=torch.int32)
+        valid = torch.randint(0, k + 1, (bb, 1), generator=gen, device=dev)
+        rows[torch.arange(k, device=dev)[None, :] >= valid] = -1
+        pool = torch.randint(0, 30_000, (pp,), generator=gen, device=dev, dtype=torch.int32)
+        pool[: min(pp, k)] = rows[0, : min(pp, k)]  # some pairs hit; -1 never matches
+        out = pm.pool_membership_mask(rows, pool)
+        if not torch.equal(out, pm.pool_membership_mask_reference(rows, pool)):
+            raise AssertionError(f"pool_membership_mask [{bb}, {k}, {pp}] differs")
+    # Compares the function needs: every valid slot of a row, per pool entry.
+    compares = float(p) * float((rows >= 0).sum())
+    record("pool_membership_mask", POOL, 31, 0.0, lambda: pm.pool_membership_mask(rows, pool),
+           lambda: pm.pool_membership_mask_reference(rows, pool), None,
+           compares, 4.0 * (b * k + p + b * p))
 
 
 def _assert_recs_valid(recs: dict, bought_rows: np.ndarray, num_items: int) -> None:
@@ -277,32 +427,41 @@ def request_breakdown(run_dir, dev, uids, k) -> dict:
     return out
 
 
-def phase_slice(dev, num_users=100_000, num_items=30_000, hidden=256, out=128,
-                request_sizes=(1, 128, 4096), k=10, on_card=True) -> dict:
-    """Serve the Medium model through the port's entry points on ``dev``;
-    returns the launch counts of the main path."""
-    t0 = time.perf_counter()
-    data = make_synthetic_data(
+def bench_data(num_users=100_000, num_items=30_000):
+    """The synthetic click+purchase graph of ``bench.py:206-216``."""
+    return make_synthetic_data(
         num_users=num_users, num_items=num_items, num_groups=64,
         interactions_per_user=10, test_per_user=2, feat_dim=8, with_clicks=True,
         seed=0, max_fanout=32,
     )
+
+
+def medium_kwargs(graph, hidden=256, out=128) -> dict:
+    """The Medium ``ConvModel`` of ``bench.py:218-233`` (f32)."""
+    return dict(canonical_etypes=graph.canonical_etypes,
+                dims=(("user", 8), ("item", 8), ("hidden", hidden), ("out", out)),
+                n_layers=3, aggregator_type="mean_nn", pred="cos", aggregator_hetero="sum",
+                embedding_layer=True)
+
+
+def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=10,
+                on_card=True):
+    """Serve the Medium model through the port's entry points on ``dev``;
+    returns (the launch counts of the main path, the random weights'
+    recall@k)."""
+    num_users, num_items = data.num_users, data.num_items
     g = data.graph
     buys_u, buys_i = data.train_pairs[BUYS]
     counts = np.bincount(buys_i, minlength=num_items).astype(np.float32)
     g.ndata["item"]["popularity"] = torch.from_numpy(counts / counts.max())[:, None]
-    kw = dict(canonical_etypes=g.canonical_etypes,
-              dims=(("user", 8), ("item", 8), ("hidden", hidden), ("out", out)),
-              n_layers=3, aggregator_type="mean_nn", pred="cos", aggregator_hetero="sum",
-              embedding_layer=True)
+    kw = medium_kwargs(g, hidden, out)
     model = ConvModel(**kw, generator=torch.Generator().manual_seed(0))
     model_kwargs = dict(kw, canonical_etypes=[list(e) for e in kw["canonical_etypes"]],
                         dims=[list(d) for d in kw["dims"]], norm=True, dropout=0.0)
     bought_rows = build_padded_pair_set(buys_u, buys_i, num_src=num_users).rows.numpy()
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
     rng = np.random.default_rng(1)
-    report = {"graph_s": time.perf_counter() - t0,
-              "edges": {"/".join(et): g.num_edges(et) for et in g.canonical_etypes}}
+    report = {}
 
     with tempfile.TemporaryDirectory() as run_dir:
         t0 = time.perf_counter()
@@ -394,7 +553,165 @@ def phase_slice(dev, num_users=100_000, num_items=30_000, hidden=256, out=128,
         }
         report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
     say("slice", **report)
+    return launches, metrics[1]
+
+
+def leaf_branches(graph, ntype: str, level: int) -> int:
+    """Leaf-kernel branches of one seed's tree: every in-etype of a level-1
+    node (``_tree_level``: the self subtree, then each in-etype's)."""
+    in_etypes = [et for et in graph.canonical_etypes if et[2] == ntype]
+    if level == 1:
+        return len(in_etypes)
+    return leaf_branches(graph, ntype, level - 1) + sum(
+        leaf_branches(graph, et[0], level - 1) for et in in_etypes)
+
+
+def _grads(model) -> dict:
+    return {n: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+            for n, p in model.named_parameters()}
+
+
+def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool=2560,
+                fanouts=(8, 4), random_recall=None, k=10, on_card=True):
+    """Train the Medium model with the ``bench.py`` step on ``dev``; returns
+    the launch counts of the main path (the training run)."""
+    g = data.graph.to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    kw = medium_kwargs(g, hidden, out)
+    model = ConvModel(**kw, leaf_kernel=True)
+    init_model(model, seed=0)  # the slice phase's random weights
+    model.to(dev)
+    cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
+                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True)
+    etypes = tuple(data.train_pairs)
+    has_reverse = {et: True for et in etypes}
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    state = TrainState.create(model, lr=cfg.lr)
+    step = make_minibatch_step(model, cfg, etypes, with_update=True, with_exclusion=True,
+                               has_reverse=has_reverse)
+    store = EdgeStore(data.graph, etypes)
+    batches = iter_edge_batches(np.random.default_rng(0),
+                                {et: np.arange(g.num_edges(et)) for et in etypes}, batch_size)
+    draws = Draws(torch.Generator(device=dev).manual_seed(0))
+    per_step = {"leaf_mean_nn_fwd": sum(leaf_branches(g, nt, model.num_conv_layers)
+                                        for nt in ("user", "item")),
+                "pool_membership_mask": len(etypes)}
+    per_step["leaf_mean_nn_bwd"] = per_step["leaf_mean_nn_fwd"]
+    counters = {"leaf_mean_nn_fwd": la.leaf_mean_nn_fwd, "leaf_mean_nn_bwd": la.leaf_mean_nn_bwd,
+                "pool_membership_mask": pm.pool_membership_mask}
+
+    # The main path: counters from 0, read right after.
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        if dev.type == "cuda":  # the window holds the batch's assembly too
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+        batch = store.batch(next(batches), True, dev)
+        _, loss = step(state, g, feats, batch, tables, draws)
+        if dev.type == "cuda":
+            events[-1][1].record()
+        losses.append(loss)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses = torch.stack(losses).cpu().numpy()
+    window = max(1, min(20, steps // 4))
+    first, last = float(losses[:window].mean()), float(losses[-window:].mean())
+    edges = sum(len(v["u"]) for v in batch.values())
+    report = {"steps": steps, "edges_per_step": edges, "train_s": train_s,
+              "edges_per_s": steps * edges / train_s,
+              "loss_first_mean": first, "loss_last_mean": last,
+              "window": window, "launches": launches, "launches_per_step": per_step}
+    if events:
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        report.update(step_ms_median=float(np.median(step_ms)),
+                      step_ms_min=float(np.min(step_ms)), step_ms_max=float(np.max(step_ms)),
+                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"the loss is not finite or does not fall: {first} -> {last}")
+    for name, n in per_step.items():
+        want = n * steps if on_card else 0
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches, expected {want}")
+    if on_card:
+        report["profile"] = profile_steps(
+            lambda: step(state, g, feats, store.batch(next(batches), True, dev), tables, draws))
+
+    # One step through the kernels and through the plain route, same
+    # parameters, batch and draws: loss and gradients must agree.
+    plain = ConvModel(**kw, leaf_kernel=False).to(dev)
+    plain.load_state_dict(model.state_dict())
+    batch = store.batch(next(batches), True, dev)
+
+    def loss_and_grads(m, c, step_draws):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss = make_minibatch_loss(m, c, etypes, True, has_reverse)(
+            g, feats, batch, tables, step_draws)
+        loss.backward()
+        return float(loss.detach()), _grads(m)
+
+    rec = Draws(torch.Generator(device=dev).manual_seed(1), record=True)
+    lk, gk = loss_and_grads(model, cfg, rec)
+    lp, gp = loss_and_grads(plain, dataclasses.replace(cfg, pool_mask_kernel=False),
+                            rec.replay())
+    if not abs(lk - lp) <= LOSS_RTOL * abs(lp):
+        raise AssertionError(f"kernel and plain routes: loss {lk} vs {lp}")
+    worst = 0.0
+    for name, a in gk.items():
+        excess = ((a - gp[name]).abs() - STEP_GRAD_RTOL * gp[name].abs()).max()
+        worst = max(worst, float(excess))
+    if not worst <= STEP_GRAD_ATOL:
+        raise AssertionError(f"kernel and plain routes: gradients differ by {worst} "
+                             f"beyond rtol {STEP_GRAD_RTOL}")
+    report["routes"] = {"loss_kernel": lk, "loss_plain": lp, "grad_excess_over_rtol": worst}
+
+    # The trained model's quality against the random weights'.
+    h = compute_embeddings(model, g, feats, device=dev)
+    metrics = get_metrics_at_k(h["user"], h["item"], data.test_ground_truth,
+                               data.train_pairs[BUYS], k, device=dev)
+    report["precision_recall_coverage"] = metrics
+    report["random_weights_recall"] = random_recall
+    if random_recall is not None and not metrics[1] > random_recall:
+        raise AssertionError(f"trained recall@{k} {metrics[1]} <= random weights' {random_recall}")
+    say("train", **report)
     return launches
+
+
+# Kernel-name patterns of the step breakdown, first match wins.
+KERNEL_GROUPS = (
+    ("leaf_mean_nn", ("leaf_fwd", "leaf_bwd")),
+    ("pool_membership_mask", ("pool_mask",)),
+    ("matmul", ("gemm", "gemv", "cutlass", "sm90_", "splitK")),
+    ("gather / scatter / index", ("index", "gather", "scatter", "Indexing")),
+    ("reductions", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "vectorized", "Elementwise", "unrolled")),
+)
+
+
+def profile_steps(run_step, n=5) -> dict:
+    """``n`` steps under ``torch.profiler``: host wall time, the device's
+    busy time by kernel group (ms a step) and its idle share."""
+    wall_ms, kernels = profiled_kernels(run_step, n)
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no CUDA kernel for the training steps")
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for key, _, us in kernels:
+        name = next((g for g, pats in KERNEL_GROUPS if any(p in key for p in pats)), "other")
+        groups[name] += us / 1e3 / n
+    busy = sum(groups.values())
+    return {"steps": n, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "kernels_per_step": sum(c for _, c, _ in kernels) / n,
+            "device_ms_per_step_by_group": groups}
 
 
 def main() -> int:
@@ -404,7 +721,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     rows = phase_kernels(dev)
-    launches = phase_slice(dev)
+    t0 = time.perf_counter()
+    data = bench_data()
+    say("graph", seconds=time.perf_counter() - t0,
+        edges={"/".join(et): data.graph.num_edges(et) for et in data.graph.canonical_etypes})
+    launches, random_recall = phase_slice(dev, data)
+    launches.update(phase_train(dev, data, random_recall=random_recall))
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

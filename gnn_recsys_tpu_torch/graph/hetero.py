@@ -48,6 +48,11 @@ class Relation:
     def num_edges(self) -> int:
         return self.src.shape[0]
 
+    @property
+    def max_fanout(self) -> int:
+        """Padded row width K of the neighbour table."""
+        return self.nbr.shape[1]
+
     def to(self, device) -> "Relation":
         return Relation(
             src=self.src.to(device), dst=self.dst.to(device),

@@ -1,11 +1,14 @@
-"""Hetero GraphSAGE-style model, full-graph path.
+"""Hetero GraphSAGE-style model: full-graph and sampled-tree paths.
 
-Port of ``ConvModel`` (``gnn_recsys_tpu/models/conv_model.py:86-305``): an
+Port of ``ConvModel`` (``gnn_recsys_tpu/models/conv_model.py``): an
 optional per-ntype embedding Linear, a stack of per-etype
 :class:`ConvLayer`\\ s with a cross-etype reduction (``sum``, ``mean`` or
 ``max``), and the cosine predictor.  ``get_repr`` runs the whole graph
-layer by layer; the sampled-tree minibatch path and ``pred="nn"`` are not
-ported yet (ROADMAP.md).
+layer by layer; ``sampled_repr`` / ``minibatch_forward`` expand static-shape
+sampled trees of global node ids (one independent sample per occurrence,
+the JAX package's ``dedup=False`` tree).  Not ported yet (ROADMAP.md):
+``pred="nn"``, the dedup'd block forward, ``remat_levels`` and the sharded
+hooks (``feature_lookup``, ``neighbor_sample``).
 
 Layer-count rules as in the reference: ``n_layers`` counts the embedding
 layer when present, so there are ``n_layers - 1`` conv layers with
@@ -24,12 +27,30 @@ import torch
 from torch import nn
 
 from gnn_recsys_tpu_torch.graph.hetero import CanonicalEtype, HeteroGraph
-from gnn_recsys_tpu_torch.models.layers import AGGREGATOR_TYPES, ConvLayer, NodeEmbedding
+from gnn_recsys_tpu_torch.models.layers import (
+    AGGREGATOR_TYPES,
+    ConvLayer,
+    NodeEmbedding,
+    l2_normalize,
+)
+from gnn_recsys_tpu_torch.ops.cuda.leaf_agg import leaf_kernel_supported, leaf_mean_nn
 from gnn_recsys_tpu_torch.ops.message import coo_segment_max, coo_segment_mean
+from gnn_recsys_tpu_torch.ops.sampling import exclusion_table, sample_neighbors
+
+# Edge pairs per etype: (src ids, dst ids).
+PairDict = Dict[CanonicalEtype, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _etype_key(etype: CanonicalEtype) -> str:
     return "__".join(etype)
+
+
+def _exclusion_kwargs(excl) -> Dict[str, torch.Tensor]:
+    """One translated exclusion entry as a ``sample_neighbors`` argument:
+    2-D = sign-marked neighbour table, 1-D = positional bool flags."""
+    if excl is None:
+        return {}
+    return {"nbr_table": excl} if excl.dim() == 2 else {"exclude_flags": excl}
 
 
 class ConvModel(nn.Module):
@@ -39,7 +60,12 @@ class ConvModel(nn.Module):
     per node type (its feature width) plus ``hidden`` and ``out``.  Weights
     are drawn from ``generator`` (a fresh ``torch.Generator`` seeded 0 when
     None) with the JAX package's init rules.  The port computes in f32
-    (bf16 serving: ROADMAP.md).
+    (bf16 compute: ROADMAP.md).
+
+    ``leaf_kernel`` runs the folded ``*_nn`` mean leaf of the sampled tree
+    through the fused :func:`~gnn_recsys_tpu_torch.ops.cuda.leaf_agg.leaf_mean_nn`
+    (a CUDA kernel for CUDA tensors, its plain version on the CPU);
+    ``leaf_block`` bounds the parents one block of its backward sums.
     """
 
     def __init__(
@@ -53,6 +79,9 @@ class ConvModel(nn.Module):
         pred: str = "cos",
         aggregator_hetero: str = "sum",
         embedding_layer: bool = True,
+        remat_levels: bool = False,
+        leaf_kernel: bool = False,
+        leaf_block: int = 512,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -64,6 +93,11 @@ class ConvModel(nn.Module):
             raise KeyError(f"Cross-etype aggregator {aggregator_hetero} not recognized.")
         if pred == "nn":
             raise NotImplementedError("pred='nn' (the MLP head) is not ported yet (ROADMAP.md)")
+        if remat_levels:
+            raise NotImplementedError("remat_levels is not ported yet (ROADMAP.md)")
+        self.leaf_kernel = leaf_kernel
+        self.leaf_block = leaf_block
+        self._leaf_weights: Optional[Dict] = None  # set during a sampled_repr walk
         self.canonical_etypes = tuple(tuple(e) for e in canonical_etypes)
         self.dims = tuple((str(k), int(v)) for k, v in dims)
         self.n_layers = n_layers
@@ -178,3 +212,228 @@ class ConvModel(nn.Module):
                 features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Embeddings of every node: feature projection, then all conv layers."""
         return self.get_repr(graph, self.embed_features(features))
+
+    # ------------------------------------------------------------------
+    # Sampled-tree minibatch forward
+    # ------------------------------------------------------------------
+    def sampled_repr(self, graph: HeteroGraph, features: Dict[str, torch.Tensor],
+                     seeds: Dict[str, torch.Tensor], fanouts: Sequence[int], draws,
+                     exclude_eids: Optional[Dict[CanonicalEtype, torch.Tensor]] = None,
+                     dedup: bool = False, feature_lookup=None,
+                     neighbor_sample=None) -> Dict[str, torch.Tensor]:
+        """Minibatch representations over sampled trees
+        (``conv_model.py:310-428``): level ``l`` samples ``fanouts[l-1]``
+        neighbours of every frontier node (-1: the whole padded row), depth
+        equals the number of conv layers, and every gather reads the global
+        graph and feature tables.
+
+        seeds: ntype -> int ids of any shape; ``draws`` gives the uniform
+        draws of every sampler call, in walk order (:mod:`.ops.sampling`).
+        exclude_eids: etype -> edge ids kept out of the sampled
+        neighbourhoods (translated once into sign-marked tables), or an
+        already translated table / flag array.  Dropout follows
+        ``self.training``.  Returns ntype -> [*seed_shape, out_dim].
+        """
+        if len(fanouts) != len(self.layers):
+            raise ValueError(f"fanouts has {len(fanouts)} entries, model has "
+                             f"{len(self.layers)} conv layers")
+        if dedup:
+            raise NotImplementedError("the dedup'd block forward is not ported yet (ROADMAP.md)")
+        if feature_lookup is not None or neighbor_sample is not None:
+            raise NotImplementedError("the sharded lookup / sampler hooks are not ported yet "
+                                      "(ROADMAP.md)")
+        if exclude_eids is not None:
+            exclude_eids = {
+                et: (exclusion_table(graph.rels[et], v)
+                     if v.dim() == 1 and v.dtype != torch.bool and et in graph.rels else v)
+                for et, v in exclude_eids.items()
+            }
+        # Composed leaf weights, once per (layer, etype) for the whole walk.
+        self._leaf_weights = {}
+        try:
+            return {nt: self._tree(graph, features, exclude_eids, tuple(fanouts),
+                                   len(self.layers), nt, ids, draws)
+                    for nt, ids in seeds.items()}
+        finally:
+            self._leaf_weights = None
+
+    def _tree(self, graph, features, exclude_eids, fanouts, level, ntype, ids, draws):
+        """One tree level on the flattened frontier, reshaped back."""
+        out = self._tree_level(graph, features, exclude_eids, fanouts, level, ntype,
+                               ids.reshape(-1), draws)
+        return out.reshape(*ids.shape, out.shape[-1])
+
+    @staticmethod
+    def _fetch_rows(features, ntype: str, ids: torch.Tensor) -> torch.Tensor:
+        table = features[ntype]
+        return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+    def _no_dropout(self, layer: ConvLayer) -> bool:
+        return layer.dropout.p == 0.0 or not self.training
+
+    def _can_fold_leaf(self, layer: ConvLayer, src_ntype: str, level: int) -> bool:
+        """Whether the leaf's embed + fc_preagg pair folds into one affine
+        map (``conv_model.py:499``): both are affine when dropout is off."""
+        return (level == 1 and self.embedding_layer and src_ntype in self.embed
+                and layer.aggregator_type in ("mean_nn", "mean_nn_edge", "pool_nn",
+                                              "pool_nn_edge")
+                and self._no_dropout(layer))
+
+    def _composed_leaf_weights(self, layer: ConvLayer, src_ntype: str, d_raw: int,
+                               dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(W_eff [d_raw, H], b_eff [H])`` of embed + fc_preagg, by probing
+        each module at basis points (``conv_model.py:522-544``): the rows of
+        ``embed([0; I])`` are ``[b1; W1 + b1]``, so ``W_eff = ((W1 + b1) -
+        b1) @ W2`` as the JAX package computes it (not ``W1 @ W2``).  Within
+        one ``sampled_repr`` walk each pair is computed once."""
+        key = (id(layer), src_ntype, d_raw, dtype)
+        cache = self._leaf_weights
+        if cache is not None and key in cache:
+            return cache[key]
+        dev = layer.fc_preagg.weight.device
+        probe = torch.cat([torch.zeros((1, d_raw), dtype=dtype, device=dev),
+                           torch.eye(d_raw, dtype=dtype, device=dev)])
+        eb = self.embed[src_ntype](probe)
+        w2 = layer.fc_preagg(torch.eye(eb.shape[-1], dtype=eb.dtype, device=dev))  # [H, H]
+        out = ((eb[1:] - eb[0]) @ w2, eb[0] @ w2)
+        if cache is not None:
+            cache[key] = out
+        return out
+
+    def _leaf_transform_composed(self, layer, src_ntype: str, raw: torch.Tensor) -> torch.Tensor:
+        """``relu(fc_preagg(embed(raw)))`` through the composed weights."""
+        w_eff, b_eff = self._composed_leaf_weights(layer, src_ntype, raw.shape[-1], raw.dtype)
+        return torch.relu(raw.to(w_eff.dtype) @ w_eff + b_eff)
+
+    @staticmethod
+    def _edge_weighted(layer: ConvLayer, etype: CanonicalEtype, rel) -> bool:
+        """``*_edge`` variants weight by occurrence on user-item etypes only."""
+        return (layer.edge_weighted and etype[0] in ("user", "item")
+                and etype[2] in ("user", "item") and "occurrence" in rel.edata)
+
+    def _tree_level(self, graph, features, exclude_eids, fanouts, level, ntype, ids, draws):
+        """``conv_model.py:566-850``: the self branch first, then each
+        in-etype in ``graph.canonical_etypes`` order, sampled and then
+        recursed into; ``ids`` is 1-D."""
+        if level == 0:
+            x = self._fetch_rows(features, ntype, ids)
+            if self.embedding_layer and ntype in self.embed:
+                x = self.embed[ntype](x)
+            return x
+        layer_dict = self.layers[level - 1]
+        fanout = fanouts[level - 1]
+        in_etypes = [et for et in graph.canonical_etypes
+                     if et[2] == ntype and _etype_key(et) in layer_dict]
+        if not in_etypes:
+            raise ValueError(f"node type {ntype} has no incoming etypes")
+        h_self = self._tree(graph, features, exclude_eids, fanouts, level - 1, ntype, ids, draws)
+        zs = []
+        for etype in in_etypes:
+            layer = layer_dict[_etype_key(etype)]
+            rel = graph.rels[etype]
+            excl = None if exclude_eids is None else exclude_eids.get(etype)
+            need_eid = self._edge_weighted(layer, etype, rel)
+            u = None if fanout == -1 else draws.uniform((*ids.shape, fanout))
+            nbr, eid, mask = sample_neighbors(
+                rel, ids, max(fanout, 1), u=u, mode="full" if fanout == -1 else "uniform",
+                with_eids=need_eid, **_exclusion_kwargs(excl))
+            agg = self._aggregate(graph, features, exclude_eids, fanouts, level, etype, layer,
+                                  rel, nbr, eid, mask, need_eid, draws)
+            zs.append(layer.combine(h_self, agg))
+        return self._cross_etype_reduce(torch.stack(zs))
+
+    def _aggregate(self, graph, features, exclude_eids, fanouts, level, etype, layer, rel,
+                   nbr, eid, mask, need_eid, draws) -> torch.Tensor:
+        """The neighbour aggregate of one sampled etype branch."""
+        src_t = etype[0]
+        if (level == 1 and self.embedding_layer and src_t in self.embed
+                and layer.aggregator_type == "mean" and self._no_dropout(layer)):
+            # Plain 'mean': the affine embed commutes with the masked mean, so
+            # average the raw features and embed once per node; zero-degree
+            # rows stay 0 (``conv_model.py:689-717``).
+            raw = self._fetch_rows(features, src_t, nbr.reshape(-1)).reshape(*nbr.shape, -1)
+            count = mask.to(raw.dtype).sum(dim=-1)
+            s = (raw * mask[..., None].to(raw.dtype)).sum(dim=-2) / count.clamp(min=1.0)[..., None]
+            agg = self.embed[src_t](s)
+            return agg * (count > 0)[..., None].to(agg.dtype)
+        fdim = features[src_t].shape[-1]
+        if (self.leaf_kernel and not need_eid and layer.reducer == "mean"
+                and self._can_fold_leaf(layer, src_t, level) and leaf_kernel_supported(fdim)):
+            # The fused leaf: gather k-major, then one kernel computes the
+            # masked mean of relu(x @ W_eff + b_eff) without the [P, K, H]
+            # per-message activations (``conv_model.py:718-759``).
+            w_eff, b_eff = self._composed_leaf_weights(layer, src_t, fdim, torch.float32)
+            kf = nbr.shape[-1]
+            pkids = nbr.reshape(-1, kf)  # [P, K] parent-major ids
+            p0 = pkids.shape[0]
+            x = self._fetch_rows(features, src_t, pkids.T.reshape(-1))  # k-major
+            x_km = x.to(w_eff.dtype).reshape(kf, p0, -1)
+            maskf = mask.reshape(p0, kf).float()
+            mask_scaled = maskf / maskf.sum(dim=1, keepdim=True).clamp(min=1.0)
+            agg = leaf_mean_nn(x_km, mask_scaled, w_eff, b_eff, self.leaf_block)
+            return agg.reshape(*nbr.shape[:-1], agg.shape[-1])
+        if self._can_fold_leaf(layer, src_t, level):
+            raw = self._fetch_rows(features, src_t, nbr.reshape(-1)).reshape(*nbr.shape, -1)
+            msgs = self._leaf_transform_composed(layer, src_t, raw)
+        else:
+            h_nbr = self._tree(graph, features, exclude_eids, fanouts, level - 1, src_t, nbr,
+                               draws)
+            msgs = layer.transform_src(h_nbr)
+        if need_eid:
+            w = rel.edata["occurrence"].to(msgs.dtype)[eid.long()]
+            msgs = msgs * w[..., None]
+        if layer.reducer == "mean":
+            total = (msgs * mask[..., None].to(msgs.dtype)).sum(dim=-2)
+            count = mask.to(msgs.dtype).sum(dim=-1)
+            return total / count.clamp(min=1.0)[..., None]
+        neg = torch.full_like(msgs, float("-inf"))
+        agg = torch.where(mask[..., None], msgs, neg).amax(dim=-2)
+        return torch.where(torch.isfinite(agg), agg, torch.zeros_like(agg))
+
+    # ------------------------------------------------------------------
+    # Scoring
+    # ------------------------------------------------------------------
+    def score_emb_pairs(self, emb_u: torch.Tensor, emb_v: torch.Tensor) -> torch.Tensor:
+        """Cosine score of embedding pairs on the last axis (broadcasting)."""
+        return (l2_normalize(emb_u) * l2_normalize(emb_v)).sum(dim=-1).float()
+
+    def minibatch_forward(self, graph: HeteroGraph, features: Dict[str, torch.Tensor],
+                          batch: PairDict, neg_pool: torch.Tensor,
+                          neg_idx: Dict[CanonicalEtype, Optional[torch.Tensor]],
+                          fanouts: Sequence[int], draws,
+                          exclude_eids: Optional[Dict[CanonicalEtype, torch.Tensor]] = None,
+                          dedup: bool = False, feature_lookup=None, neighbor_sample=None):
+        """Sampled-tree forward and scoring of one minibatch
+        (``conv_model.py:1064-1157``).
+
+        batch: etype -> (pos_u [B], pos_i [B]); neg_pool: [P] item ids;
+        neg_idx: etype -> [B, S] indices into the pool, or None to score the
+        whole pool (dense pool: one [B, P] product).
+        Returns (pos_scores, neg_scores, neg_dsts), dicts per etype.
+        """
+        etypes = list(batch)
+        pos_us = [batch[et][0].long() for et in etypes]
+        pos_is = [batch[et][1].long() for et in etypes]
+        reprs = self.sampled_repr(
+            graph, features,
+            {"user": torch.cat(pos_us), "item": torch.cat(pos_is + [neg_pool.long()])},
+            fanouts, draws, exclude_eids=exclude_eids, dedup=dedup,
+            feature_lookup=feature_lookup, neighbor_sample=neighbor_sample)
+        offsets = [0]
+        for p in pos_us:
+            offsets.append(offsets[-1] + p.shape[0])
+        pool_norm = l2_normalize(reprs["item"][offsets[-1]:])
+        pos_scores, neg_scores, neg_dsts = {}, {}, {}
+        for j, et in enumerate(etypes):
+            lo, hi = offsets[j], offsets[j + 1]
+            ue, ie = reprs["user"][lo:hi], reprs["item"][lo:hi]
+            pos_scores[et] = self.score_emb_pairs(ue, ie)
+            scores = (l2_normalize(ue) @ pool_norm.T).float()  # [B, P]
+            idx = neg_idx[et]
+            if idx is None:
+                neg_scores[et] = scores
+                neg_dsts[et] = neg_pool[None, :].expand(hi - lo, -1)
+            else:
+                neg_scores[et] = scores.gather(1, idx.long())
+                neg_dsts[et] = neg_pool[idx.long()]
+        return pos_scores, neg_scores, neg_dsts

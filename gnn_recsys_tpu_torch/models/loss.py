@@ -1,0 +1,88 @@
+"""Ranking losses.
+
+Port of ``gnn_recsys_tpu/models/loss.py``:
+
+* :func:`max_margin_loss` — the reference's hinge (``src/model.py:473-533``):
+  per etype ``relu(neg + delta - pos - false_negative_mask)``, optionally
+  divided by the positive's recency, then one mean over every score element
+  of every etype.
+* :func:`sampled_softmax_loss` — InfoNCE over the negatives, an extension of
+  the JAX package (not in the reference).
+
+``pair_mask`` (per-positive validity) excludes padded batch rows from the
+mean; all-valid masks reproduce the plain mean.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from gnn_recsys_tpu_torch.graph.hetero import CanonicalEtype
+
+Scores = Dict[CanonicalEtype, torch.Tensor]
+
+
+def max_margin_loss(
+    pos_score: Scores,
+    neg_score: Scores,
+    delta: float,
+    negative_mask: Optional[Scores] = None,
+    recency_scores: Optional[Scores] = None,
+    pair_mask: Optional[Scores] = None,
+) -> torch.Tensor:
+    """pos_score[et]: [B]; neg_score[et]: [B, S]; negative_mask[et]: [B, S]
+    f32 (1.0 cancels a false negative, the reference's subtract-the-mask
+    trick); recency_scores[et]: [B] divisors; pair_mask[et]: [B] bool."""
+    total = count = None
+    for etype, neg in neg_score.items():
+        b, s = neg.shape
+        scores = neg + delta - pos_score[etype][:, None]
+        if negative_mask is not None and etype in negative_mask:
+            scores = scores - negative_mask[etype]
+        scores = torch.relu(scores)
+        if recency_scores is not None and etype in recency_scores:
+            scores = scores / recency_scores[etype][:, None]
+        if pair_mask is not None and etype in pair_mask:
+            valid = pair_mask[etype].to(scores.dtype)[:, None]
+            scores = scores * valid
+            n = valid.sum() * s
+        else:
+            n = torch.tensor(float(b * s), device=scores.device)
+        total = scores.sum() if total is None else total + scores.sum()
+        count = n if count is None else count + n
+    if total is None:
+        raise ValueError("no scores")
+    return total / count.clamp(min=1.0)
+
+
+def sampled_softmax_loss(
+    pos_score: Scores,
+    neg_score: Scores,
+    tau: float = 0.1,
+    negative_mask: Optional[Scores] = None,
+    recency_scores: Optional[Scores] = None,
+    pair_mask: Optional[Scores] = None,
+) -> torch.Tensor:
+    """Per positive, ``-log softmax([pos, neg_1..neg_S] / tau)[0]``; a false
+    negative (``negative_mask`` > 0) leaves the partition function.  The
+    per-positive weight is 1/recency (and 0 on padded rows)."""
+    total = wsum = None
+    for etype, neg in neg_score.items():
+        neg = neg.float()
+        pos = pos_score[etype].float()
+        if negative_mask is not None and etype in negative_mask:
+            neg = torch.where(negative_mask[etype] > 0, torch.full_like(neg, float("-inf")), neg)
+        logits = torch.cat([pos[:, None], neg], dim=1) / tau
+        nll = -torch.log_softmax(logits, dim=1)[:, 0]  # [B]
+        w = torch.ones_like(nll)
+        if recency_scores is not None and etype in recency_scores:
+            w = w / recency_scores[etype]
+        if pair_mask is not None and etype in pair_mask:
+            w = w * pair_mask[etype].to(w.dtype)
+        total = (nll * w).sum() if total is None else total + (nll * w).sum()
+        wsum = w.sum() if wsum is None else wsum + w.sum()
+    if total is None:
+        raise ValueError("no scores")
+    return total / wsum.clamp(min=1e-9)

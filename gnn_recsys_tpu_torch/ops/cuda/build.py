@@ -17,6 +17,8 @@ import threading
 import time
 from typing import Dict, List
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -91,3 +93,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (a wrapper then takes its
+    plain version); raises unless they all lie on one CUDA device otherwise."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"tensors must all be on one CUDA device, got {devices}")
+    return False
+
+
+def stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, for a C entry point."""
+    return torch.cuda.current_stream(device).cuda_stream

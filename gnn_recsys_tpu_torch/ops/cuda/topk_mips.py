@@ -150,17 +150,6 @@ def mips_topk_boosted_reference(user_emb, item_emb, popularity, k: int,
 # Wrappers
 # ----------------------------------------------------------------------
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raises unless they all lie on
-    one CUDA device otherwise."""
-    devices = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devices):
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"tensors must all be on one CUDA device, got {devices}")
-    return False
-
-
 def _kernel_input(x: torch.Tensor, bf16: bool) -> torch.Tensor:
     x = x.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
     if x.data_ptr() % 16:  # the kernel reads 16-byte (f32) / 8-byte (bf16) groups
@@ -182,10 +171,6 @@ def _check_shapes(user_emb, item_emb, k=None) -> Tuple[int, int, int]:
         if k > max_k():
             raise ValueError(f"k={k} exceeds the CUDA kernel's limit {max_k()}")
     return num_users, num_items, d
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # Kernel modes of csrc/topk_mips.cu.
@@ -213,7 +198,7 @@ def mips_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     accumulate in f32 either way.  For cosine similarity, L2-normalize both
     inputs first.
     """
-    if _on_cpu(user_emb, item_emb):
+    if build.on_cpu(user_emb, item_emb):
         return mips_topk_reference(user_emb, item_emb, k, bf16=bf16)
     num_users, num_items, d = _check_shapes(user_emb, item_emb, k)
     dev = user_emb.device
@@ -226,7 +211,7 @@ def mips_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
             err = lib.mips_topk_launch(
                 ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, k, int(bf16),
                 splits, pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                _stream(dev),
+                build.stream(dev),
             )
         build.check(lib, err, "mips_topk")
         mips_topk.launches += 1
@@ -238,7 +223,7 @@ mips_topk.launches = 0
 
 def mips_lse(user_emb: torch.Tensor, item_emb: torch.Tensor, bf16: bool = False):
     """Per-user softmax normaliser of the scores: (max [U], sum-exp [U])."""
-    if _on_cpu(user_emb, item_emb):
+    if build.on_cpu(user_emb, item_emb):
         return mips_lse_reference(user_emb, item_emb, bf16=bf16)
     num_users, num_items, d = _check_shapes(user_emb, item_emb)
     dev = user_emb.device
@@ -252,7 +237,7 @@ def mips_lse(user_emb: torch.Tensor, item_emb: torch.Tensor, bf16: bool = False)
             err = lib.mips_lse_launch(
                 ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, int(bf16),
                 splits, pm.data_ptr(), ps.data_ptr(), m.data_ptr(), s.data_ptr(),
-                _stream(dev),
+                build.stream(dev),
             )
         build.check(lib, err, "mips_lse")
         mips_lse.launches += 1
@@ -266,7 +251,7 @@ def mips_boost(user_emb: torch.Tensor, item_emb: torch.Tensor,
                popularity: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
                k: int, weight: float = 1.0, bf16: bool = False):
     """Top-k of ``exp(u.i - m) / s + weight * popularity[i]`` per user."""
-    if _on_cpu(user_emb, item_emb, popularity, m, s):
+    if build.on_cpu(user_emb, item_emb, popularity, m, s):
         return mips_boost_reference(user_emb, item_emb, popularity, m, s, k,
                                     weight=weight, bf16=bf16)
     num_users, num_items, d = _check_shapes(user_emb, item_emb, k)
@@ -285,7 +270,7 @@ def mips_boost(user_emb: torch.Tensor, item_emb: torch.Tensor,
                 ue.data_ptr(), ie.data_ptr(), pop.data_ptr(), m32.data_ptr(),
                 s32.data_ptr(), float(weight), num_users, num_items, d, k, int(bf16),
                 splits, pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                _stream(dev),
+                build.stream(dev),
             )
         build.check(lib, err, "mips_boost")
         mips_boost.launches += 1
@@ -301,7 +286,7 @@ def mips_topk_boosted(user_emb: torch.Tensor, item_emb: torch.Tensor,
     """Popularity-boosted top-k: rank ``softmax(u . I^T) + weight * pop`` per
     user (reference ``src/metrics.py:69-72``) in two passes over the catalog,
     never holding the [U, I] score block."""
-    if _on_cpu(user_emb, item_emb, popularity):
+    if build.on_cpu(user_emb, item_emb, popularity):
         return mips_topk_boosted_reference(user_emb, item_emb, popularity, k,
                                            weight=weight, bf16=bf16)
     m, s = mips_lse(user_emb, item_emb, bf16=bf16)

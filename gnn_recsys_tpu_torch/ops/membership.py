@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gnn_recsys_tpu_torch.graph.hetero import coo_to_padded_csc
+from gnn_recsys_tpu_torch.ops.cuda import pool_mask
 
 
 @dataclasses.dataclass
@@ -58,6 +59,19 @@ def pair_set_contains(ps: PaddedPairSet, u: torch.Tensor, v: torch.Tensor) -> to
     if v.dim() == u.dim():
         return (rows == v[..., None]).any(dim=-1) & (v >= 0)
     return (rows[..., None, :] == v[..., None]).any(dim=-1) & (v >= 0)
+
+
+def pair_set_contains_pool(ps: PaddedPairSet, u: torch.Tensor, pool: torch.Tensor,
+                           use_kernel: bool = False) -> torch.Tensor:
+    """Membership of every (u[b], pool[p]) pair: the dense-pool
+    false-negative mask, where every positive probes the same pool.
+    Returns [B, P] f32.  ``use_kernel`` routes rows of at most 128 slots
+    through :func:`~gnn_recsys_tpu_torch.ops.cuda.pool_mask.pool_membership_mask`
+    (its plain version for CPU tensors), as the JAX routing does."""
+    rows = _rows_of(ps, u)  # [B, K]
+    if use_kernel and rows.shape[1] <= pool_mask.MAX_ROW:
+        return pool_mask.pool_membership_mask(rows, pool)
+    return pool_mask.pool_membership_mask_reference(rows, pool)
 
 
 def scatter_row_mask(ps: PaddedPairSet, u: torch.Tensor, num_dst: int) -> torch.Tensor:

@@ -1,17 +1,65 @@
-"""Full-graph embedding inference.
+"""Parameter init, the optimizer state, and full-graph embedding inference.
 
-Port of ``compute_embeddings`` (``gnn_recsys_tpu/train/full_batch.py:149``).
-The full-batch trainer waits for the training slice (ROADMAP.md).
+Port of ``init_model``, ``TrainState`` and ``compute_embeddings``
+(``gnn_recsys_tpu/train/full_batch.py:53-167``).  The full-batch trainer
+waits for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
 from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
+
+
+def init_model(model: ConvModel, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Draw every parameter (every (layer, etype) pair, as the JAX package's
+    schema-complete init) from a CPU ``torch.Generator`` seeded ``seed``, so
+    the values do not depend on where the model lives; returns the model's
+    state_dict.  Parameter shapes do not depend on the graph."""
+    dev = next(model.parameters()).device
+    model.to("cpu").reset_parameters(torch.Generator().manual_seed(seed))
+    model.to(dev)
+    return model.state_dict()
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its Adam optimizer and the number of updates applied.
+
+    optax's ``adam`` and ``torch.optim.Adam`` apply the same update,
+    ``lr * m_hat / (sqrt(v_hat) + eps)`` with eps outside the square root
+    (b1 0.9, b2 0.999, eps 1e-8).  Unlike flax's immutable state, this one
+    updates the model's parameters in place."""
+
+    model: ConvModel
+    tx: torch.optim.Optimizer
+    schedule: Optional[torch.optim.lr_scheduler.LRScheduler] = None
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: ConvModel, lr: float = 1e-3,
+               decay_steps: Optional[int] = None) -> "TrainState":
+        """Adam at ``lr``; with ``decay_steps``, decayed to 0 over that many
+        updates (the values of optax's ``cosine_decay_schedule``, alpha 0,
+        up to ``decay_steps``)."""
+        tx = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        schedule = None
+        if decay_steps is not None:
+            schedule = torch.optim.lr_scheduler.CosineAnnealingLR(
+                tx, T_max=max(1, decay_steps), eta_min=0.0)
+        return cls(model=model, tx=tx, schedule=schedule)
+
+    def apply_gradients(self) -> None:
+        """One update from the gradients in the parameters' ``.grad``."""
+        self.tx.step()
+        if self.schedule is not None:
+            self.schedule.step()
+        self.step += 1
 
 
 def compute_embeddings(

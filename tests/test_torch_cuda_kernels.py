@@ -1,4 +1,4 @@
-"""The CUDA MIPS kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``; without a card every test skips (the decision is made in a
 fixture).  On a CUDA host, without JAX installed::
@@ -11,11 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
+from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5  # f32 FMAs in another order than the library product
+# dW / db: sums over K*P terms in another order, relative to the largest
+# entry; bf16 outputs: one bf16 ulp.
+GRAD_REL = 1e-5
+BF16_RTOL = 2.0**-7
 
 
 @pytest.fixture
@@ -119,3 +125,99 @@ def test_cpu_tensors_take_the_plain_version(dev):
     assert tm.mips_topk.launches == n0
     with pytest.raises(ValueError):
         tm.mips_topk(ue.to(dev), ie, 3)
+
+
+def _leaf_case(dev, k, p, f, h, seed=0, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(k, p, f)).astype(np.float32), device=dev)
+    mask = torch.tensor((rng.random((p, k)) < 0.7).astype(np.float32), device=dev)
+    mask[p // 2] = 0.0  # an all-masked row
+    ms = mask / mask.sum(dim=1, keepdim=True).clamp(min=1.0)
+    w = torch.tensor((rng.normal(size=(f, h)) * 0.3).astype(np.float32), device=dev)
+    b = torch.tensor((rng.normal(size=(h,)) * 0.1).astype(np.float32), device=dev)
+    g = torch.tensor(rng.normal(size=(p, h)).astype(np.float32), device=dev)
+    return x.to(dtype), ms, w.to(dtype), b.to(dtype), g.to(dtype)
+
+
+@pytest.mark.parametrize("k,p,f,h", [(8, 18432, 8, 256), (8, 2047, 8, 256), (4, 37, 5, 33),
+                                     (16, 300, 128, 130), (1, 1, 1, 1)])
+def test_leaf_mean_nn_matches_plain(dev, k, p, f, h):
+    x, ms, w, b, g = _leaf_case(dev, k, p, f, h)
+    n_fwd, n_bwd = la.leaf_mean_nn_fwd.launches, la.leaf_mean_nn_bwd.launches
+    out = la.leaf_mean_nn_fwd(x, ms, w, b)
+    dw, db = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+    torch.cuda.synchronize()
+    assert (la.leaf_mean_nn_fwd.launches, la.leaf_mean_nn_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    torch.testing.assert_close(out, la.leaf_mean_nn_reference(x, ms, w, b), rtol=0, atol=TOL)
+    assert (out[p // 2] == 0).all()
+    rdw, rdb = la.leaf_mean_nn_bwd_reference(x, ms, w, b, g)
+    for got, want in ((dw, rdw), (db, rdb)):
+        assert float((got - want).abs().max()) <= GRAD_REL * max(1.0, float(want.abs().max()))
+    # No atomics: a second run gives bit-identical gradients.
+    dw2, db2 = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+def test_leaf_mean_nn_bf16_and_autograd(dev):
+    x, ms, w, b, g = _leaf_case(dev, 8, 4608, 8, 256, seed=1, dtype=torch.bfloat16)
+    out = la.leaf_mean_nn_fwd(x, ms, w, b)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), la.leaf_mean_nn_reference(x, ms, w, b).float(),
+                               rtol=BF16_RTOL, atol=1e-6)
+    x, ms, w, b, g = _leaf_case(dev, 8, 1000, 8, 64, seed=2)
+    wk, bk = w.clone().requires_grad_(), b.clone().requires_grad_()
+    (la.leaf_mean_nn(x, ms, wk, bk) * g).sum().backward()
+    wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+    (la.leaf_mean_nn_reference(x, ms, wr, br) * g).sum().backward()
+    torch.testing.assert_close(wk.grad, wr.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(bk.grad, br.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_train_minibatch_runs_the_kernels_on_the_card(dev):
+    """The trainer entry point on the card: both kernels launch, the loss is
+    finite, and a seed gives the same parameters wherever they are drawn."""
+    from gnn_recsys_tpu_torch.models.conv_model import ConvModel
+    from gnn_recsys_tpu_torch.train.full_batch import init_model
+    from gnn_recsys_tpu_torch.train.minibatch import MinibatchConfig, train_minibatch
+    from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
+
+    data = make_synthetic_data(num_users=200, num_items=80, seed=0)
+    g = data.graph
+    model = ConvModel(g.canonical_etypes, (("user", 8), ("item", 8), ("hidden", 32), ("out", 16)),
+                      aggregator_type="mean_nn", leaf_kernel=True).to(dev)
+    on_cpu = init_model(ConvModel(g.canonical_etypes, model.dims, aggregator_type="mean_nn"), 11)
+    cfg = MinibatchConfig(edge_batch_size=256, fanouts=(4, 4), neg_mode="dense_pool",
+                          neg_pool_size=64, pool_mask_kernel=True, num_epochs=2, metrics_every=0)
+    on_dev = init_model(model, 11)
+    assert all(torch.equal(v, on_dev[k].cpu()) for k, v in on_cpu.items())
+    n_fwd, n_bwd = la.leaf_mean_nn_fwd.launches, la.leaf_mean_nn_bwd.launches
+    n_pool = pm.pool_membership_mask.launches
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    _, hist = train_minibatch(model, g, g, feats,
+                              {et: np.arange(g.num_edges(et)) for et in data.train_pairs},
+                              None, cfg)
+    assert np.isfinite(hist["train_loss"]).all()
+    assert la.leaf_mean_nn_fwd.launches > n_fwd and la.leaf_mean_nn_bwd.launches > n_bwd
+    assert pm.pool_membership_mask.launches > n_pool
+
+
+@pytest.mark.parametrize("b,k,p", [(1024, 32, 2560), (1000, 24, 2500), (3, 128, 7)])
+def test_pool_membership_mask_matches_plain(dev, b, k, p):
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, 3000, (b, k)).astype(np.int32)
+    valid = rng.integers(0, k + 1, b)
+    valid[0] = k
+    rows[np.arange(k)[None, :] >= valid[:, None]] = -1
+    pool = rng.integers(0, 3000, p).astype(np.int32)
+    n = min(p, k)
+    pool[:n] = rows[0, :n]  # make sure some pairs hit
+    pool[-1] = -1  # never matches, though rows are -1 padded
+    rows_t, pool_t = torch.tensor(rows, device=dev), torch.tensor(pool, device=dev)
+    n0 = pm.pool_membership_mask.launches
+    out = pm.pool_membership_mask(rows_t, pool_t)
+    torch.cuda.synchronize()
+    assert pm.pool_membership_mask.launches == n0 + 1
+    assert torch.equal(out, pm.pool_membership_mask_reference(rows_t, pool_t))
+    assert float(out.sum()) > 0 and (out[:, -1] == 0).all()
+    with pytest.raises(ValueError):
+        pm.pool_membership_mask(torch.zeros((2, 129), dtype=torch.int32, device=dev), pool_t)
