@@ -22,7 +22,9 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    forward and backward at the training step's widest leaf (P=18,432, K=8,
    F=8, H=256) in f32 and bf16, a ragged P and an all-masked row;
    ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding and ragged
-   B and P.
+   B and P; ``gather_mean`` forward and backward at the dedup step's widest
+   mean (B=38,912, K=8, N=30,000, D=256) and a ragged B, with an all-masked
+   row and ids of -1 and >= N among the valid slots.
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -41,6 +43,15 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    the kernel route against the plain route (same parameters and draws);
    the trained model's recall@10, which must beat the random weights' of
    phase 4.
+6. train_dedup: the same step through the dedup'd block forward
+   (``MinibatchConfig(dedup=True)``), about 50 steps from fresh random
+   weights: the same report, launch counts of exactly 8 / 8 / 2 / 0 a step
+   (gather-mean forward / backward, pool mask, leaf), one step of the kernel
+   route against the plain route (the gather-mean wrapper swapped for its
+   plain version in the model for that step).
+7. packed_leaf: one tree forward at fanouts (-1, -1) for 32 users and 32
+   items through the packed leaf cache (``attach_leaf_features``) and
+   without it.
 
 Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -60,10 +71,13 @@ import numpy as np
 import torch
 
 from gnn_recsys_tpu_torch.config import HyperParams
+from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features
 from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_ondemand
+from gnn_recsys_tpu_torch.models import conv_model
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.models.layers import l2_normalize
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
@@ -87,7 +101,10 @@ from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-5  # f32 sums in another order than the plain version's product
-GRAD_REL = 1e-5  # dW / db: sums of K*P terms, relative to the largest entry
+# dW / db: sums of K*P terms, relative to the largest entry; the gather-mean
+# backward's dh: sums of scaled cotangent rows, added by atomics in an order
+# that changes from run to run.
+GRAD_REL = 1e-5
 BF16_RTOL = 2.0**-7  # one bf16 ulp: both sides round the same f32 sums
 # One step, kernel route against plain route: the CPU tests' tolerances
 # (tests/test_torch_minibatch.py).
@@ -96,6 +113,7 @@ BUYS = ("user", "buys", "item")
 MIPS = ("gnn_recsys_tpu_torch/csrc/topk_mips.cu", "gnn_recsys_tpu/ops/pallas/topk_mips.py")
 LEAF = ("gnn_recsys_tpu_torch/csrc/leaf_agg.cu", "gnn_recsys_tpu/ops/pallas/leaf_agg.py")
 POOL = ("gnn_recsys_tpu_torch/csrc/pool_mask.cu", "gnn_recsys_tpu/ops/pallas/pool_mask.py")
+GATHER = ("gnn_recsys_tpu_torch/csrc/gather_mean.cu", "gnn_recsys_tpu/ops/pallas/gather_mean.py")
 NO_YARDSTICK = "no one-call PyTorch yardstick computes this function"
 
 
@@ -213,16 +231,16 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build(["topk_mips", "leaf_agg", "pool_mask"])
+    build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean"])
     say("build", seconds=time.perf_counter() - t0, info=build.build_info)
 
 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                   weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
-                  timed=True, seed=0) -> list:
+                  gather=(38_912, 8, 30_000, 256), timed=True, seed=0) -> list:
     """Each kernel against its plain version on ``dev``; returns the rows of
     the kernels line (without launches).  ``leaf`` is (K, P, F, H),
-    ``pool`` (B, K, P)."""
+    ``pool`` (B, K, P), ``gather`` (B, K, N, D)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ue = l2_normalize(torch.randn(num_users, dim, generator=gen, device=dev))
     ie = l2_normalize(torch.randn(num_items, dim, generator=gen, device=dev))
@@ -300,6 +318,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
            flops, emb_bytes + 4.0 * num_items + 8.0 * num_users + topk_bytes)
     leaf_rows(dev, gen, record, *leaf)
     pool_rows(dev, gen, record, *pool)
+    gather_rows(dev, gen, record, *gather)
     return rows
 
 
@@ -371,6 +390,58 @@ def pool_rows(dev, gen, record, b, k, p) -> None:
     record("pool_membership_mask", POOL, 31, 0.0, lambda: pm.pool_membership_mask(rows, pool),
            lambda: pm.pool_membership_mask_reference(rows, pool), None,
            compares, 4.0 * (b * k + p + b * p))
+
+
+def gather_case(dev, gen, b, k, n, d):
+    """Random gather-mean inputs: h [N, D], int32 ids [B, K] with -1 and >= N
+    among the valid slots (both clipped), a bool mask with an all-masked row,
+    and a cotangent [B, D]."""
+    h = torch.randn(n, d, generator=gen, device=dev)
+    nbr = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    mask = torch.rand(b, k, generator=gen, device=dev) < 0.8
+    mask[b // 2] = False
+    nbr[0, 0], nbr[-1, -1] = -1, n + 3
+    mask[0, 0] = mask[-1, -1] = True
+    return h, nbr, mask, torch.randn(b, d, generator=gen, device=dev)
+
+
+def gather_rows(dev, gen, record, b, k, n, d) -> None:
+    """``gather_mean`` forward and backward against their plain versions at
+    the shape given and a ragged B; the one-call yardstick is
+    ``embedding_bag`` (sum, per-slot weights m / max(count, 1)), forward and
+    its autograd backward."""
+    errs, grad_errs = [], []
+    for bb in (b, b - 7 if b > 7 else b):
+        h, nbr, mask, g = gather_case(dev, gen, bb, k, n, d)
+        out, want = gm.gather_mean_fwd(h, nbr, mask), gm.gather_mean_reference(h, nbr, mask)
+        errs.append(float((out - want).abs().max()))
+        if not errs[-1] <= TOL * max(1.0, float(want.abs().max())) or not (out[bb // 2] == 0).all():
+            raise AssertionError(f"gather_mean_fwd B={bb}: differs by {errs[-1]} "
+                                 f"or the all-masked row is not 0")
+        dh, want = gm.gather_mean_bwd(g, nbr, mask, n), gm.gather_mean_bwd_reference(g, nbr, mask, n)
+        grad_errs.append(float((dh - want).abs().max()))
+        if not grad_errs[-1] <= GRAD_REL * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"gather_mean_bwd B={bb}: differs by {grad_errs[-1]}")
+
+    h, nbr, mask, g = gather_case(dev, gen, b, k, n, d)
+    m = mask.float()
+    weights = m / m.sum(dim=1, keepdim=True).clamp(min=1.0)
+    clipped = nbr.long().clamp(0, n - 1)
+    h_req = h.clone().requires_grad_()
+    bag = torch.nn.functional.embedding_bag(clipped, h_req, mode="sum",
+                                            per_sample_weights=weights)
+    valid = float(mask.sum())
+    io = 4.0 * (n * d + b * k) + b * k  # h, the int32 ids, the bool mask
+    record("gather_mean_fwd", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
+           lambda: gm.gather_mean_reference(h, nbr, mask),
+           lambda: torch.nn.functional.embedding_bag(clipped, h, mode="sum",
+                                                     per_sample_weights=weights),
+           valid * d + b * d, io + 4.0 * b * d)
+    record("gather_mean_bwd", GATHER, 49, max(grad_errs),
+           lambda: gm.gather_mean_bwd(g, nbr, mask, n),
+           lambda: gm.gather_mean_bwd_reference(g, nbr, mask, n),
+           lambda: torch.autograd.grad(bag, h_req, g, retain_graph=True),
+           2.0 * valid * d + b * d, 4.0 * (b * d + b * k + n * d) + b * k)  # dout, ids, mask, dh
 
 
 def _assert_recs_valid(recs: dict, bought_rows: np.ndarray, num_items: int) -> None:
@@ -566,15 +637,30 @@ def leaf_branches(graph, ntype: str, level: int) -> int:
         leaf_branches(graph, et[0], level - 1) for et in in_etypes)
 
 
+def block_means(graph, seed_ntypes, levels: int) -> int:
+    """Gather-mean launches of one dedup'd block forward: one per (level,
+    node type of that level's table, in-etype), as its plan walks them
+    (``_sampled_repr_dedup``: a level's table holds the node types above it
+    and their in-etypes' sources)."""
+    ntypes, means = list(seed_ntypes), 0
+    for _ in range(levels):
+        in_etypes = [et for nt in ntypes for et in graph.canonical_etypes if et[2] == nt]
+        means += len(in_etypes)
+        ntypes += [et[0] for et in in_etypes if et[0] not in ntypes]
+    return means
+
+
 def _grads(model) -> dict:
     return {n: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
             for n, p in model.named_parameters()}
 
 
 def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool=2560,
-                fanouts=(8, 4), random_recall=None, k=10, on_card=True):
-    """Train the Medium model with the ``bench.py`` step on ``dev``; returns
-    the launch counts of the main path (the training run)."""
+                fanouts=(8, 4), random_recall=None, k=10, on_card=True, dedup=False):
+    """Train the Medium model with the ``bench.py`` step on ``dev`` (through
+    the dedup'd block forward with ``dedup``); returns (the launch counts of
+    the main path, the trained model)."""
+    phase = "train_dedup" if dedup else "train"
     g = data.graph.to(dev)
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
     kw = medium_kwargs(g, hidden, out)
@@ -582,7 +668,8 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
     init_model(model, seed=0)  # the slice phase's random weights
     model.to(dev)
     cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
-                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True)
+                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True,
+                          dedup=dedup)
     etypes = tuple(data.train_pairs)
     has_reverse = {et: True for et in etypes}
     tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
@@ -594,12 +681,15 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
     batches = iter_edge_batches(np.random.default_rng(0),
                                 {et: np.arange(g.num_edges(et)) for et in etypes}, batch_size)
     draws = Draws(torch.Generator(device=dev).manual_seed(0))
-    per_step = {"leaf_mean_nn_fwd": sum(leaf_branches(g, nt, model.num_conv_layers)
-                                        for nt in ("user", "item")),
-                "pool_membership_mask": len(etypes)}
-    per_step["leaf_mean_nn_bwd"] = per_step["leaf_mean_nn_fwd"]
+    leaves = 0 if dedup else sum(leaf_branches(g, nt, model.num_conv_layers)
+                                 for nt in ("user", "item"))
+    means = block_means(g, ("user", "item"), model.num_conv_layers) if dedup else 0
+    per_step = {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
+                "pool_membership_mask": len(etypes),
+                "gather_mean_fwd": means, "gather_mean_bwd": means}
     counters = {"leaf_mean_nn_fwd": la.leaf_mean_nn_fwd, "leaf_mean_nn_bwd": la.leaf_mean_nn_bwd,
-                "pool_membership_mask": pm.pool_membership_mask}
+                "pool_membership_mask": pm.pool_membership_mask,
+                "gather_mean_fwd": gm.gather_mean_fwd, "gather_mean_bwd": gm.gather_mean_bwd}
 
     # The main path: counters from 0, read right after.
     if dev.type == "cuda":
@@ -622,7 +712,7 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
     train_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     losses = torch.stack(losses).cpu().numpy()
-    window = max(1, min(20, steps // 4))
+    window = max(1, min(20, steps // 5))
     first, last = float(losses[:window].mean()), float(losses[-window:].mean())
     edges = sum(len(v["u"]) for v in batch.values())
     report = {"steps": steps, "edges_per_step": edges, "train_s": train_s,
@@ -645,7 +735,10 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
             lambda: step(state, g, feats, store.batch(next(batches), True, dev), tables, draws))
 
     # One step through the kernels and through the plain route, same
-    # parameters, batch and draws: loss and gradients must agree.
+    # parameters, batch and draws: loss and gradients must agree.  The tree's
+    # plain route is the model without the leaf kernel; the dedup'd block
+    # forward has no such switch (nor has the JAX package), so its model
+    # calls the gather-mean wrapper's plain version for that one step.
     plain = ConvModel(**kw, leaf_kernel=False).to(dev)
     plain.load_state_dict(model.state_dict())
     batch = store.batch(next(batches), True, dev)
@@ -660,16 +753,20 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
 
     rec = Draws(torch.Generator(device=dev).manual_seed(1), record=True)
     lk, gk = loss_and_grads(model, cfg, rec)
-    lp, gp = loss_and_grads(plain, dataclasses.replace(cfg, pool_mask_kernel=False),
-                            rec.replay())
+    conv_model.gather_mean = gm.gather_mean_reference
+    try:
+        lp, gp = loss_and_grads(plain, dataclasses.replace(cfg, pool_mask_kernel=False),
+                                rec.replay())
+    finally:
+        conv_model.gather_mean = gm.gather_mean
     if not abs(lk - lp) <= LOSS_RTOL * abs(lp):
-        raise AssertionError(f"kernel and plain routes: loss {lk} vs {lp}")
+        raise AssertionError(f"{phase}: kernel and plain routes: loss {lk} vs {lp}")
     worst = 0.0
     for name, a in gk.items():
         excess = ((a - gp[name]).abs() - STEP_GRAD_RTOL * gp[name].abs()).max()
         worst = max(worst, float(excess))
     if not worst <= STEP_GRAD_ATOL:
-        raise AssertionError(f"kernel and plain routes: gradients differ by {worst} "
+        raise AssertionError(f"{phase}: kernel and plain routes: gradients differ by {worst} "
                              f"beyond rtol {STEP_GRAD_RTOL}")
     report["routes"] = {"loss_kernel": lk, "loss_plain": lp, "grad_excess_over_rtol": worst}
 
@@ -681,12 +778,37 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
     report["random_weights_recall"] = random_recall
     if random_recall is not None and not metrics[1] > random_recall:
         raise AssertionError(f"trained recall@{k} {metrics[1]} <= random weights' {random_recall}")
-    say("train", **report)
-    return launches
+    say(phase, **report)
+    return launches, model
+
+
+def phase_packed_leaf(dev, data, model, seeds=32) -> None:
+    """One tree forward at fanouts (-1, -1) for ``seeds`` users and items
+    through the packed leaf cache and without it (same weights): within TOL."""
+    g = data.graph.to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    ids = {"user": torch.arange(seeds, device=dev), "item": torch.arange(seeds, device=dev)}
+    fanouts = (-1,) * model.num_conv_layers
+    t0 = time.perf_counter()
+    packed_graph = attach_leaf_features(g, feats)
+    sync(dev)
+    attach_s = time.perf_counter() - t0
+    model.eval()
+    with torch.no_grad():
+        draws = Draws(torch.Generator(device=dev).manual_seed(0))
+        packed = model.sampled_repr(packed_graph, feats, ids, fanouts, draws)
+        plain = model.sampled_repr(g, feats, ids, fanouts, draws)
+    err = max(float((packed[nt] - plain[nt]).abs().max()) for nt in ids)
+    if not err <= TOL:
+        raise AssertionError(f"packed and unpacked leaves differ by {err}")
+    cache = sum(r.nbr_feat.numel() * r.nbr_feat.element_size()
+                for r in packed_graph.rels.values() if r.nbr_feat is not None)
+    say("packed_leaf", seeds=seeds, max_abs_err=err, attach_s=attach_s, cache_bytes=cache)
 
 
 # Kernel-name patterns of the step breakdown, first match wins.
 KERNEL_GROUPS = (
+    ("gather_mean", ("gather_mean",)),
     ("leaf_mean_nn", ("leaf_fwd", "leaf_bwd")),
     ("pool_membership_mask", ("pool_mask",)),
     ("matmul", ("gemm", "gemv", "cutlass", "sm90_", "splitK")),
@@ -696,9 +818,10 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_steps(run_step, n=5) -> dict:
+def profile_steps(run_step, n=5, top_n=8) -> dict:
     """``n`` steps under ``torch.profiler``: host wall time, the device's
-    busy time by kernel group (ms a step) and its idle share."""
+    busy time by kernel group (ms a step), its idle share, and the
+    ``top_n`` kernels by device time."""
     wall_ms, kernels = profiled_kernels(run_step, n)
     if not kernels:
         raise RuntimeError("torch.profiler recorded no CUDA kernel for the training steps")
@@ -708,10 +831,13 @@ def profile_steps(run_step, n=5) -> dict:
         name = next((g for g, pats in KERNEL_GROUPS if any(p in key for p in pats)), "other")
         groups[name] += us / 1e3 / n
     busy = sum(groups.values())
+    top = sorted(kernels, key=lambda kv: -kv[2])[:top_n]
     return {"steps": n, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
             "device_idle_share": 1.0 - busy / wall_ms,
             "kernels_per_step": sum(c for _, c, _ in kernels) / n,
-            "device_ms_per_step_by_group": groups}
+            "device_ms_per_step_by_group": groups,
+            "top_kernels": [{"name": key[:120], "per_step": c / n, "ms_per_step": us / 1e3 / n}
+                            for key, c, us in top]}
 
 
 def main() -> int:
@@ -726,7 +852,14 @@ def main() -> int:
     say("graph", seconds=time.perf_counter() - t0,
         edges={"/".join(et): data.graph.num_edges(et) for et in data.graph.canonical_etypes})
     launches, random_recall = phase_slice(dev, data)
-    launches.update(phase_train(dev, data, random_recall=random_recall))
+    train_launches, _ = phase_train(dev, data, random_recall=random_recall)
+    launches.update(train_launches)
+    # Each kernel's launches are counted on the path that runs it: the
+    # gather-mean kernels on the dedup'd step's.
+    dedup_launches, model = phase_train(dev, data, steps=50, dedup=True)
+    for name in ("gather_mean_fwd", "gather_mean_bwd"):
+        launches[name] = dedup_launches[name]
+    phase_packed_leaf(dev, data, model)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

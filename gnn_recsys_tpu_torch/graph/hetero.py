@@ -43,6 +43,10 @@ class Relation:
     deg: torch.Tensor  # [N_dst] int32, clipped at K
     edata: Dict[str, torch.Tensor]  # per-edge features, [E] or [E, F] f32
     eid_pos: Optional[torch.Tensor] = None  # [E] int32
+    # The packed leaf cache (attach_leaf_features): [N_dst, K*F] row-major,
+    # nbr_feat[d, k*F:(k+1)*F] = the source features of nbr[d, k] (zeros at
+    # padding).  Derived, never serialized.
+    nbr_feat: Optional[torch.Tensor] = None
 
     @property
     def num_edges(self) -> int:
@@ -54,12 +58,15 @@ class Relation:
         return self.nbr.shape[1]
 
     def to(self, device) -> "Relation":
+        def opt(t):
+            return None if t is None else t.to(device)
+
         return Relation(
             src=self.src.to(device), dst=self.dst.to(device),
             nbr=self.nbr.to(device), nbr_eid=self.nbr_eid.to(device),
             nbr_mask=self.nbr_mask.to(device), deg=self.deg.to(device),
             edata={k: v.to(device) for k, v in self.edata.items()},
-            eid_pos=None if self.eid_pos is None else self.eid_pos.to(device),
+            eid_pos=opt(self.eid_pos), nbr_feat=opt(self.nbr_feat),
         )
 
 
@@ -219,3 +226,28 @@ def build_hetero_graph(
     return HeteroGraph(
         rels=rels, ndata=nd, num_nodes_tuple=tuple(sorted(num_nodes_dict.items()))
     )
+
+
+def attach_leaf_features(graph: HeteroGraph, features: Mapping[str, torch.Tensor],
+                         dtype: Optional[torch.dtype] = None,
+                         max_width: int = 64) -> HeteroGraph:
+    """A graph whose relations carry the packed leaf cache ``nbr_feat``
+    (``hetero.py:279-320``): per relation, the source features of every
+    neighbour slot, zeros at padding, stored ``[N_dst, K*F]``.  Node features
+    are constant in training, so a full-fanout tree's deepest level reads one
+    contiguous row a node (:func:`~gnn_recsys_tpu_torch.ops.sampling.full_neighbors_packed`).
+
+    dtype: the cache's type (default: the features'); max_width: relations
+    whose padded width K exceeds it keep no cache (it takes N_dst*K*F
+    elements).  The cache lies where ``features`` lie."""
+    rels = {}
+    for et, rel in graph.rels.items():
+        feats = features.get(et[0])
+        if feats is None or rel.max_fanout > max_width:
+            rels[et] = rel
+            continue
+        f = feats if dtype is None else feats.to(dtype)
+        nbr = rel.nbr.to(f.device)
+        packed = f[nbr.long().clamp(min=0)] * rel.nbr_mask.to(f.device)[..., None].to(f.dtype)
+        rels[et] = dataclasses.replace(rel, nbr_feat=packed.reshape(nbr.shape[0], -1))
+    return dataclasses.replace(graph, rels=rels)

@@ -6,9 +6,10 @@ optional per-ntype embedding Linear, a stack of per-etype
 ``max``), and the cosine predictor.  ``get_repr`` runs the whole graph
 layer by layer; ``sampled_repr`` / ``minibatch_forward`` expand static-shape
 sampled trees of global node ids (one independent sample per occurrence,
-the JAX package's ``dedup=False`` tree).  Not ported yet (ROADMAP.md):
-``pred="nn"``, the dedup'd block forward, ``remat_levels`` and the sharded
-hooks (``feature_lookup``, ``neighbor_sample``).
+the JAX package's ``dedup=False`` tree) or, with ``dedup=True``, the dedup'd
+block forward (each level's unique nodes computed once).  Not ported yet
+(ROADMAP.md): ``pred="nn"``, ``remat_levels`` and the sharded hooks
+(``feature_lookup``, ``neighbor_sample``).
 
 Layer-count rules as in the reference: ``n_layers`` counts the embedding
 layer when present, so there are ``n_layers - 1`` conv layers with
@@ -33,9 +34,15 @@ from gnn_recsys_tpu_torch.models.layers import (
     NodeEmbedding,
     l2_normalize,
 )
+from gnn_recsys_tpu_torch.ops.cuda.gather_mean import gather_mean
 from gnn_recsys_tpu_torch.ops.cuda.leaf_agg import leaf_kernel_supported, leaf_mean_nn
 from gnn_recsys_tpu_torch.ops.message import coo_segment_max, coo_segment_mean
-from gnn_recsys_tpu_torch.ops.sampling import exclusion_table, sample_neighbors
+from gnn_recsys_tpu_torch.ops.sampling import (
+    exclusion_table,
+    full_neighbors_packed,
+    sample_neighbors,
+    unique_capped,
+)
 
 # Edge pairs per etype: (src ids, dst ids).
 PairDict = Dict[CanonicalEtype, Tuple[torch.Tensor, torch.Tensor]]
@@ -43,6 +50,14 @@ PairDict = Dict[CanonicalEtype, Tuple[torch.Tensor, torch.Tensor]]
 
 def _etype_key(etype: CanonicalEtype) -> str:
     return "__".join(etype)
+
+
+def _take_rows(table: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``table[pos]`` for in-range positions of any shape, through
+    ``index_select``: its backward is an ``index_add_``, where advanced
+    indexing's (a sort, then one warp a destination row) took 12.5 ms of a
+    dedup'd step's device time on the H100 (PERF.md)."""
+    return table.index_select(0, pos.reshape(-1).long()).reshape(*pos.shape, table.shape[-1])
 
 
 def _exclusion_kwargs(excl) -> Dict[str, torch.Tensor]:
@@ -231,14 +246,13 @@ class ConvModel(nn.Module):
         draws of every sampler call, in walk order (:mod:`.ops.sampling`).
         exclude_eids: etype -> edge ids kept out of the sampled
         neighbourhoods (translated once into sign-marked tables), or an
-        already translated table / flag array.  Dropout follows
-        ``self.training``.  Returns ntype -> [*seed_shape, out_dim].
+        already translated table / flag array.  ``dedup``: the dedup'd block
+        forward (:meth:`_sampled_repr_dedup`) instead of the tree.  Dropout
+        follows ``self.training``.  Returns ntype -> [*seed_shape, out_dim].
         """
         if len(fanouts) != len(self.layers):
             raise ValueError(f"fanouts has {len(fanouts)} entries, model has "
                              f"{len(self.layers)} conv layers")
-        if dedup:
-            raise NotImplementedError("the dedup'd block forward is not ported yet (ROADMAP.md)")
         if feature_lookup is not None or neighbor_sample is not None:
             raise NotImplementedError("the sharded lookup / sampler hooks are not ported yet "
                                       "(ROADMAP.md)")
@@ -248,6 +262,9 @@ class ConvModel(nn.Module):
                      if v.dim() == 1 and v.dtype != torch.bool and et in graph.rels else v)
                 for et, v in exclude_eids.items()
             }
+        if dedup:
+            return self._sampled_repr_dedup(graph, features, seeds, tuple(fanouts), draws,
+                                            exclude_eids)
         # Composed leaf weights, once per (layer, etype) for the whole walk.
         self._leaf_weights = {}
         try:
@@ -333,31 +350,47 @@ class ConvModel(nn.Module):
             rel = graph.rels[etype]
             excl = None if exclude_eids is None else exclude_eids.get(etype)
             need_eid = self._edge_weighted(layer, etype, rel)
-            u = None if fanout == -1 else draws.uniform((*ids.shape, fanout))
-            nbr, eid, mask = sample_neighbors(
-                rel, ids, max(fanout, 1), u=u, mode="full" if fanout == -1 else "uniform",
-                with_eids=need_eid, **_exclusion_kwargs(excl))
+            raw_packed = None
+            if (level == 1 and fanout == -1 and rel.nbr_feat is not None and not need_eid
+                    and (excl is None or excl.dim() == 2)):
+                # The packed leaf cache: every neighbour's raw features in one
+                # row read a node (``conv_model.py:645-678``).
+                raw_packed, mask = full_neighbors_packed(rel, ids, nbr_table=excl)
+                nbr = eid = None
+            else:
+                u = None if fanout == -1 else draws.uniform((*ids.shape, fanout))
+                nbr, eid, mask = sample_neighbors(
+                    rel, ids, max(fanout, 1), u=u, mode="full" if fanout == -1 else "uniform",
+                    with_eids=need_eid, **_exclusion_kwargs(excl))
             agg = self._aggregate(graph, features, exclude_eids, fanouts, level, etype, layer,
-                                  rel, nbr, eid, mask, need_eid, draws)
+                                  rel, nbr, eid, mask, need_eid, draws, raw_packed)
             zs.append(layer.combine(h_self, agg))
         return self._cross_etype_reduce(torch.stack(zs))
 
     def _aggregate(self, graph, features, exclude_eids, fanouts, level, etype, layer, rel,
-                   nbr, eid, mask, need_eid, draws) -> torch.Tensor:
-        """The neighbour aggregate of one sampled etype branch."""
+                   nbr, eid, mask, need_eid, draws, raw_packed=None) -> torch.Tensor:
+        """The neighbour aggregate of one sampled etype branch; ``raw_packed``
+        [P, K, F] are the leaf's raw features from the packed cache (then
+        ``nbr`` is None)."""
         src_t = etype[0]
+
+        def raw_rows():
+            if raw_packed is not None:
+                return raw_packed
+            return self._fetch_rows(features, src_t, nbr.reshape(-1)).reshape(*nbr.shape, -1)
+
         if (level == 1 and self.embedding_layer and src_t in self.embed
                 and layer.aggregator_type == "mean" and self._no_dropout(layer)):
             # Plain 'mean': the affine embed commutes with the masked mean, so
             # average the raw features and embed once per node; zero-degree
             # rows stay 0 (``conv_model.py:689-717``).
-            raw = self._fetch_rows(features, src_t, nbr.reshape(-1)).reshape(*nbr.shape, -1)
+            raw = raw_rows()
             count = mask.to(raw.dtype).sum(dim=-1)
             s = (raw * mask[..., None].to(raw.dtype)).sum(dim=-2) / count.clamp(min=1.0)[..., None]
             agg = self.embed[src_t](s)
             return agg * (count > 0)[..., None].to(agg.dtype)
         fdim = features[src_t].shape[-1]
-        if (self.leaf_kernel and not need_eid and layer.reducer == "mean"
+        if (self.leaf_kernel and raw_packed is None and not need_eid and layer.reducer == "mean"
                 and self._can_fold_leaf(layer, src_t, level) and leaf_kernel_supported(fdim)):
             # The fused leaf: gather k-major, then one kernel computes the
             # masked mean of relu(x @ W_eff + b_eff) without the [P, K, H]
@@ -373,8 +406,14 @@ class ConvModel(nn.Module):
             agg = leaf_mean_nn(x_km, mask_scaled, w_eff, b_eff, self.leaf_block)
             return agg.reshape(*nbr.shape[:-1], agg.shape[-1])
         if self._can_fold_leaf(layer, src_t, level):
-            raw = self._fetch_rows(features, src_t, nbr.reshape(-1)).reshape(*nbr.shape, -1)
-            msgs = self._leaf_transform_composed(layer, src_t, raw)
+            msgs = self._leaf_transform_composed(layer, src_t, raw_rows())
+        elif level == 1:
+            # The leaf's rows, from the packed cache or gathered: the level-0
+            # chain (embed if any), then transform_src.
+            x = raw_rows()
+            if self.embedding_layer and src_t in self.embed:
+                x = self.embed[src_t](x)
+            msgs = layer.transform_src(x)
         else:
             h_nbr = self._tree(graph, features, exclude_eids, fanouts, level - 1, src_t, nbr,
                                draws)
@@ -382,6 +421,12 @@ class ConvModel(nn.Module):
         if need_eid:
             w = rel.edata["occurrence"].to(msgs.dtype)[eid.long()]
             msgs = msgs * w[..., None]
+        return self._reduce(layer, msgs, mask)
+
+    @staticmethod
+    def _reduce(layer: ConvLayer, msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The layer's masked reduction over the slot axis of ``msgs``
+        [..., K, D]: the mean over valid slots, or the max (0 without one)."""
         if layer.reducer == "mean":
             total = (msgs * mask[..., None].to(msgs.dtype)).sum(dim=-2)
             count = mask.to(msgs.dtype).sum(dim=-1)
@@ -389,6 +434,120 @@ class ConvModel(nn.Module):
         neg = torch.full_like(msgs, float("-inf"))
         agg = torch.where(mask[..., None], msgs, neg).amax(dim=-2)
         return torch.where(torch.isfinite(agg), agg, torch.zeros_like(agg))
+
+    # ------------------------------------------------------------------
+    # Dedup'd block forward
+    # ------------------------------------------------------------------
+    def _sampled_repr_dedup(self, graph, features, seeds, fanouts, draws,
+                            exclude_eids) -> Dict[str, torch.Tensor]:
+        """Unique-frontier (DGL-block-style) sampled forward
+        (``conv_model.py:852-1040``), in two passes with static shapes:
+
+        1. top-down: each level's frontier is deduplicated into a unique id
+           table of static capacity (:func:`unique_capped`), each unique node's
+           neighbours are sampled once, and the positions of the self and
+           neighbour ids in the next level's table are kept;
+        2. bottom-up: each level computes over its unique nodes only, with the
+           etype's ``transform_src`` applied to the unique source table before
+           the gather (per-node maps commute with the gather).  The mean
+           without edge weights is the gather-mean kernel
+           (:func:`~gnn_recsys_tpu_torch.ops.cuda.gather_mean.gather_mean`);
+           edge-weighted means and ``max`` are plain PyTorch.
+
+        Draw order, the JAX package's, so that its draws replay: one draw per
+        (level from the top; ntype in the order of that level's table dict;
+        in-etype in ``graph.canonical_etypes`` order), of shape ``(cap,
+        fanout)``, none at fanout -1.  ``cap`` is ``min(frontier size,
+        num_nodes)`` rounded up to a multiple of 8 (at least 8), and the
+        table's padding rows (id 0) are sampled too: they use up draws and
+        compute rows that nothing reads.  The top table's dict follows
+        ``seeds``; a lower table's follows the order its segments were
+        pushed: per ntype of the level above, its own ids first, then each
+        in-etype's sampled neighbours.
+        """
+        n_layers = len(self.layers)
+
+        def cap_for(nt: str, n: int) -> int:
+            cap = min(n, graph.num_nodes(nt))
+            return max(8, -(-cap // 8) * 8)
+
+        def uniqify(frontier: Dict[str, list]):
+            uniq, inv = {}, {}
+            for nt, segs in frontier.items():
+                flat = torch.cat(segs)
+                uniq[nt], inv[nt] = unique_capped(flat, cap_for(nt, flat.shape[0]))
+            return uniq, inv
+
+        levels: List[Optional[Dict[str, torch.Tensor]]] = [None] * (n_layers + 1)
+        levels[n_layers], top_inv = uniqify({nt: [ids.reshape(-1)] for nt, ids in seeds.items()})
+        plans: List[Optional[Dict]] = [None] * n_layers
+        for lvl in range(n_layers, 0, -1):
+            fanout = fanouts[lvl - 1]
+            layer_dict = self.layers[lvl - 1]
+            lower: Dict[str, list] = {}
+
+            def push(nt: str, arr: torch.Tensor):
+                segs = lower.setdefault(nt, [])
+                off = sum(s.numel() for s in segs)
+                segs.append(arr.reshape(-1))
+                return nt, off, arr.numel()
+
+            plan = {}
+            for nt, uids in levels[lvl].items():
+                in_etypes = [et for et in graph.canonical_etypes
+                             if et[2] == nt and _etype_key(et) in layer_dict]
+                if not in_etypes:
+                    raise ValueError(f"node type {nt} has no incoming etypes")
+                entry = {"self_ref": push(nt, uids), "etypes": {}}
+                for et in in_etypes:
+                    layer, rel = layer_dict[_etype_key(et)], graph.rels[et]
+                    excl = None if exclude_eids is None else exclude_eids.get(et)
+                    need_eid = self._edge_weighted(layer, et, rel)
+                    u = None if fanout == -1 else draws.uniform((uids.shape[0], fanout))
+                    nbr, eid, mask = sample_neighbors(
+                        rel, uids, max(fanout, 1), u=u,
+                        mode="full" if fanout == -1 else "uniform", with_eids=need_eid,
+                        **_exclusion_kwargs(excl))
+                    entry["etypes"][et] = {"ref": push(et[0], nbr), "shape": nbr.shape,
+                                           "mask": mask, "eid": eid}
+                plan[nt] = entry
+            lower_uniq, lower_inv = uniqify(lower)
+            for entry in plan.values():
+                nt0, off, ln = entry["self_ref"]
+                entry["self_pos"] = lower_inv[nt0][off:off + ln]
+                for ed in entry["etypes"].values():
+                    nt0, off, ln = ed["ref"]
+                    ed["nbr_pos"] = lower_inv[nt0][off:off + ln].reshape(ed["shape"])
+            levels[lvl - 1] = lower_uniq
+            plans[lvl - 1] = plan
+
+        h = {}
+        for nt, ids in levels[0].items():
+            x = self._fetch_rows(features, nt, ids)
+            h[nt] = self.embed[nt](x) if self.embedding_layer and nt in self.embed else x
+        for lvl in range(1, n_layers + 1):
+            layer_dict = self.layers[lvl - 1]
+            h_next = {}
+            for nt, entry in plans[lvl - 1].items():
+                h_self = _take_rows(h[nt], entry["self_pos"])
+                zs = []
+                for et, ed in entry["etypes"].items():
+                    layer, rel = layer_dict[_etype_key(et)], graph.rels[et]
+                    src_table = layer.transform_src(h[et[0]])
+                    nbr_pos, mask = ed["nbr_pos"], ed["mask"]
+                    weighted = self._edge_weighted(layer, et, rel)
+                    if layer.reducer == "mean" and not weighted:
+                        agg = gather_mean(src_table, nbr_pos, mask)
+                    else:
+                        msgs = _take_rows(src_table, nbr_pos)
+                        if weighted:
+                            w = rel.edata["occurrence"].to(msgs.dtype)[ed["eid"].long()]
+                            msgs = msgs * w[..., None]
+                        agg = self._reduce(layer, msgs, mask)
+                    zs.append(layer.combine(h_self, agg))
+                h_next[nt] = self._cross_etype_reduce(torch.stack(zs))
+            h = h_next
+        return {nt: _take_rows(h[nt], top_inv[nt].reshape(seeds[nt].shape)) for nt in seeds}
 
     # ------------------------------------------------------------------
     # Scoring

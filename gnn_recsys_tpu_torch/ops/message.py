@@ -6,7 +6,8 @@ layouts, same semantics:
 
 * ``coo_segment_*`` — scatter-reduce over the COO edge list
   (``index_add_`` / ``scatter_reduce_``), for full-graph passes.
-* ``csc_gather_mean`` — gather + masked mean over the padded neighbour table.
+* ``csc_gather_mean`` — gather + masked mean over the padded neighbour table
+  (without edge weights: the gather-mean kernel, ``ops/cuda/gather_mean.py``).
 
 DGL semantics: ``mean`` divides by the number of incoming messages and a
 zero-degree destination gets zeros; ``max`` over no messages gives zeros;
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from gnn_recsys_tpu_torch.ops.cuda.gather_mean import gather_mean
 
 
 def _messages(h_src, src, edge_weight):
@@ -64,12 +67,13 @@ def coo_segment_max(
 
 
 def _gather_msgs(h_src, nbr, nbr_eid, edge_weight):
-    # Padding slots hold -1: clamp before gathering; the mask drops them.
-    msgs = h_src[nbr.long().clamp(min=0)]  # [N_dst, K, D]
+    # Padding slots hold -1: clip into range before gathering (``jnp.take``'s
+    # ``mode='clip'``); the mask drops them.
+    msgs = h_src[nbr.long().clamp(0, h_src.shape[0] - 1)]  # [N_dst, K, D]
     if edge_weight is not None:
         if nbr_eid is None:
             raise ValueError("edge weighting requires nbr_eid")
-        w = edge_weight[nbr_eid.long().clamp(min=0)]
+        w = edge_weight[nbr_eid.long().clamp(0, edge_weight.shape[0] - 1)]
         msgs = msgs * w[..., None].to(msgs.dtype)
     return msgs
 
@@ -82,7 +86,13 @@ def csc_gather_mean(
     edge_weight: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Masked mean over the padded neighbour axis; the denominator is the
-    true number of valid slots.  h_src: [N_src, D]; nbr/nbr_mask: [N_dst, K]."""
+    true number of valid slots.  h_src: [N_src, D]; nbr/nbr_mask: [N_dst, K].
+
+    Without edge weights this is the contract of the gather-mean kernel
+    (:func:`~gnn_recsys_tpu_torch.ops.cuda.gather_mean.gather_mean`), which
+    it calls: for CUDA tensors it launches the kernels."""
+    if edge_weight is None:
+        return gather_mean(h_src, nbr, nbr_mask)
     msgs = _gather_msgs(h_src, nbr, nbr_eid, edge_weight)
     mask = nbr_mask.to(h_src.dtype)
     total = (msgs * mask[..., None]).sum(dim=1)

@@ -1,7 +1,9 @@
 """Neighbour sampling over padded CSC relations, and the step's draw source.
 
 Port of ``gnn_recsys_tpu/ops/sampling.py`` (``sample_neighbors``,
-``exclusion_table``, ``exclusion_flags``).  Sampling is WITH replacement into
+``full_neighbors_packed``, ``exclusion_table``, ``exclusion_flags``), plus
+:func:`unique_capped`, the static-capacity ``jnp.unique`` of the dedup'd
+block forward's plan.  Sampling is WITH replacement into
 ``fanout`` static slots, uniform over each node's true neighbour list;
 ``mode='full'`` takes the whole padded row.  Excluded edges (the minibatch
 edges and their reverses) are masked after sampling: an excluded draw
@@ -172,6 +174,43 @@ def sample_neighbors(
         nbr = nbr & _LOW_BITS
     nbr = torch.where(mask, nbr, torch.zeros_like(nbr))
     return nbr, eid, mask
+
+
+def full_neighbors_packed(rel: Relation, ids: torch.Tensor,
+                          nbr_table: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every neighbour's raw features from the packed leaf cache
+    (``rel.nbr_feat``, :func:`~gnn_recsys_tpu_torch.graph.hetero.attach_leaf_features`):
+    one contiguous ``[K*F]`` row a node instead of K row gathers
+    (``sampling.py:185-227``).  Returns ``(raw [*s, K, F], mask [*s, K])``;
+    the mask is ``row >= 0`` of the neighbour row, so padding and the slots
+    that ``nbr_table`` (:func:`exclusion_table`) sign-marks are invalid."""
+    if rel.nbr_feat is None:
+        raise ValueError("relation has no nbr_feat cache; call attach_leaf_features")
+    kmax = rel.max_fanout
+    table = rel.nbr if nbr_table is None else nbr_table
+    row = _rows(table, ids)  # [*s, K]
+    feat = _rows(rel.nbr_feat, ids).reshape(*ids.shape, kmax, rel.nbr_feat.shape[-1] // kmax)
+    return feat, row >= 0
+
+
+def unique_capped(flat: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.unique(flat, return_inverse=True, size=cap, fill_value=0)`` with
+    static shapes: the sorted distinct ids of the 1-D ``flat``, padded with 0
+    to ``cap`` entries, and each element's position among them (int32).
+    Built from a sort, the first element of each run, a cumulative sum and
+    two scatters, so nothing waits on a data-dependent size (``torch.unique``
+    on CUDA synchronises with the host).  ``cap`` must be at least the number
+    of distinct ids."""
+    srt, order = torch.sort(flat)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    run = torch.cumsum(first, dim=0) - 1  # each sorted element's unique position
+    uniq = torch.zeros(cap, dtype=flat.dtype, device=flat.device)
+    uniq[run] = srt  # the elements of one run write the same value
+    inv = torch.empty_like(run)
+    inv[order] = run
+    return uniq, inv.to(torch.int32)
 
 
 def _slot_positions(rel: Relation, eids: torch.Tensor) -> torch.Tensor:

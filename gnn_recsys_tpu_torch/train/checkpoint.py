@@ -1,4 +1,5 @@
-"""Run directories: parameters, model config, graph, id maps.
+"""Run directories (parameters, model config, graph, id maps) and the train
+state for resuming.
 
 Port of ``save_run`` / ``load_run`` (``gnn_recsys_tpu/train/checkpoint.py:88-153``)
 in the JAX package's formats — ``model.json``, ``fixed_params.json``,
@@ -6,7 +7,9 @@ in the JAX package's formats — ``model.json``, ``fixed_params.json``,
 ``extras.pkl`` — except the parameters: the JAX package writes them with
 orbax (``params/``), which the port cannot read; the port writes
 ``params.npz``, keyed by flax path (``params/layer0_user__buys__item/
-fc_self/kernel``) in flax's layout.
+fc_self/kernel``) in flax's layout.  ``save_train_state`` /
+``load_train_state`` (``checkpoint.py:42-86``) write the port's own format
+(one ``torch.save`` file), not orbax's.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph
 from gnn_recsys_tpu_torch.graph.serialize import load_graph, save_graph
 from gnn_recsys_tpu_torch.models.convert import params_from_jax, params_to_jax
+from gnn_recsys_tpu_torch.train.full_batch import TrainState
 
 PARAMS_FILE = "params.npz"
 
@@ -56,6 +60,33 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
     """Read :func:`save_params`' file back as a state_dict."""
     with np.load(path) as z:
         return params_from_jax(_unflatten({k: z[k] for k in z.files}))
+
+
+def save_train_state(state: TrainState, path: str) -> None:
+    """Save a :class:`TrainState` for an exact resume: the model's
+    parameters, the optimizer's state (Adam's moments and counts), the
+    learning-rate schedule's state and the number of updates, as one
+    ``torch.save`` file of state dicts (the port's own format; the JAX
+    package writes orbax).  Resume with :func:`load_train_state` and
+    ``train_minibatch(..., state=restored, start_epoch=E)``."""
+    torch.save({"params": state.model.state_dict(), "opt_state": state.tx.state_dict(),
+                "schedule": None if state.schedule is None else state.schedule.state_dict(),
+                "step": state.step}, path)
+
+
+def load_train_state(path: str, like: TrainState) -> TrainState:
+    """Restore a state saved by :func:`save_train_state` into ``like``, a
+    freshly created :class:`TrainState` of the same model and optimizer (and
+    schedule), whose objects it updates in place; returns ``like``."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if (saved["schedule"] is None) != (like.schedule is None):
+        raise ValueError("the saved state and `like` differ in having a learning-rate schedule")
+    like.model.load_state_dict(saved["params"])
+    like.tx.load_state_dict(saved["opt_state"])
+    if like.schedule is not None:
+        like.schedule.load_state_dict(saved["schedule"])
+    like.step = int(saved["step"])
+    return like
 
 
 def save_run(

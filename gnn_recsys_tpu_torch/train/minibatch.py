@@ -81,7 +81,9 @@ class MinibatchConfig:
     remove_false_negative: bool = True
     use_recency: bool = False
     exclude_batch_edges: bool = True
-    dedup: bool = False  # the dedup'd block forward is not ported
+    # The step's forward as the dedup'd block forward (each level's unique
+    # nodes once) instead of the tree; embedding inference stays on the tree.
+    dedup: bool = False
     # The JAX package's one-dispatch epochs; accepted and ignored (the host
     # loop runs the same per-step math).
     device_epoch: bool = True

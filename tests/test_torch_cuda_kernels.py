@@ -221,3 +221,91 @@ def test_pool_membership_mask_matches_plain(dev, b, k, p):
     assert float(out.sum()) > 0 and (out[:, -1] == 0).all()
     with pytest.raises(ValueError):
         pm.pool_membership_mask(torch.zeros((2, 129), dtype=torch.int32, device=dev), pool_t)
+
+
+def _gather_case(dev, b, k, n, d, seed=0):
+    """Random table, ids with -1 and >= n among the valid slots (clipped), and
+    an all-masked row."""
+    rng = np.random.default_rng(seed)
+    h = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
+    nbr = rng.integers(0, n, (b, k)).astype(np.int32)
+    mask = rng.random((b, k)) < 0.8
+    mask[b // 2] = False
+    nbr[0, 0], nbr[-1, -1] = -1, n + 3
+    mask[0, 0] = mask[-1, -1] = True
+    g = torch.tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+    return h, torch.tensor(nbr, device=dev), torch.tensor(mask, device=dev), g
+
+
+@pytest.mark.parametrize("b,k,n,d", [(38912, 8, 30000, 256), (2048, 4, 20992, 256),
+                                     (13, 8, 50, 16), (7, 40, 20, 33), (5, 3, 10, 6)])
+def test_gather_mean_matches_plain(dev, b, k, n, d):
+    """Forward and backward at the dedup step's shapes, with K > 32 and a D
+    that is not a multiple of 4 (the scalar path).  The backward adds with
+    atomics: its sums come in another order than the plain version's, and
+    in another order on every run."""
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    h, nbr, mask, g = _gather_case(dev, b, k, n, d)
+    n_fwd, n_bwd = gm.gather_mean_fwd.launches, gm.gather_mean_bwd.launches
+    out = gm.gather_mean_fwd(h, nbr, mask)
+    dh = gm.gather_mean_bwd(g, nbr.long(), mask, n)
+    torch.cuda.synchronize()
+    assert (gm.gather_mean_fwd.launches, gm.gather_mean_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    want = gm.gather_mean_reference(h, nbr, mask)
+    assert float((out - want).abs().max()) <= TOL * max(1.0, float(want.abs().max()))
+    assert (out[b // 2] == 0).all()
+    want_dh = gm.gather_mean_bwd_reference(g, nbr, mask, n)
+    assert float((dh - want_dh).abs().max()) <= GRAD_REL * max(1.0, float(want_dh.abs().max()))
+
+
+def test_gather_mean_autograd_and_refusals(dev):
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    h, nbr, mask, g = _gather_case(dev, 300, 8, 500, 64, seed=1)
+    hk, hr = h.clone().requires_grad_(), h.clone().requires_grad_()
+    (gm.gather_mean(hk, nbr, mask) * g).sum().backward()
+    (gm.gather_mean_reference(hr, nbr, mask) * g).sum().backward()
+    torch.testing.assert_close(hk.grad, hr.grad, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        gm.gather_mean_fwd(h.bfloat16(), nbr, mask)
+    with pytest.raises(ValueError):
+        gm.gather_mean_fwd(h, nbr.cpu(), mask)
+
+
+def test_dedup_step_launch_counts(dev):
+    """One dense-pool step through the dedup'd block forward: 8 gather-mean
+    forward and 8 backward launches (2 levels x 2 node types x 2 in-etypes),
+    2 pool masks, no leaf kernel."""
+    from gnn_recsys_tpu_torch.models.conv_model import ConvModel
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+    from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
+    from gnn_recsys_tpu_torch.ops.sampling import Draws
+    from gnn_recsys_tpu_torch.train.full_batch import TrainState
+    from gnn_recsys_tpu_torch.train.minibatch import (
+        EdgeStore,
+        MinibatchConfig,
+        make_minibatch_step,
+    )
+    from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
+
+    data = make_synthetic_data(num_users=300, num_items=120, seed=0)
+    g = data.graph.to(dev)
+    model = ConvModel(g.canonical_etypes, (("user", 8), ("item", 8), ("hidden", 64), ("out", 32)),
+                      aggregator_type="mean_nn", leaf_kernel=True).to(dev)
+    cfg = MinibatchConfig(edge_batch_size=256, fanouts=(8, 4), neg_mode="dense_pool",
+                          neg_pool_size=64, pool_mask_kernel=True, dedup=True)
+    etypes = tuple(data.train_pairs)
+    tables = {et: build_padded_pair_set(u, i, num_src=300).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    step = make_minibatch_step(model, cfg, etypes, with_update=True, with_exclusion=True,
+                               has_reverse={et: True for et in etypes})
+    batch = EdgeStore(data.graph, etypes).batch({et: np.arange(128) for et in etypes}, True, dev)
+    counters = (gm.gather_mean_fwd, gm.gather_mean_bwd, pm.pool_membership_mask,
+                la.leaf_mean_nn_fwd, la.leaf_mean_nn_bwd)
+    before = [fn.launches for fn in counters]
+    _, loss = step(TrainState.create(model), g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                   batch, tables, Draws(torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [8, 8, 2, 0, 0]
