@@ -12,7 +12,8 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
 1. device: the card's name and power limit, torch and CUDA versions.
 2. build: ``nvcc`` of ``gnn_recsys_tpu_torch/csrc/*.cu`` for sm_90a (one
    process a source, all at once), with the compiler's register /
-   shared-memory / spill summary.
+   shared-memory / spill summary; the f32 F <= 8 instantiations of the leaf
+   kernels (the tree step's) must not spill.
 3. kernels: each kernel against its plain version; its time (``ms``: the
    device time of its kernels under ``torch.profiler``; ``events_ms``: CUDA
    events around back-to-back calls, host overhead included) beside the
@@ -20,7 +21,8 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    computes the same function, that call's.  The MIPS kernels at a serving shape (U=4096 users,
    I=30,000 items, D=128, k=26), a tied case, a bf16 case; ``leaf_mean_nn``
    forward and backward at the training step's widest leaf (P=18,432, K=8,
-   F=8, H=256) in f32 and bf16, a ragged P and an all-masked row;
+   F=8, H=256) in f32 and bf16, a ragged P and an all-masked row, the
+   backward's main kernel and its reduce timed apart;
    ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding and ragged
    B and P; ``gather_mean`` forward and backward at the dedup step's widest
    mean (B=38,912, K=8, N=30,000, D=256) and a ragged B, with an all-masked
@@ -229,10 +231,35 @@ def phase_device() -> str:
     return kind
 
 
-def phase_build() -> None:
+# The leaf kernels' f32 instantiations at F <= 8 (the tree step's), by a
+# piece of their mangled names.
+LEAF_PTXAS = {"leaf_mean_nn_fwd": ("leaf_fwd_kernelIfLi8EE",),
+              "leaf_mean_nn_bwd": ("leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel")}
+
+
+def leaf_ptxas(lines) -> dict:
+    """Registers and spill bytes of each kernel the tree step's leaf launches
+    run; raises where one spills."""
+    funcs = build.ptxas_summary(lines)
+    out = {}
+    for name, pieces in LEAF_PTXAS.items():
+        for piece in pieces:
+            hits = [v for k, v in funcs.items() if piece in k]
+            if len(hits) != 1:
+                raise RuntimeError(f"ptxas summary: {len(hits)} entry functions match {piece}")
+            if hits[0]["spill_bytes"]:
+                raise AssertionError(f"{piece} spills {hits[0]['spill_bytes']} bytes")
+            out.setdefault(name, {})[piece] = hits[0]
+    return out
+
+
+def phase_build() -> dict:
+    """Builds every kernel; returns the leaf kernels' ptxas summary."""
     t0 = time.perf_counter()
     build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean"])
-    say("build", seconds=time.perf_counter() - t0, info=build.build_info)
+    ptxas = leaf_ptxas(build.build_info["leaf_agg"]["ptxas"])
+    say("build", seconds=time.perf_counter() - t0, info=build.build_info, leaf_ptxas=ptxas)
+    return ptxas
 
 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
@@ -264,6 +291,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                     row["library_ms"] = device_ms(library, reps=3)
         rows.append(row)
         say("kernel", **row)
+        return row
 
     def mips(name, tpu_line, err, kernel, plain, library, flops, nbytes):
         record(name, MIPS, tpu_line, err, kernel, plain, library, flops, nbytes)
@@ -367,10 +395,21 @@ def leaf_rows(dev, gen, record, k, p, f, h) -> None:
            lambda: la.leaf_mean_nn_fwd(x, ms, w, b),
            lambda: la.leaf_mean_nn_reference(x, ms, w, b), None,
            float(k * p * h * (2 * f + 4)), io + 4.0 * p * h)
-    record("leaf_mean_nn_bwd", LEAF, 94, max(grad_errs),
-           lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
-           lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
-           float(k * p * h * (4 * f + 4)), io + 4.0 * (p * h + f * h + h))
+    row = record("leaf_mean_nn_bwd", LEAF, 94, max(grad_errs),
+                 lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
+                 lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
+                 float(k * p * h * (4 * f + 4)), io + 4.0 * (p * h + f * h + h))
+    if row["ms"] is not None:
+        # The backward's two kernels apart: device ms a call of each.
+        reps = 20
+        _, kernels = profiled_kernels(lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g), reps)
+        split = {part: sum(us for key, _, us in kernels if pat in key) / 1e3 / reps
+                 for part, pat in (("main_ms", "leaf_bwd_kernel"),
+                                   ("reduce_ms", "leaf_bwd_reduce_kernel"))}
+        if not all(split.values()):
+            raise RuntimeError(f"leaf_mean_nn_bwd: the profiler missed a kernel: {split}")
+        row.update(split)
+        say("kernel_split", name="leaf_mean_nn_bwd", **split)
 
 
 def pool_rows(dev, gen, record, b, k, p) -> None:
@@ -845,7 +884,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    ptxas = phase_build()
     rows = phase_kernels(dev)
     t0 = time.perf_counter()
     data = bench_data()
@@ -862,6 +901,8 @@ def main() -> int:
     phase_packed_leaf(dev, data, model)
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] in ptxas:
+            row["ptxas"] = ptxas[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

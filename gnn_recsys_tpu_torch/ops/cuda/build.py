@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 into ``gnn_recsys_tpu_torch/_build/lib<name>-<hash>.so`` (the hash of the
-source, so an edited kernel is never served from a stale library).  Nothing
+source, so an edited kernel is never served from a stale library), with the
+compiler's register and spill summary beside it (``.so.ptxas``).  Nothing
 here runs at import time: the CPU-only tests import every module.
 """
 
@@ -55,6 +56,9 @@ def build(names: List[str]) -> Dict[str, str]:
     for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
+            if name not in build_info and os.path.exists(out + ".ptxas"):
+                with open(out + ".ptxas") as f:  # the summary of an earlier build
+                    build_info[name] = {"seconds": 0.0, "ptxas": f.read().splitlines()}
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
@@ -65,13 +69,30 @@ def build(names: List[str]) -> Dict[str, str]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln]
+        with open(out + ".ptxas", "w") as f:
+            f.write("\n".join(ptxas))
         os.replace(tmp, out)
-        build_info[name] = {
-            "seconds": time.perf_counter() - t0,
-            "ptxas": [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln],
-        }
+        build_info[name] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
     return {name: _lib_path(name) for name in names}
+
+
+def ptxas_summary(lines: List[str]) -> Dict[str, Dict[str, int]]:
+    """Per compiled entry function (its mangled name): registers and spill
+    bytes (stores + loads), from the ``ptxas -v`` lines ``build`` keeps."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for ln in lines:
+        if "entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = {"registers": 0, "spill_bytes": 0}
+        elif name is not None and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name]["spill_bytes"] = nums[1] + nums[2]  # stack frame, stores, loads
+        elif name is not None and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -17,7 +17,7 @@ it launches its kernel or raises, and counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,16 +26,66 @@ from gnn_recsys_tpu_torch.ops.cuda import build
 _LIB = "leaf_agg"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_COLUMNS_PER_BLOCK = 128  # HT of csrc/leaf_agg.cu
-_BLOCKS_PER_SM = 4  # backward blocks aimed at, per SM
+# Blocks a launch aims at, per SM: the forward's occupancy at F = 8.  The
+# backward holds 3 an SM, so at the training shape its whole grid (384
+# blocks) is resident at once on 132 SMs.
+_BLOCKS_PER_SM = 4
+# The kernels' tile at each padded feature width FT (csrc/leaf_agg.cu, Tile):
+# FT -> (parents a warp, columns a lane); a block is 4 warps of 32 lanes.
+_TILES = {8: (8, 4), 16: (4, 4), 32: (4, 2), 64: (4, 1), 128: (2, 1)}
+
+
+class LaunchGeometry(NamedTuple):
+    """A launch of either leaf kernel: a grid of ``(grid_x, grid_y)``
+    blocks; block ``(x, y)`` owns columns ``y * block_columns`` onward and
+    walks the tiles ``x, x + grid_x, ...`` of ``tile_parents`` parents.  The
+    backward writes one ``[F, H]`` + ``[H]`` partial a block ``x``, so
+    ``grid_x`` is also its partial count."""
+
+    tile_parents: int
+    block_columns: int
+    tiles: int
+    grid_x: int
+    grid_y: int
+
+
+def tile_shape(f: int) -> Tuple[int, int]:
+    """(parents a tile, columns a block) of the instantiation for width ``f``."""
+    ft = next(t for t in _TILES if f <= t)
+    parents, columns = _TILES[ft]
+    return 4 * parents, 32 * columns
+
+
+def launch_geometry(p: int, f: int, h: int, sms: int, block_p: int = 512) -> LaunchGeometry:
+    """The grid for ``p`` parents, width ``f`` and ``h`` columns on a card
+    of ``sms`` SMs: about ``_BLOCKS_PER_SM`` blocks an SM, each walking as
+    many tiles as every other (at most ``block_p`` parents), and no block
+    without a tile."""
+    tp, bc = tile_shape(f)
+    tiles = max(1, -(-p // tp))
+    grid_y = max(1, -(-h // bc))
+    per_block = -(-tiles * grid_y // (_BLOCKS_PER_SM * sms))
+    per_block = max(1, min(per_block, block_p // tp))
+    return LaunchGeometry(tp, bc, tiles, -(-tiles // per_block), grid_y)
+
+
+def _geometry(p, f, h, block_p, dev) -> LaunchGeometry:
+    return launch_geometry(p, f, h, torch.cuda.get_device_properties(dev).multi_processor_count,
+                           block_p)
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_typed", False):
-        lib.leaf_tile_parents.argtypes = [_I]
-        lib.leaf_tile_parents.restype = _I
-        lib.leaf_fwd_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        lib.leaf_tile_shape.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.leaf_tile_shape.restype = _I
+        for ft in _TILES:  # the host's tiles must be the kernels'
+            shape = (_I * 2)()
+            build.check(lib, lib.leaf_tile_shape(ft, shape), "leaf_tile_shape")
+            if tuple(shape) != tile_shape(ft):
+                raise RuntimeError(f"leaf_agg.cu tiles {tuple(shape)} at F={ft}, "
+                                   f"the host expects {tile_shape(ft)}")
+        lib.leaf_fwd_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.leaf_fwd_launch.restype = _I
         lib.leaf_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _P, _P, _P, _P, _P]
@@ -45,7 +95,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def leaf_kernel_supported(f: int) -> bool:
-    """Feature widths the kernels take (one W column a thread, in registers)."""
+    """Feature widths the kernels take (F padded to 8, 16, 32, 64 or 128)."""
     return 1 <= f <= 128
 
 
@@ -106,9 +156,10 @@ def leaf_mean_nn_fwd(x_km, mask_scaled, w, b) -> torch.Tensor:
     out = torch.empty((p, h), dtype=x.dtype, device=dev)
     if p and h:
         lib = _lib()
+        geo = _geometry(p, f, h, 512, dev)
         with torch.cuda.device(dev):
             err = lib.leaf_fwd_launch(x.data_ptr(), ms.data_ptr(), w_.data_ptr(), b_.data_ptr(),
-                                      k, p, f, h, int(x.dtype == torch.bfloat16),
+                                      k, p, f, h, int(x.dtype == torch.bfloat16), geo.grid_x,
                                       out.data_ptr(), build.stream(dev))
         build.check(lib, err, "leaf_mean_nn_fwd")
         leaf_mean_nn_fwd.launches += 1
@@ -116,16 +167,6 @@ def leaf_mean_nn_fwd(x_km, mask_scaled, w, b) -> torch.Tensor:
 
 
 leaf_mean_nn_fwd.launches = 0
-
-
-def _tiles_per_block(lib, p: int, f: int, h: int, block_p: int, dev) -> int:
-    """Parent tiles a backward block sums before it writes its partial: as
-    few as fill the card, at most ``block_p`` parents."""
-    tile = lib.leaf_tile_parents(f)
-    tiles = -(-p // tile)
-    slices = -(-h // _COLUMNS_PER_BLOCK)
-    target = _BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-tiles * slices // target), block_p // tile))
 
 
 def leaf_mean_nn_bwd(x_km, mask_scaled, w, b, g, block_p: int = 512):
@@ -144,14 +185,13 @@ def leaf_mean_nn_bwd(x_km, mask_scaled, w, b, g, block_p: int = 512):
     dw = torch.empty((f, h), dtype=torch.float32, device=dev)
     db = torch.empty((h,), dtype=torch.float32, device=dev)
     lib = _lib()
-    tpb = _tiles_per_block(lib, p, f, h, block_p, dev)
-    blocks = -(-p // (lib.leaf_tile_parents(f) * tpb))
+    blocks = _geometry(p, f, h, block_p, dev).grid_x  # one partial a block column
     dw_part = torch.empty((blocks, f, h), dtype=torch.float32, device=dev)
     db_part = torch.empty((blocks, h), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.leaf_bwd_launch(
             x.data_ptr(), ms.data_ptr(), w_.data_ptr(), b_.data_ptr(), g_.data_ptr(),
-            k, p, f, h, int(x.dtype == torch.bfloat16), tpb, dw_part.data_ptr(),
+            k, p, f, h, int(x.dtype == torch.bfloat16), blocks, dw_part.data_ptr(),
             db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), build.stream(dev))
     build.check(lib, err, "leaf_mean_nn_bwd")
     leaf_mean_nn_bwd.launches += 1

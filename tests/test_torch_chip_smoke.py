@@ -76,3 +76,30 @@ def test_main_refuses_without_a_card():
         assert "no CUDA device" in str(e)
     else:
         raise AssertionError("main() ran without a card")
+
+
+def _ptxas_lines(fwd_spill=0):
+    """``ptxas -v`` lines as ``build`` keeps them, for the leaf kernels."""
+    lines = []
+    for name, regs, spill in (("leaf_fwd_kernelIfLi8EEEvPKT_", 128, fwd_spill),
+                              ("leaf_fwd_kernelIfLi16EEEvPKT_", 154, 0),
+                              ("leaf_bwd_kernelIfLi8EEEvPKT_", 162, 0),
+                              ("leaf_bwd_reduce_kernelEPKfS1_", 26, 0)):
+        lines += [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115{name}' "
+                  f"for 'sm_90a'",
+                  f"{spill} bytes stack frame, {spill} bytes spill stores, "
+                  f"{spill // 2} bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, used 1 barriers, 404 bytes cmem[0]"]
+    return lines
+
+
+def test_leaf_ptxas_reads_registers_and_refuses_spills():
+    summary = chip_smoke.build.ptxas_summary(_ptxas_lines())
+    assert len(summary) == 4
+    assert {v["registers"] for v in summary.values()} == {128, 154, 162, 26}
+    got = chip_smoke.leaf_ptxas(_ptxas_lines())
+    assert got["leaf_mean_nn_fwd"] == {"leaf_fwd_kernelIfLi8EE": {"registers": 128,
+                                                                 "spill_bytes": 0}}
+    assert set(got["leaf_mean_nn_bwd"]) == {"leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel"}
+    with pytest.raises(AssertionError, match="spills 12 bytes"):
+        chip_smoke.leaf_ptxas(_ptxas_lines(fwd_spill=8))

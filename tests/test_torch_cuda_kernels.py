@@ -139,8 +139,21 @@ def _leaf_case(dev, k, p, f, h, seed=0, dtype=torch.float32):
     return x.to(dtype), ms, w.to(dtype), b.to(dtype), g.to(dtype)
 
 
+def _ragged_leaf_shapes():
+    """P one short of and one over a tile, H not a multiple of 4, at narrow,
+    odd and wide F and at K of 1, 4 and 8 (tiles from the host's pure
+    geometry)."""
+    shapes = []
+    for f in (1, 3, 8, 16, 128):
+        tp, _ = la.tile_shape(f)
+        for k in (1, 4, 8):
+            shapes += [(k, tp - 1, f, 130), (k, tp + 1, f, 33)]
+    return shapes
+
+
 @pytest.mark.parametrize("k,p,f,h", [(8, 18432, 8, 256), (8, 2047, 8, 256), (4, 37, 5, 33),
-                                     (16, 300, 128, 130), (1, 1, 1, 1)])
+                                     (16, 300, 128, 130), (1, 1, 1, 1), (40, 100, 8, 64),
+                                     *_ragged_leaf_shapes()])
 def test_leaf_mean_nn_matches_plain(dev, k, p, f, h):
     x, ms, w, b, g = _leaf_case(dev, k, p, f, h)
     n_fwd, n_bwd = la.leaf_mean_nn_fwd.launches, la.leaf_mean_nn_bwd.launches
@@ -164,6 +177,13 @@ def test_leaf_mean_nn_bf16_and_autograd(dev):
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), la.leaf_mean_nn_reference(x, ms, w, b).float(),
                                rtol=BF16_RTOL, atol=1e-6)
+    # bf16 backward (widened on load) against the plain version on the same
+    # bf16 inputs; an odd F takes the element-wise staging.
+    for f in (8, 5):
+        x, ms, w, b, g = _leaf_case(dev, 8, 333, f, 40, seed=3, dtype=torch.bfloat16)
+        dw, db = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+        for got, want in zip((dw, db), la.leaf_mean_nn_bwd_reference(x, ms, w, b, g)):
+            assert float((got - want).abs().max()) <= GRAD_REL * max(1.0, float(want.abs().max()))
     x, ms, w, b, g = _leaf_case(dev, 8, 1000, 8, 64, seed=2)
     wk, bk = w.clone().requires_grad_(), b.clone().requires_grad_()
     (la.leaf_mean_nn(x, ms, wk, bk) * g).sum().backward()

@@ -92,3 +92,35 @@ def test_bf16_matches_jax_reference():
 def test_kernel_support_bounds():
     assert la.leaf_kernel_supported(1) and la.leaf_kernel_supported(128)
     assert not la.leaf_kernel_supported(0) and not la.leaf_kernel_supported(129)
+
+
+@pytest.mark.parametrize("h", [1, 33, 256])
+@pytest.mark.parametrize("f", [1, 8, 128])
+@pytest.mark.parametrize("p", [1, 31, 18432, 18437])
+def test_launch_geometry_covers_each_parent_and_column_once(p, f, h):
+    """The kernels' grid, walked as they walk it: block x takes tiles x,
+    x + grid_x, ... of tile_parents parents, block y columns y *
+    block_columns onward (a lane 1-4 of them); every parent and column is
+    covered once, every block has a tile, and the backward's partials (one
+    a block x) hold every block's slab."""
+    geo = la.launch_geometry(p, f, h, sms=132)
+    tp, bc = la.tile_shape(f)
+    assert (geo.tile_parents, geo.block_columns) == (tp, bc)
+    parents = np.zeros(p, np.int64)
+    partial_of_tile = {}
+    for x in range(geo.grid_x):
+        mine = range(x, geo.tiles, geo.grid_x)
+        assert len(mine) >= 1  # no block without a tile, so no unwritten partial
+        for t in mine:
+            parents[t * tp:(t + 1) * tp] += 1
+            partial_of_tile[t] = x
+    assert (parents == 1).all()
+    assert sorted(set(partial_of_tile.values())) == list(range(geo.grid_x))
+    columns = np.zeros(h, np.int64)
+    for y in range(geo.grid_y):
+        columns[y * bc:(y + 1) * bc] += 1
+    assert (columns == 1).all() and geo.grid_y * bc < h + bc
+    assert geo.grid_x * geo.grid_y <= max(geo.grid_y, 4 * 132)  # about 4 blocks an SM
+    # block_p bounds the parents one block walks.
+    small = la.launch_geometry(p, f, h, sms=1, block_p=2 * tp)
+    assert -(-small.tiles // small.grid_x) <= 2
