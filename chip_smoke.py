@@ -62,6 +62,7 @@ a CUDA device.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -84,7 +85,7 @@ from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
-from gnn_recsys_tpu_torch.ops.sampling import Draws
+from gnn_recsys_tpu_torch.ops.sampling import Draws, unique_capped
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config, save_run
@@ -262,6 +263,29 @@ def phase_build() -> dict:
     return ptxas
 
 
+def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, flops, nbytes,
+               **extra) -> dict:
+    """One row of the kernels line, appended to ``rows`` and printed: the
+    bound from ``flops`` and ``nbytes`` and, with ``timed``, the device ms of
+    ``kernel``, ``plain`` and ``library`` (None: no one-call yardstick)."""
+    b_ms, b_by = bound(flops, nbytes)
+    row = {"name": name, "route": "cuda", "source": files[0],
+           "replaces": f"{files[1]}:{tpu_line}", "launches": None,
+           "max_abs_err": err, "ms": None, "plain_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra}
+    if library is None:
+        row["library"] = NO_YARDSTICK
+    if timed:
+        with tm.full_f32_matmul():
+            row.update(ms=device_ms(kernel), events_ms=time_ms(kernel),
+                       plain_ms=device_ms(plain, reps=3))
+            if library is not None:
+                row["library_ms"] = device_ms(library, reps=3)
+    rows.append(row)
+    say("kernel", **row)
+    return row
+
+
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                   weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
                   gather=(38_912, 8, 30_000, 256), timed=True, seed=0) -> list:
@@ -275,23 +299,8 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     exact = dot_scores(ue, ie)
     rows = []
 
-    def record(name, files, tpu_line, err, kernel, plain, library, flops, nbytes):
-        b_ms, b_by = bound(flops, nbytes)
-        row = {"name": name, "route": "cuda", "source": files[0],
-               "replaces": f"{files[1]}:{tpu_line}", "launches": None,
-               "max_abs_err": err, "ms": None, "plain_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        if library is None:
-            row["library"] = NO_YARDSTICK
-        if timed:
-            with tm.full_f32_matmul():
-                row.update(ms=device_ms(kernel), events_ms=time_ms(kernel),
-                           plain_ms=device_ms(plain, reps=3))
-                if library is not None:
-                    row["library_ms"] = device_ms(library, reps=3)
-        rows.append(row)
-        say("kernel", **row)
-        return row
+    def record(*args, **extra):
+        return kernel_row(rows, timed, *args, **extra)
 
     def mips(name, tpu_line, err, kernel, plain, library, flops, nbytes):
         record(name, MIPS, tpu_line, err, kernel, plain, library, flops, nbytes)
@@ -463,24 +472,132 @@ def gather_rows(dev, gen, record, b, k, n, d) -> None:
             raise AssertionError(f"gather_mean_bwd B={bb}: differs by {grad_errs[-1]}")
 
     h, nbr, mask, g = gather_case(dev, gen, b, k, n, d)
+    bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
+    fwd_cost, bwd_cost = gather_costs(b, k, n, d, float(mask.sum()))
+    note = "uniform random ids (no step has them); launches: every shape of the dedup step"
+    record("gather_mean_fwd", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
+           lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost, shape=note)
+    record("gather_mean_bwd", GATHER, 49, max(grad_errs),
+           lambda: gm.gather_mean_bwd(g, nbr, mask, n),
+           lambda: gm.gather_mean_bwd_reference(g, nbr, mask, n), bag_bwd, *bwd_cost, shape=note)
+
+
+def gather_costs(b, k, n, d, valid) -> tuple:
+    """((flops, bytes) of the forward, (flops, bytes) of the backward) at
+    [B, K] ids into an [N, D] table with ``valid`` valid slots: each input
+    read once and each output written once (h, int32 ids, bool mask, out;
+    dout, ids, mask, dh)."""
+    io = 4.0 * b * k + b * k
+    return ((valid * d + b * d, io + 4.0 * (n * d + b * d)),
+            (2.0 * valid * d + b * d, io + 4.0 * (b * d + n * d)))
+
+
+def embedding_bag_calls(h, nbr, mask, g) -> tuple:
+    """The one-call yardstick of each gather-mean kernel: ``embedding_bag``
+    (sum, per-slot weights m / max(count, 1)) and its autograd backward."""
     m = mask.float()
     weights = m / m.sum(dim=1, keepdim=True).clamp(min=1.0)
-    clipped = nbr.long().clamp(0, n - 1)
+    clipped = nbr.long().clamp(0, h.shape[0] - 1)
     h_req = h.clone().requires_grad_()
     bag = torch.nn.functional.embedding_bag(clipped, h_req, mode="sum",
                                             per_sample_weights=weights)
-    valid = float(mask.sum())
-    io = 4.0 * (n * d + b * k) + b * k  # h, the int32 ids, the bool mask
-    record("gather_mean_fwd", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
-           lambda: gm.gather_mean_reference(h, nbr, mask),
-           lambda: torch.nn.functional.embedding_bag(clipped, h, mode="sum",
-                                                     per_sample_weights=weights),
-           valid * d + b * d, io + 4.0 * b * d)
-    record("gather_mean_bwd", GATHER, 49, max(grad_errs),
-           lambda: gm.gather_mean_bwd(g, nbr, mask, n),
-           lambda: gm.gather_mean_bwd_reference(g, nbr, mask, n),
-           lambda: torch.autograd.grad(bag, h_req, g, retain_graph=True),
-           2.0 * valid * d + b * d, 4.0 * (b * d + b * k + n * d) + b * k)  # dout, ids, mask, dh
+    return (lambda: torch.nn.functional.embedding_bag(clipped, h, mode="sum",
+                                                      per_sample_weights=weights),
+            lambda: torch.autograd.grad(bag, h_req, g, retain_graph=True))
+
+
+class GatherTap:
+    """Stands in for the block forward's ``gather_mean`` (``conv_model``):
+    counts the calls by shape (B, K, N, D) while ``counting``, and keeps
+    each call's inputs and cotangent while ``capturing``.  ``fn`` is the
+    function it calls (the kernels' wrapper, or a plain version)."""
+
+    def __init__(self):
+        self.fn = gm.gather_mean
+        self.calls_by_shape = collections.Counter()
+        self.captured = []
+        self.counting = self.capturing = False
+        self.unique_counts = {}
+
+    def unique_capped(self, flat, cap):
+        """``unique_capped`` that keeps each table's unique count by capacity."""
+        uniq, inv = unique_capped(flat, cap)
+        self.unique_counts[cap] = int(inv.max()) + 1
+        return uniq, inv
+
+    def __call__(self, h, nbr, mask):
+        shape = (nbr.shape[0], nbr.shape[1], h.shape[0], h.shape[1])
+        if self.counting:
+            self.calls_by_shape[shape] += 1
+        out = self.fn(h, nbr, mask)
+        if self.capturing:
+            call = {"shape": shape, "h": h.detach(), "nbr": nbr, "mask": mask}
+            self.captured.append(call)
+            if out.requires_grad:
+                out.register_hook(lambda g, call=call: call.update(dout=g.detach()))
+        return out
+
+
+def slot_stats(nbr, mask, n, rows) -> dict:
+    """Valid slots pointing at one source row of a gather (ids [B, K] into
+    N rows), over all N rows: with every destination row, and without the
+    padding rows (those at or past the destination table's unique count
+    ``rows``, which nothing reads)."""
+    out = {"masked_share": 1.0 - float(mask.float().mean())}
+    for key, lim in (("all_rows", nbr.shape[0]), ("without_padding", rows)):
+        ids = nbr[:lim][mask[:lim]].long()
+        per_row = torch.bincount(ids, minlength=n).float()
+        out[key] = {"valid_slots": int(ids.numel()), "max": int(per_row.max()),
+                    "p99": float(torch.quantile(per_row, 0.99)),
+                    "mean": float(per_row.mean())}
+    return out
+
+
+def phase_gather_steps(dev, tap, counts, timed=True) -> list:
+    """Both gather-mean kernels at each shape one dedup step runs, on that
+    step's own plan (the first call of each shape that ``tap`` captured):
+    against the plain versions, timed beside the bound, the plain versions
+    and ``embedding_bag``, with the slot statistics of every call and the
+    forward again on ids that all fall in the table's first 4 MB (its rows
+    stay in L2).  ``counts`` maps a destination table's capacity to its
+    unique count.  Returns the rows of the kernels line."""
+    rows, seen = [], set()
+    for i, call in enumerate(tap.captured):
+        b, k, n, d = call["shape"]
+        nbr, mask, h, g = call["nbr"], call["mask"], call["h"], call["dout"]
+        uniq = counts[b]
+        stats = {"call": i, "B": b, "K": k, "N": n, "D": d, "unique_rows": uniq,
+                 "padding_rows": b - uniq, **slot_stats(nbr, mask, n, uniq)}
+        say("gather_plan", **stats)
+        if call["shape"] in seen:
+            continue
+        seen.add(call["shape"])
+        out, want = gm.gather_mean_fwd(h, nbr, mask), gm.gather_mean_reference(h, nbr, mask)
+        err = float((out - want).abs().max())
+        if not err <= TOL * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"gather_mean_fwd at {call['shape']}: differs by {err}")
+        dh, want = gm.gather_mean_bwd(g, nbr, mask, n), gm.gather_mean_bwd_reference(g, nbr, mask, n)
+        grad_err = float((dh - want).abs().max())
+        if not grad_err <= GRAD_REL * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"gather_mean_bwd at {call['shape']}: differs by {grad_err}")
+        bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
+        fwd_cost, bwd_cost = gather_costs(b, k, n, d, float(mask.sum()))
+        label = f"B{b}_K{k}_N{n}"
+        fwd = kernel_row(rows, timed, f"gather_mean_fwd:{label}", GATHER, 49, err,
+                         lambda: gm.gather_mean_fwd(h, nbr, mask),
+                         lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost,
+                         shape=stats)
+        kernel_row(rows, timed, f"gather_mean_bwd:{label}", GATHER, 49, grad_err,
+                   lambda: gm.gather_mean_bwd(g, nbr, mask, n),
+                   lambda: gm.gather_mean_bwd_reference(g, nbr, mask, n), bag_bwd, *bwd_cost,
+                   shape=stats)
+        if timed:
+            # The same forward on ids inside the table's first 4 MB.
+            near = (nbr % max(1, min(n, (4 << 20) // (4 * d)))).contiguous()
+            fwd["l2_resident_ms"] = device_ms(lambda: gm.gather_mean_fwd(h, near, mask))
+            say("gather_l2_probe", name=fwd["name"], ms=fwd["ms"],
+                l2_resident_ms=fwd["l2_resident_ms"])
+    return rows
 
 
 def _assert_recs_valid(recs: dict, bought_rows: np.ndarray, num_items: int) -> None:
@@ -695,10 +812,27 @@ def _grads(model) -> dict:
 
 
 def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool=2560,
-                fanouts=(8, 4), random_recall=None, k=10, on_card=True, dedup=False):
-    """Train the Medium model with the ``bench.py`` step on ``dev`` (through
-    the dedup'd block forward with ``dedup``); returns (the launch counts of
-    the main path, the trained model)."""
+                fanouts=(8, 4), random_recall=None, k=10, on_card=True, tap=None):
+    """Train the Medium model with the ``bench.py`` step on ``dev``; with a
+    :class:`GatherTap` ``tap``, through the dedup'd block forward, whose
+    gather-mean calls go through ``tap`` (counted in the main path, captured
+    in the route check's kernel step).  Returns (the launch counts of the
+    main path, the trained model)."""
+    if tap is None:
+        return _train(dev, data, hidden, out, steps, batch_size, pool, fanouts, random_recall, k,
+                      on_card, None)
+    saved = conv_model.gather_mean, conv_model.unique_capped
+    conv_model.gather_mean, conv_model.unique_capped = tap, tap.unique_capped
+    try:
+        return _train(dev, data, hidden, out, steps, batch_size, pool, fanouts, random_recall, k,
+                      on_card, tap)
+    finally:
+        conv_model.gather_mean, conv_model.unique_capped = saved
+
+
+def _train(dev, data, hidden, out, steps, batch_size, pool, fanouts, random_recall, k, on_card,
+           tap):
+    dedup = tap is not None
     phase = "train_dedup" if dedup else "train"
     g = data.graph.to(dev)
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
@@ -735,6 +869,8 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
         torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
+    if dedup:
+        tap.counting = True
     losses, events = [], []
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -750,6 +886,11 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
     sync(dev)
     train_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    if dedup:
+        tap.counting = False
+        calls = sum(tap.calls_by_shape.values())
+        if on_card and not calls == launches["gather_mean_fwd"] == launches["gather_mean_bwd"]:
+            raise AssertionError(f"{calls} gather-mean calls against {launches} launches")
     losses = torch.stack(losses).cpu().numpy()
     window = max(1, min(20, steps // 5))
     first, last = float(losses[:window].mean()), float(losses[-window:].mean())
@@ -791,13 +932,18 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
         return float(loss.detach()), _grads(m)
 
     rec = Draws(torch.Generator(device=dev).manual_seed(1), record=True)
+    if dedup:
+        tap.capturing = True
     lk, gk = loss_and_grads(model, cfg, rec)
-    conv_model.gather_mean = gm.gather_mean_reference
+    if dedup:
+        tap.capturing = False
+        tap.fn = gm.gather_mean_reference
     try:
         lp, gp = loss_and_grads(plain, dataclasses.replace(cfg, pool_mask_kernel=False),
                                 rec.replay())
     finally:
-        conv_model.gather_mean = gm.gather_mean
+        if dedup:
+            tap.fn = gm.gather_mean
     if not abs(lk - lp) <= LOSS_RTOL * abs(lp):
         raise AssertionError(f"{phase}: kernel and plain routes: loss {lk} vs {lp}")
     worst = 0.0
@@ -894,10 +1040,16 @@ def main() -> int:
     train_launches, _ = phase_train(dev, data, random_recall=random_recall)
     launches.update(train_launches)
     # Each kernel's launches are counted on the path that runs it: the
-    # gather-mean kernels on the dedup'd step's.
-    dedup_launches, model = phase_train(dev, data, steps=50, dedup=True)
+    # gather-mean kernels on the dedup'd step's, by shape too.
+    tap = GatherTap()
+    dedup_launches, model = phase_train(dev, data, steps=50, tap=tap)
     for name in ("gather_mean_fwd", "gather_mean_bwd"):
         launches[name] = dedup_launches[name]
+    step_rows = phase_gather_steps(dev, tap, tap.unique_counts)
+    for (b, k, n, _), calls in tap.calls_by_shape.items():
+        for name in ("gather_mean_fwd", "gather_mean_bwd"):
+            launches[f"{name}:B{b}_K{k}_N{n}"] = calls
+    rows += step_rows
     phase_packed_leaf(dev, data, model)
     for row in rows:
         row["launches"] = launches[row["name"]]

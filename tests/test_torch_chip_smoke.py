@@ -46,11 +46,29 @@ def test_slice_and_train_phase_rehearsal(data):
 
 
 def test_train_dedup_and_packed_leaf_rehearsal(data):
+    tap = chip_smoke.GatherTap()
     launches, model = chip_smoke.phase_train(torch.device("cpu"), data, hidden=32, out=16,
                                              steps=16, batch_size=128, pool=48, on_card=False,
-                                             dedup=True)
+                                             tap=tap)
     assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
+    # 8 gather-mean calls a step, in 4 shapes (2 levels x 2 node types).
+    assert sum(tap.calls_by_shape.values()) == 16 * 8 and len(tap.calls_by_shape) == 4
+    assert len(tap.captured) == 8 and all("dout" in c for c in tap.captured)
+    assert chip_smoke.conv_model.gather_mean is chip_smoke.gm.gather_mean
+    rows = chip_smoke.phase_gather_steps(torch.device("cpu"), tap, tap.unique_counts, timed=False)
+    assert [r["name"].split(":")[0] for r in rows] == ["gather_mean_fwd", "gather_mean_bwd"] * 4
+    assert all(r["max_abs_err"] <= 1e-6 and r["bound_ms"] > 0 for r in rows)
     chip_smoke.phase_packed_leaf(torch.device("cpu"), data, model, seeds=8)
+
+
+def test_slot_stats_counts_valid_slots_per_source_row():
+    nbr = torch.tensor([[0, 1, 1], [1, 2, 0], [0, 0, 0]])
+    mask = torch.tensor([[True, True, False], [True, True, True], [True, True, False]])
+    stats = chip_smoke.slot_stats(nbr, mask, 4, rows=2)
+    assert stats["masked_share"] == pytest.approx(2 / 9)
+    assert stats["all_rows"]["valid_slots"] == 7 and stats["all_rows"]["max"] == 4
+    cut = stats["without_padding"]
+    assert cut["valid_slots"] == 5 and cut["max"] == 2 and cut["mean"] == 5 / 4
 
 
 def test_leaf_branch_count_of_the_bench_tree(data):
