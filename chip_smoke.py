@@ -520,9 +520,11 @@ class GatherTap:
         self.unique_counts = {}
 
     def unique_capped(self, flat, cap):
-        """``unique_capped`` that keeps each table's unique count by capacity."""
+        """``unique_capped`` that keeps each table's unique count by capacity
+        while ``capturing``."""
         uniq, inv = unique_capped(flat, cap)
-        self.unique_counts[cap] = int(inv.max()) + 1
+        if self.capturing:
+            self.unique_counts[cap] = int(inv.max()) + 1
         return uniq, inv
 
     def __call__(self, h, nbr, mask):
