@@ -24,9 +24,12 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    F=8, H=256) in f32 and bf16, a ragged P and an all-masked row, the
    backward's main kernel and its reduce timed apart;
    ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding and ragged
-   B and P; ``gather_mean`` forward and backward at the dedup step's widest
-   mean (B=38,912, K=8, N=30,000, D=256) and a ragged B, with an all-masked
-   row and ids of -1 and >= N among the valid slots.
+   B and P; ``gather_mean`` forward and backward on uniform random ids at
+   the dedup step's widest mean (B=38,912, K=8, N=30,000, D=256) and a
+   ragged B, with an all-masked row and ids of -1 and >= N among the valid
+   slots; the backward against both plain versions (the walk of the same
+   transpose, and ``index_add_``) and against a second call (same bits),
+   and also timed with the wrapper's own sort (``without_plan_ms``).
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -47,11 +50,20 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    phase 4.
 6. train_dedup: the same step through the dedup'd block forward
    (``MinibatchConfig(dedup=True)``), about 50 steps from fresh random
-   weights: the same report, launch counts of exactly 8 / 8 / 2 / 0 a step
-   (gather-mean forward / backward, pool mask, leaf), one step of the kernel
-   route against the plain route (the gather-mean wrapper swapped for its
-   plain version in the model for that step).
-7. packed_leaf: one tree forward at fanouts (-1, -1) for 32 users and 32
+   weights, its gather-mean calls through a :class:`GatherTap`: the same
+   report, launch counts of exactly 8 / 8 / 2 / 0 a step (gather-mean
+   forward / backward, pool mask, leaf) and the gather-mean calls by shape;
+   one step of the kernel route against the plain route (the tap calls the
+   forward's plain version for that step); two more kernel steps from the
+   same parameters, batch and draws, whose gradients must be bit-identical.
+7. gather_plan: both gather-mean kernels on the captured step's own plan,
+   at each of the four shapes it runs (levels 1 and 2, users and items):
+   per call the destination table's unique count and padding rows, the
+   masked share and the valid slots per source row with and without the
+   padding rows; per shape the checks and times of phase 3 (one row each in
+   the kernels line, with its launches in the main path) and the forward
+   again on ids inside the table's first 4 MB (``l2_resident_ms``).
+8. packed_leaf: one tree forward at fanouts (-1, -1) for 32 users and 32
    items through the packed leaf cache (``attach_leaf_features``) and
    without it.
 
@@ -85,7 +97,7 @@ from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
-from gnn_recsys_tpu_torch.ops.sampling import Draws, unique_capped
+from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config, save_run
@@ -105,8 +117,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-5  # f32 sums in another order than the plain version's product
 # dW / db: sums of K*P terms, relative to the largest entry; the gather-mean
-# backward's dh: sums of scaled cotangent rows, added by atomics in an order
-# that changes from run to run.
+# backward's dh: sums of scaled cotangent rows, fused multiply-adds in
+# another order than the plain versions' (each kernel's own order is fixed).
 GRAD_REL = 1e-5
 BF16_RTOL = 2.0**-7  # one bf16 ulp: both sides round the same f32 sums
 # One step, kernel route against plain route: the CPU tests' tolerances
@@ -466,29 +478,37 @@ def gather_rows(dev, gen, record, b, k, n, d) -> None:
         if not errs[-1] <= TOL * max(1.0, float(want.abs().max())) or not (out[bb // 2] == 0).all():
             raise AssertionError(f"gather_mean_fwd B={bb}: differs by {errs[-1]} "
                                  f"or the all-masked row is not 0")
-        dh, want = gm.gather_mean_bwd(g, nbr, mask, n), gm.gather_mean_bwd_reference(g, nbr, mask, n)
-        grad_errs.append(float((dh - want).abs().max()))
-        if not grad_errs[-1] <= GRAD_REL * max(1.0, float(want.abs().max())):
-            raise AssertionError(f"gather_mean_bwd B={bb}: differs by {grad_errs[-1]}")
+        tr = gm.slot_transpose(nbr, mask, n)
+        grad_errs.append(check_gather_bwd(f"gather_mean_bwd B={bb}", gm.gather_mean_bwd(
+            g, nbr, mask, n), g, nbr, mask, n, tr))
 
     h, nbr, mask, g = gather_case(dev, gen, b, k, n, d)
+    tr = gm.slot_transpose(nbr, mask, n)
     bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
-    fwd_cost, bwd_cost = gather_costs(b, k, n, d, float(mask.sum()))
+    fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask)
     note = "uniform random ids (no step has them); launches: every shape of the dedup step"
     record("gather_mean_fwd", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
            lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost, shape=note)
-    record("gather_mean_bwd", GATHER, 49, max(grad_errs),
-           lambda: gm.gather_mean_bwd(g, nbr, mask, n),
-           lambda: gm.gather_mean_bwd_reference(g, nbr, mask, n), bag_bwd, *bwd_cost, shape=note)
+    row = record("gather_mean_bwd", GATHER, 49, max(grad_errs),
+                 lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
+                 lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost,
+                 shape=note)
+    if row["ms"] is not None:
+        # A caller without a plan: the wrapper's own sort of the ids, then the kernel.
+        row["without_plan_ms"] = device_ms(lambda: gm.gather_mean_bwd(g, nbr, mask, n))
 
 
-def gather_costs(b, k, n, d, valid) -> tuple:
-    """((flops, bytes) of the forward, (flops, bytes) of the backward) at
-    [B, K] ids into an [N, D] table with ``valid`` valid slots: each input
-    read once and each output written once (h, int32 ids, bool mask, out;
-    dout, ids, mask, dh)."""
+def gather_costs(b, k, n, d, nbr, mask) -> tuple:
+    """((flops, bytes) of the forward, (flops, bytes) of the backward) of a
+    [B, K] gather into an [N, D] table: each input read once and each output
+    written once.  The forward reads the table rows its valid slots name (at
+    uniform ids all N; at the step's, fewer), the int32 ids, the bool mask,
+    and writes out; the backward reads dout, the ids and the mask and writes
+    every row of dh."""
+    ids = nbr[mask].long().clamp(0, n - 1)
+    valid, named = float(ids.numel()), float(torch.unique(ids).numel())
     io = 4.0 * b * k + b * k
-    return ((valid * d + b * d, io + 4.0 * (n * d + b * d)),
+    return ((valid * d + b * d, io + 4.0 * (named * d + b * d)),
             (2.0 * valid * d + b * d, io + 4.0 * (b * d + n * d)))
 
 
@@ -506,34 +526,32 @@ def embedding_bag_calls(h, nbr, mask, g) -> tuple:
             lambda: torch.autograd.grad(bag, h_req, g, retain_graph=True))
 
 
+def plain_gather_mean(h, nbr, mask, transpose=None):
+    """The block forward's plain route: the forward's plain version, which
+    autograd differentiates (the transpose is not used)."""
+    return gm.gather_mean_reference(h, nbr, mask)
+
+
 class GatherTap:
     """Stands in for the block forward's ``gather_mean`` (``conv_model``):
     counts the calls by shape (B, K, N, D) while ``counting``, and keeps
-    each call's inputs and cotangent while ``capturing``.  ``fn`` is the
-    function it calls (the kernels' wrapper, or a plain version)."""
+    each call's inputs, transpose and cotangent while ``capturing``.  ``fn``
+    is the function it calls (the kernels' wrapper, or the plain route)."""
 
     def __init__(self):
         self.fn = gm.gather_mean
         self.calls_by_shape = collections.Counter()
         self.captured = []
         self.counting = self.capturing = False
-        self.unique_counts = {}
 
-    def unique_capped(self, flat, cap):
-        """``unique_capped`` that keeps each table's unique count by capacity
-        while ``capturing``."""
-        uniq, inv = unique_capped(flat, cap)
-        if self.capturing:
-            self.unique_counts[cap] = int(inv.max()) + 1
-        return uniq, inv
-
-    def __call__(self, h, nbr, mask):
+    def __call__(self, h, nbr, mask, transpose=None):
         shape = (nbr.shape[0], nbr.shape[1], h.shape[0], h.shape[1])
         if self.counting:
             self.calls_by_shape[shape] += 1
-        out = self.fn(h, nbr, mask)
+        out = self.fn(h, nbr, mask, transpose)
         if self.capturing:
-            call = {"shape": shape, "h": h.detach(), "nbr": nbr, "mask": mask}
+            call = {"shape": shape, "h": h.detach(), "nbr": nbr, "mask": mask,
+                    "transpose": transpose}
             self.captured.append(call)
             if out.requires_grad:
                 out.register_hook(lambda g, call=call: call.update(dout=g.detach()))
@@ -555,21 +573,37 @@ def slot_stats(nbr, mask, n, rows) -> dict:
     return out
 
 
-def phase_gather_steps(dev, tap, counts, timed=True) -> list:
+def check_gather_bwd(what, dh, g, nbr, mask, n, transpose) -> float:
+    """The backward kernel's ``dh`` against both plain versions (the walk of
+    the same transpose, and ``index_add_`` over every slot) and against a
+    second call, which must give the same bits; returns the largest
+    difference."""
+    err = 0.0
+    for want in (gm.gather_mean_bwd_plain(g, mask, n, transpose),
+                 gm.gather_mean_bwd_reference(g, nbr, mask, n)):
+        err = max(err, float((dh - want).abs().max()))
+        if not err <= GRAD_REL * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"{what}: differs by {err}")
+    if not torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, transpose)):
+        raise AssertionError(f"{what}: two calls differ")
+    return err
+
+
+def phase_gather_steps(dev, tap, timed=True) -> list:
     """Both gather-mean kernels at each shape one dedup step runs, on that
     step's own plan (the first call of each shape that ``tap`` captured):
     against the plain versions, timed beside the bound, the plain versions
     and ``embedding_bag``, with the slot statistics of every call and the
     forward again on ids that all fall in the table's first 4 MB (its rows
-    stay in L2).  ``counts`` maps a destination table's capacity to its
-    unique count.  Returns the rows of the kernels line."""
+    stay in L2).  Returns the rows of the kernels line."""
     rows, seen = [], set()
     for i, call in enumerate(tap.captured):
         b, k, n, d = call["shape"]
-        nbr, mask, h, g = call["nbr"], call["mask"], call["h"], call["dout"]
-        uniq = counts[b]
+        nbr, mask, h, g, tr = (call[key] for key in ("nbr", "mask", "h", "dout", "transpose"))
+        uniq = int(tr.rows)
         stats = {"call": i, "B": b, "K": k, "N": n, "D": d, "unique_rows": uniq,
-                 "padding_rows": b - uniq, **slot_stats(nbr, mask, n, uniq)}
+                 "padding_rows": b - uniq, "transpose_bytes": 4 * (tr.order.numel() + n + 1),
+                 **slot_stats(nbr, mask, n, uniq)}
         say("gather_plan", **stats)
         if call["shape"] in seen:
             continue
@@ -578,20 +612,18 @@ def phase_gather_steps(dev, tap, counts, timed=True) -> list:
         err = float((out - want).abs().max())
         if not err <= TOL * max(1.0, float(want.abs().max())):
             raise AssertionError(f"gather_mean_fwd at {call['shape']}: differs by {err}")
-        dh, want = gm.gather_mean_bwd(g, nbr, mask, n), gm.gather_mean_bwd_reference(g, nbr, mask, n)
-        grad_err = float((dh - want).abs().max())
-        if not grad_err <= GRAD_REL * max(1.0, float(want.abs().max())):
-            raise AssertionError(f"gather_mean_bwd at {call['shape']}: differs by {grad_err}")
+        grad_err = check_gather_bwd(f"gather_mean_bwd at {call['shape']}",
+                                    gm.gather_mean_bwd(g, nbr, mask, n, tr), g, nbr, mask, n, tr)
         bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
-        fwd_cost, bwd_cost = gather_costs(b, k, n, d, float(mask.sum()))
+        fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask)
         label = f"B{b}_K{k}_N{n}"
         fwd = kernel_row(rows, timed, f"gather_mean_fwd:{label}", GATHER, 49, err,
                          lambda: gm.gather_mean_fwd(h, nbr, mask),
                          lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost,
                          shape=stats)
         kernel_row(rows, timed, f"gather_mean_bwd:{label}", GATHER, 49, grad_err,
-                   lambda: gm.gather_mean_bwd(g, nbr, mask, n),
-                   lambda: gm.gather_mean_bwd_reference(g, nbr, mask, n), bag_bwd, *bwd_cost,
+                   lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
+                   lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost,
                    shape=stats)
         if timed:
             # The same forward on ids inside the table's first 4 MB.
@@ -813,6 +845,24 @@ def _grads(model) -> dict:
             for n, p in model.named_parameters()}
 
 
+def same_grads_twice(run) -> bool:
+    """Runs ``run`` (-> (loss, gradients)) twice with PyTorch's deterministic
+    algorithms on, and raises unless both give the same bits.  Without them,
+    ``index_add_`` (the backward of the block forward's row takes) adds with
+    atomics on CUDA; the gather-mean backward has none either way."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (la_, ga), (lb, gb) = run(), run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    differing = [name for name in ga if not torch.equal(ga[name], gb[name])]
+    if la_ != lb or differing:
+        raise AssertionError(f"two steps from the same state differ: loss {la_} vs {lb}, "
+                             f"gradients {differing}")
+    return True
+
+
 def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool=2560,
                 fanouts=(8, 4), random_recall=None, k=10, on_card=True, tap=None):
     """Train the Medium model with the ``bench.py`` step on ``dev``; with a
@@ -820,153 +870,145 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
     gather-mean calls go through ``tap`` (counted in the main path, captured
     in the route check's kernel step).  Returns (the launch counts of the
     main path, the trained model)."""
-    if tap is None:
-        return _train(dev, data, hidden, out, steps, batch_size, pool, fanouts, random_recall, k,
-                      on_card, None)
-    saved = conv_model.gather_mean, conv_model.unique_capped
-    conv_model.gather_mean, conv_model.unique_capped = tap, tap.unique_capped
-    try:
-        return _train(dev, data, hidden, out, steps, batch_size, pool, fanouts, random_recall, k,
-                      on_card, tap)
-    finally:
-        conv_model.gather_mean, conv_model.unique_capped = saved
-
-
-def _train(dev, data, hidden, out, steps, batch_size, pool, fanouts, random_recall, k, on_card,
-           tap):
     dedup = tap is not None
-    phase = "train_dedup" if dedup else "train"
-    g = data.graph.to(dev)
-    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
-    kw = medium_kwargs(g, hidden, out)
-    model = ConvModel(**kw, leaf_kernel=True)
-    init_model(model, seed=0)  # the slice phase's random weights
-    model.to(dev)
-    cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
-                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True,
-                          dedup=dedup)
-    etypes = tuple(data.train_pairs)
-    has_reverse = {et: True for et in etypes}
-    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
-              for et, (u, i) in data.train_pairs.items()}
-    state = TrainState.create(model, lr=cfg.lr)
-    step = make_minibatch_step(model, cfg, etypes, with_update=True, with_exclusion=True,
-                               has_reverse=has_reverse)
-    store = EdgeStore(data.graph, etypes)
-    batches = iter_edge_batches(np.random.default_rng(0),
-                                {et: np.arange(g.num_edges(et)) for et in etypes}, batch_size)
-    draws = Draws(torch.Generator(device=dev).manual_seed(0))
-    leaves = 0 if dedup else sum(leaf_branches(g, nt, model.num_conv_layers)
-                                 for nt in ("user", "item"))
-    means = block_means(g, ("user", "item"), model.num_conv_layers) if dedup else 0
-    per_step = {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
-                "pool_membership_mask": len(etypes),
-                "gather_mean_fwd": means, "gather_mean_bwd": means}
-    counters = {"leaf_mean_nn_fwd": la.leaf_mean_nn_fwd, "leaf_mean_nn_bwd": la.leaf_mean_nn_bwd,
-                "pool_membership_mask": pm.pool_membership_mask,
-                "gather_mean_fwd": gm.gather_mean_fwd, "gather_mean_bwd": gm.gather_mean_bwd}
-
-    # The main path: counters from 0, read right after.
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
     if dedup:
-        tap.counting = True
-    losses, events = [], []
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        if dev.type == "cuda":  # the window holds the batch's assembly too
-            events.append((torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True)))
-            events[-1][0].record()
-        batch = store.batch(next(batches), True, dev)
-        _, loss = step(state, g, feats, batch, tables, draws)
-        if dev.type == "cuda":
-            events[-1][1].record()
-        losses.append(loss)
-    sync(dev)
-    train_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    if dedup:
-        tap.counting = False
-        calls = sum(tap.calls_by_shape.values())
-        if on_card and not calls == launches["gather_mean_fwd"] == launches["gather_mean_bwd"]:
-            raise AssertionError(f"{calls} gather-mean calls against {launches} launches")
-    losses = torch.stack(losses).cpu().numpy()
-    window = max(1, min(20, steps // 5))
-    first, last = float(losses[:window].mean()), float(losses[-window:].mean())
-    edges = sum(len(v["u"]) for v in batch.values())
-    report = {"steps": steps, "edges_per_step": edges, "train_s": train_s,
-              "edges_per_s": steps * edges / train_s,
-              "loss_first_mean": first, "loss_last_mean": last,
-              "window": window, "launches": launches, "launches_per_step": per_step}
-    if events:
-        step_ms = [a.elapsed_time(b) for a, b in events]
-        report.update(step_ms_median=float(np.median(step_ms)),
-                      step_ms_min=float(np.min(step_ms)), step_ms_max=float(np.max(step_ms)),
-                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
-    if not np.isfinite(losses).all() or not last < first:
-        raise AssertionError(f"the loss is not finite or does not fall: {first} -> {last}")
-    for name, n in per_step.items():
-        want = n * steps if on_card else 0
-        if launches[name] != want:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected {want}")
-    if on_card:
-        report["profile"] = profile_steps(
-            lambda: step(state, g, feats, store.batch(next(batches), True, dev), tables, draws))
-
-    # One step through the kernels and through the plain route, same
-    # parameters, batch and draws: loss and gradients must agree.  The tree's
-    # plain route is the model without the leaf kernel; the dedup'd block
-    # forward has no such switch (nor has the JAX package), so its model
-    # calls the gather-mean wrapper's plain version for that one step.
-    plain = ConvModel(**kw, leaf_kernel=False).to(dev)
-    plain.load_state_dict(model.state_dict())
-    batch = store.batch(next(batches), True, dev)
-
-    def loss_and_grads(m, c, step_draws):
-        m.train()
-        m.zero_grad(set_to_none=True)
-        loss = make_minibatch_loss(m, c, etypes, True, has_reverse)(
-            g, feats, batch, tables, step_draws)
-        loss.backward()
-        return float(loss.detach()), _grads(m)
-
-    rec = Draws(torch.Generator(device=dev).manual_seed(1), record=True)
-    if dedup:
-        tap.capturing = True
-    lk, gk = loss_and_grads(model, cfg, rec)
-    if dedup:
-        tap.capturing = False
-        tap.fn = gm.gather_mean_reference
+        conv_model.gather_mean = tap
     try:
+        phase = "train_dedup" if dedup else "train"
+        g = data.graph.to(dev)
+        feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+        kw = medium_kwargs(g, hidden, out)
+        model = ConvModel(**kw, leaf_kernel=True)
+        init_model(model, seed=0)  # the slice phase's random weights
+        model.to(dev)
+        cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
+                              neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True,
+                              dedup=dedup)
+        etypes = tuple(data.train_pairs)
+        has_reverse = {et: True for et in etypes}
+        tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+                  for et, (u, i) in data.train_pairs.items()}
+        state = TrainState.create(model, lr=cfg.lr)
+        step = make_minibatch_step(model, cfg, etypes, with_update=True, with_exclusion=True,
+                                   has_reverse=has_reverse)
+        store = EdgeStore(data.graph, etypes)
+        batches = iter_edge_batches(np.random.default_rng(0),
+                                    {et: np.arange(g.num_edges(et)) for et in etypes}, batch_size)
+        draws = Draws(torch.Generator(device=dev).manual_seed(0))
+        leaves = 0 if dedup else sum(leaf_branches(g, nt, model.num_conv_layers)
+                                     for nt in ("user", "item"))
+        means = block_means(g, ("user", "item"), model.num_conv_layers) if dedup else 0
+        per_step = {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
+                    "pool_membership_mask": len(etypes),
+                    "gather_mean_fwd": means, "gather_mean_bwd": means}
+        counters = {"leaf_mean_nn_fwd": la.leaf_mean_nn_fwd,
+                    "leaf_mean_nn_bwd": la.leaf_mean_nn_bwd,
+                    "pool_membership_mask": pm.pool_membership_mask,
+                    "gather_mean_fwd": gm.gather_mean_fwd, "gather_mean_bwd": gm.gather_mean_bwd}
+
+        # The main path: counters from 0, read right after.
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        if dedup:
+            tap.counting = True
+        losses, events = [], []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            if dev.type == "cuda":  # the window holds the batch's assembly too
+                events.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+                events[-1][0].record()
+            batch = store.batch(next(batches), True, dev)
+            _, loss = step(state, g, feats, batch, tables, draws)
+            if dev.type == "cuda":
+                events[-1][1].record()
+            losses.append(loss)
+        sync(dev)
+        train_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if dedup:
+            tap.counting = False
+            calls = sum(tap.calls_by_shape.values())
+            if on_card and not calls == launches["gather_mean_fwd"] == launches["gather_mean_bwd"]:
+                raise AssertionError(f"{calls} gather-mean calls against {launches} launches")
+        losses = torch.stack(losses).cpu().numpy()
+        window = max(1, min(20, steps // 5))
+        first, last = float(losses[:window].mean()), float(losses[-window:].mean())
+        edges = sum(len(v["u"]) for v in batch.values())
+        report = {"steps": steps, "edges_per_step": edges, "train_s": train_s,
+                  "edges_per_s": steps * edges / train_s,
+                  "loss_first_mean": first, "loss_last_mean": last,
+                  "window": window, "launches": launches, "launches_per_step": per_step}
+        if events:
+            step_ms = [a.elapsed_time(b) for a, b in events]
+            report.update(step_ms_median=float(np.median(step_ms)),
+                          step_ms_min=float(np.min(step_ms)), step_ms_max=float(np.max(step_ms)),
+                          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+        if not np.isfinite(losses).all() or not last < first:
+            raise AssertionError(f"the loss is not finite or does not fall: {first} -> {last}")
+        for name, n in per_step.items():
+            want = n * steps if on_card else 0
+            if launches[name] != want:
+                raise AssertionError(f"{name}: {launches[name]} launches, expected {want}")
+        if on_card:
+            report["profile"] = profile_steps(
+                lambda: step(state, g, feats, store.batch(next(batches), True, dev), tables, draws))
+
+        # One step through the kernels and through the plain route, same
+        # parameters, batch and draws: loss and gradients must agree.  The
+        # tree's plain route is the model without the leaf kernel; the dedup'd
+        # block forward has no such switch (nor has the JAX package), so its
+        # tap calls the forward's plain version for that one step.  Two more
+        # kernel steps of the dedup'd route must give the same bits.
+        plain = ConvModel(**kw, leaf_kernel=False).to(dev)
+        plain.load_state_dict(model.state_dict())
+        batch = store.batch(next(batches), True, dev)
+
+        def loss_and_grads(m, c, step_draws):
+            m.train()
+            m.zero_grad(set_to_none=True)
+            loss = make_minibatch_loss(m, c, etypes, True, has_reverse)(
+                g, feats, batch, tables, step_draws)
+            loss.backward()
+            return float(loss.detach()), _grads(m)
+
+        rec = Draws(torch.Generator(device=dev).manual_seed(1), record=True)
+        if dedup:
+            tap.capturing = True
+        lk, gk = loss_and_grads(model, cfg, rec)
+        if dedup:
+            tap.capturing = False
+            report["bit_identical_grads"] = same_grads_twice(
+                lambda: loss_and_grads(model, cfg, rec.replay()))
+            tap.fn = plain_gather_mean
         lp, gp = loss_and_grads(plain, dataclasses.replace(cfg, pool_mask_kernel=False),
                                 rec.replay())
-    finally:
-        if dedup:
-            tap.fn = gm.gather_mean
-    if not abs(lk - lp) <= LOSS_RTOL * abs(lp):
-        raise AssertionError(f"{phase}: kernel and plain routes: loss {lk} vs {lp}")
-    worst = 0.0
-    for name, a in gk.items():
-        excess = ((a - gp[name]).abs() - STEP_GRAD_RTOL * gp[name].abs()).max()
-        worst = max(worst, float(excess))
-    if not worst <= STEP_GRAD_ATOL:
-        raise AssertionError(f"{phase}: kernel and plain routes: gradients differ by {worst} "
-                             f"beyond rtol {STEP_GRAD_RTOL}")
-    report["routes"] = {"loss_kernel": lk, "loss_plain": lp, "grad_excess_over_rtol": worst}
+        if not abs(lk - lp) <= LOSS_RTOL * abs(lp):
+            raise AssertionError(f"{phase}: kernel and plain routes: loss {lk} vs {lp}")
+        worst = 0.0
+        for name, a in gk.items():
+            excess = ((a - gp[name]).abs() - STEP_GRAD_RTOL * gp[name].abs()).max()
+            worst = max(worst, float(excess))
+        if not worst <= STEP_GRAD_ATOL:
+            raise AssertionError(f"{phase}: kernel and plain routes: gradients differ by {worst} "
+                                 f"beyond rtol {STEP_GRAD_RTOL}")
+        report["routes"] = {"loss_kernel": lk, "loss_plain": lp, "grad_excess_over_rtol": worst}
 
-    # The trained model's quality against the random weights'.
-    h = compute_embeddings(model, g, feats, device=dev)
-    metrics = get_metrics_at_k(h["user"], h["item"], data.test_ground_truth,
-                               data.train_pairs[BUYS], k, device=dev)
-    report["precision_recall_coverage"] = metrics
-    report["random_weights_recall"] = random_recall
-    if random_recall is not None and not metrics[1] > random_recall:
-        raise AssertionError(f"trained recall@{k} {metrics[1]} <= random weights' {random_recall}")
-    say(phase, **report)
-    return launches, model
+        # The trained model's quality against the random weights'.
+        h = compute_embeddings(model, g, feats, device=dev)
+        metrics = get_metrics_at_k(h["user"], h["item"], data.test_ground_truth,
+                                   data.train_pairs[BUYS], k, device=dev)
+        report["precision_recall_coverage"] = metrics
+        report["random_weights_recall"] = random_recall
+        if random_recall is not None and not metrics[1] > random_recall:
+            raise AssertionError(f"trained recall@{k} {metrics[1]} <= random weights' "
+                                 f"{random_recall}")
+        say(phase, **report)
+        return launches, model
+    finally:
+        conv_model.gather_mean = gm.gather_mean
 
 
 def phase_packed_leaf(dev, data, model, seeds=32) -> None:
@@ -1047,7 +1089,7 @@ def main() -> int:
     dedup_launches, model = phase_train(dev, data, steps=50, tap=tap)
     for name in ("gather_mean_fwd", "gather_mean_bwd"):
         launches[name] = dedup_launches[name]
-    step_rows = phase_gather_steps(dev, tap, tap.unique_counts)
+    step_rows = phase_gather_steps(dev, tap)
     for (b, k, n, _), calls in tap.calls_by_shape.items():
         for name in ("gather_mean_fwd", "gather_mean_bwd"):
             launches[f"{name}:B{b}_K{k}_N{n}"] = calls

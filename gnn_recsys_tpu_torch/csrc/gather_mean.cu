@@ -15,37 +15,56 @@
 // transpose of the gather, a scatter-add.  Training needs the gradient with
 // respect to h, so the backward is a kernel too:
 //
-//   dh[clip(nbr[b,k])] += dout[b] * m[b,k] / max(count_b, 1)
-//
-// into a dh that the caller has zeroed.  It adds with f32 atomics, whose
-// order changes from run to run: the backward is not bit-reproducible.
+//   dh[u] = sum over valid slots (b,k) with clip(nbr[b,k]) == u of
+//           dout[b] / max(count_b, 1)
 //
 // What bounds them.  Both move bytes and do almost no arithmetic (one add or
 // one multiply-add a gathered element).  Counting each input once and each
 // output once, the forward at the training step's widest call (B=38,912,
 // K=8, N=30,000, D=256) moves about 72 MB, 0.022 ms at 3.35 TB/s; reading
-// every valid slot's row from device memory would be about 319 MB.  The
-// table (30.7 MB) fits in the 50 MB L2, so the repeated rows come from L2
-// and the kernel's time lies between the two readings.  The backward moves
-// the same bytes in the other direction; its atomics resolve in L2.
+// every valid slot's row from device memory would be about 319 MB.  A table
+// that fits in the 50 MB L2 serves its repeated rows from L2, so the time
+// lies between the two readings and the L2's rate sets it; a larger table
+// (the step's 100,000-row one, 102 MB) reads from device memory.  The
+// backward moves the same bytes the other way.
 //
-// The simple design.  One warp a destination row.  Lane j < K holds slot j's
-// clipped id (or -1 where masked); the count is one ballot.  The lanes span
-// D in 16-byte float4 columns (D=256: two a lane) and keep the sums in
-// registers; the loop over the K slots takes each id from its lane with a
-// shuffle, skips masked slots (a branch the whole warp takes together), and
-// the row is written once, scaled by 1 / max(count, 1).  The backward reads
-// its dout row once, scales it, and adds it into each valid slot's dh row
-// (float4 atomics on Hopper).  Widths that are not a multiple of 4 take the
-// same loops one float at a time.
+// Forward.  One warp a destination row.  Lane j < K holds slot j's clipped id
+// (or -1 where masked), loaded once; the count is one ballot.  The lanes span
+// D in 16-byte float4 columns (D=256: two a lane).  Every slot's loads issue
+// before the first add: K = 4 and 8 (the step's) are compiled for that K,
+// with the slots unrolled; any other K walks its slots 8 at a time.  Masked
+// slots are predicated off, not branched around, and the sums are taken in
+// ascending slot order.  The row is written once, scaled by 1 / max(count, 1).
+//
+// Backward: no atomics, and bit-reproducible.  One warp owns one dh row u and
+// writes it once (a row that no slot reads gets zeros, so dh needs no fill).
+// Its slots come from a transpose of the gather: `order` lists slot
+// positions grouped by the row they read, ascending within a row, and row
+// u's entries are order[start[u] .. start[u+1]).  The gather's slot (b, k)
+// is the entry off + b*K + k, and only the entries in [off, off + rows*K)
+// are walked.  The dedup'd block forward hands over the sort its plan
+// already made of a whole lower frontier (every gather that reads one table
+// shares it, each with its own off), with `rows` the destination table's
+// unique count: the padding rows' slots lie past it, and their cotangent is
+// zero, so skipping them adds nothing but 0.0.  A caller without a plan
+// sorts the clipped ids itself (ops/cuda/gather_mean.py: slot_transpose).
+// A run longer than 32 entries is first narrowed to [off, off + rows*K) by
+// a 32-way search (one load a lane a step); then the warp loads 32 entries
+// at a time, each lane computes its slot's row b and 1 / count_b, a ballot
+// keeps the valid ones, and the cotangent rows of up to 4 valid slots load
+// together before they are added, in ascending slot order.  Fixed order, no
+// atomics: two runs give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;  // destination rows per block
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;  // rows per block (one warp each)
 constexpr int CH = 2;     // vector columns a lane holds per pass over the slots
+constexpr int G = 8;      // forward, any K: slots whose loads issue together
+constexpr int U = 4;      // backward: valid slots whose cotangent rows load together
 
 template <int VEC>
 struct Vec;
@@ -56,16 +75,12 @@ struct Vec<4> {
   static __device__ __forceinline__ void add(T& a, const T& b) {
     a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
   }
+  static __device__ __forceinline__ void fma(T& a, const T& b, float s) {
+    a.x = fmaf(b.x, s, a.x); a.y = fmaf(b.y, s, a.y);
+    a.z = fmaf(b.z, s, a.z); a.w = fmaf(b.w, s, a.w);
+  }
   static __device__ __forceinline__ T scale(const T& a, float s) {
     return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-  }
-  static __device__ __forceinline__ void atomic_add(T* p, const T& v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
-    atomicAdd(p, v);  // one vector atomic (compute capability 9.x, CUDA 12.1 on)
-#else
-    float* f = reinterpret_cast<float*>(p);
-    atomicAdd(f, v.x); atomicAdd(f + 1, v.y); atomicAdd(f + 2, v.z); atomicAdd(f + 3, v.w);
-#endif
   }
 };
 template <>
@@ -73,11 +88,11 @@ struct Vec<1> {
   using T = float;
   static __device__ __forceinline__ T zero() { return 0.f; }
   static __device__ __forceinline__ void add(T& a, const T& b) { a += b; }
+  static __device__ __forceinline__ void fma(T& a, const T& b, float s) { a = fmaf(b, s, a); }
   static __device__ __forceinline__ T scale(const T& a, float s) { return a * s; }
-  static __device__ __forceinline__ void atomic_add(T* p, const T& v) { atomicAdd(p, v); }
 };
 
-// Slot base..base+31 of row b: this lane's clipped id, or -1 where masked.
+// Slot base+lane of the row at `row`: its clipped id, or -1 where masked or past K.
 __device__ __forceinline__ int slot_id(const int* __restrict__ nbr,
                                        const uint8_t* __restrict__ mask, size_t row, int K,
                                        int base, int lane, int N) {
@@ -86,27 +101,24 @@ __device__ __forceinline__ int slot_id(const int* __restrict__ nbr,
   return min(max(nbr[row + k], 0), N - 1);
 }
 
-// Valid slots of row b (one ballot per 32 slots).
-__device__ __forceinline__ int row_count(const int* __restrict__ nbr,
-                                         const uint8_t* __restrict__ mask, size_t row, int K,
-                                         int lane, int N) {
-  int count = 0;
-  for (int base = 0; base < K; base += 32)
-    count += __popc(__ballot_sync(0xffffffffu, slot_id(nbr, mask, row, K, base, lane, N) >= 0));
-  return count;
-}
-
-template <int VEC>
+// KS: the K compiled for (4 or 8), or 0 for any K.
+template <int VEC, int KS>
 __global__ void __launch_bounds__(WARPS * 32)
 gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
-                       const uint8_t* __restrict__ mask, int N, int B, int K, int D,
+                       const uint8_t* __restrict__ mask, int N, int B, int K_, int D,
                        float* __restrict__ out) {
   using V = typename Vec<VEC>::T;
+  constexpr int GS = KS ? KS : G;  // slots a group; 32 % GS == 0
+  const int K = KS ? KS : K_;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (b >= B) return;  // whole warps leave together
   const size_t row = (size_t)b * K;
-  const float inv = 1.f / fmaxf((float)row_count(nbr, mask, row, K, lane, N), 1.f);
+  const int first = slot_id(nbr, mask, row, K, 0, lane, N);  // slots 0..31, loaded once
+  int count = __popc(__ballot_sync(FULL, first >= 0));
+  for (int base = 32; base < K; base += 32)
+    count += __popc(__ballot_sync(FULL, slot_id(nbr, mask, row, K, base, lane, N) >= 0));
+  const float inv = 1.f / fmaxf((float)count, 1.f);
   const int dv = D / VEC;
   const V* hv = reinterpret_cast<const V*>(h);
   V* ov = reinterpret_cast<V*>(out) + (size_t)b * dv;
@@ -115,16 +127,26 @@ gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
 #pragma unroll
     for (int j = 0; j < CH; ++j) acc[j] = Vec<VEC>::zero();
     for (int base = 0; base < K; base += 32) {
-      const int mine = slot_id(nbr, mask, row, K, base, lane, N);
+      const int mine = base == 0 ? first : slot_id(nbr, mask, row, K, base, lane, N);
       const int n = min(32, K - base);
-      for (int s = 0; s < n; ++s) {
-        const int id = __shfl_sync(0xffffffffu, mine, s);
-        if (id < 0) continue;
-        const V* src = hv + (size_t)id * dv;
+      for (int s0 = 0; s0 < n; s0 += GS) {
+        int id[GS];
 #pragma unroll
-        for (int j = 0; j < CH; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < dv) Vec<VEC>::add(acc[j], __ldg(src + c));
+        for (int i = 0; i < GS; ++i) id[i] = __shfl_sync(FULL, mine, s0 + i);
+        V v[GS][CH];  // every slot's loads in flight before the first add
+#pragma unroll
+        for (int i = 0; i < GS; ++i) {
+#pragma unroll
+          for (int j = 0; j < CH; ++j) {
+            const int c = c0 + lane + 32 * j;
+            v[i][j] = Vec<VEC>::zero();
+            if (id[i] >= 0 && c < dv) v[i][j] = __ldg(hv + (size_t)id[i] * dv + c);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < GS; ++i) {
+#pragma unroll
+          for (int j = 0; j < CH; ++j) Vec<VEC>::add(acc[j], v[i][j]);
         }
       }
     }
@@ -136,43 +158,139 @@ gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
   }
 }
 
-template <int VEC>
+// Valid slots of the mask row at m (bool bytes); `words`: m is 4-byte aligned.
+template <int KS>
+__device__ __forceinline__ int mask_count(const uint8_t* __restrict__ m, int K, bool words) {
+  int c = 0;
+  if constexpr (KS != 0 && KS % 4 == 0) {
+    if (words) {
+#pragma unroll
+      for (int j = 0; j < KS; j += 4)
+        c += __popc(__ldg(reinterpret_cast<const unsigned*>(m + j)) & 0x01010101u);
+      return c;
+    }
+  }
+  for (int j = 0; j < K; ++j) c += __ldg(m + j);
+  return c;
+}
+
+// First index in [lo, hi) whose entry is >= key, or hi (a[lo..hi) ascending).
+// 32 probes a step: a run of L entries takes ceil(log32 L) loads.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int lo, int hi,
+                                                int key, int lane) {
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int idx = lo + lane * step;
+    const int n = __popc(__ballot_sync(FULL, idx < hi && __ldg(a + idx) < key));
+    if (n == 0) return lo;
+    hi = min(hi, lo + n * step);  // a[lo + n*step] >= key, where it exists
+    lo += (n - 1) * step + 1;     // a[lo + (n-1)*step] < key
+  }
+  const int idx = lo + lane;
+  return lo + __popc(__ballot_sync(FULL, idx < hi && __ldg(a + idx) < key));
+}
+
+template <int VEC, int KS>
 __global__ void __launch_bounds__(WARPS * 32)
-gather_mean_bwd_kernel(const float* __restrict__ dout, const int* __restrict__ nbr,
-                       const uint8_t* __restrict__ mask, int N, int B, int K, int D,
+gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict__ mask,
+                       const int* __restrict__ order, const int* __restrict__ start,
+                       const int* __restrict__ rows_dev, int off, int N, int B, int K_, int D,
                        float* __restrict__ dh) {
   using V = typename Vec<VEC>::T;
+  const int K = KS ? KS : K_;
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const size_t row = (size_t)b * K;
-  const int count = row_count(nbr, mask, row, K, lane, N);
-  if (count == 0) return;  // no valid slot: nothing flows back
-  const float inv = 1.f / (float)count;
+  const int u = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (u >= N) return;
+  const int rows = rows_dev ? min(max(__ldg(rows_dev), 0), B) : B;
+  const int first = off, last = off + rows * K;  // the entries this gather walks
+  int lo = __ldg(start + u), hi = __ldg(start + u + 1);
+  if (hi - lo > 32) {
+    lo = warp_lower_bound(order, lo, hi, first, lane);
+    hi = warp_lower_bound(order, lo, hi, last, lane);
+  }
+  const bool words = (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
   const int dv = D / VEC;
-  const V* gv = reinterpret_cast<const V*>(dout) + (size_t)b * dv;
-  V* dhv = reinterpret_cast<V*>(dh);
+  const V* gv = reinterpret_cast<const V*>(dout);
+  V* dv_row = reinterpret_cast<V*>(dh) + (size_t)u * dv;
   for (int c0 = 0; c0 < dv; c0 += 32 * CH) {
-    V g[CH];
+    V acc[CH];
 #pragma unroll
-    for (int j = 0; j < CH; ++j) {
-      const int c = c0 + lane + 32 * j;
-      g[j] = c < dv ? Vec<VEC>::scale(gv[c], inv) : Vec<VEC>::zero();
-    }
-    for (int base = 0; base < K; base += 32) {
-      const int mine = slot_id(nbr, mask, row, K, base, lane, N);
-      const int n = min(32, K - base);
-      for (int s = 0; s < n; ++s) {
-        const int id = __shfl_sync(0xffffffffu, mine, s);
-        if (id < 0) continue;
-        V* dst = dhv + (size_t)id * dv;
+    for (int j = 0; j < CH; ++j) acc[j] = Vec<VEC>::zero();
+    for (int j0 = lo; j0 < hi; j0 += 32) {
+      // This lane's entry: its cotangent row b and 1 / count_b, if valid.
+      const int e = j0 + lane;
+      int b = 0;
+      float inv = 0.f;
+      bool ok = false;
+      if (e < hi) {
+        const int p = __ldg(order + e);
+        if (p >= first && p < last) {
+          const int q = p - off;
+          b = q / K;
+          const uint8_t* m = mask + (size_t)b * K;
+          if (__ldg(m + (q - b * K))) {
+            ok = true;
+            inv = 1.f / (float)mask_count<KS>(m, K, words);
+          }
+        }
+      }
+      unsigned bits = __ballot_sync(FULL, ok);
+      while (bits) {  // up to U valid slots a round, lowest lane (slot) first
+        int src[U];
 #pragma unroll
-        for (int j = 0; j < CH; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < dv) Vec<VEC>::atomic_add(dst + c, g[j]);
+        for (int i = 0; i < U; ++i) {
+          src[i] = bits ? __ffs(bits) - 1 : -1;
+          bits &= bits - 1;
+        }
+        int rb[U];
+        float rs[U];
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          rb[i] = __shfl_sync(FULL, b, src[i] & 31);
+          rs[i] = __shfl_sync(FULL, inv, src[i] & 31);
+        }
+        V v[U][CH];  // the round's cotangent rows in flight before the first add
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+#pragma unroll
+          for (int j = 0; j < CH; ++j) {
+            const int c = c0 + lane + 32 * j;
+            v[i][j] = Vec<VEC>::zero();
+            if (src[i] >= 0 && c < dv) v[i][j] = __ldg(gv + (size_t)rb[i] * dv + c);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < U; ++i) {
+          if (src[i] < 0) break;  // the same for the whole warp
+#pragma unroll
+          for (int j = 0; j < CH; ++j) Vec<VEC>::fma(acc[j], v[i][j], rs[i]);
         }
       }
     }
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < dv) dv_row[c] = acc[j];
+    }
+  }
+}
+
+template <int VEC_, int KS_>
+struct Cfg {
+  static constexpr int VEC = VEC_, KS = KS_;
+};
+
+// Calls f(Cfg<VEC, KS>{}) for the float4 or scalar path and K = 8, 4 or any.
+template <typename F>
+void dispatch(int vec4, int K, F&& f) {
+  if (vec4) {
+    if (K == 8) f(Cfg<4, 8>{});
+    else if (K == 4) f(Cfg<4, 4>{});
+    else f(Cfg<4, 0>{});
+  } else {
+    if (K == 8) f(Cfg<1, 8>{});
+    else if (K == 4) f(Cfg<1, 4>{});
+    else f(Cfg<1, 0>{});
   }
 }
 
@@ -192,28 +310,34 @@ int gather_mean_fwd_launch(const void* h, const void* nbr, const void* mask, int
   const auto* hp = static_cast<const float*>(h);
   const auto* ip = static_cast<const int*>(nbr);
   const auto* mp = static_cast<const uint8_t*>(mask);
-  if (vec4)
-    gather_mean_fwd_kernel<4><<<grid, WARPS * 32, 0, s>>>(hp, ip, mp, N, B, K, D,
-                                                          static_cast<float*>(out));
-  else
-    gather_mean_fwd_kernel<1><<<grid, WARPS * 32, 0, s>>>(hp, ip, mp, N, B, K, D,
-                                                          static_cast<float*>(out));
+  auto* op = static_cast<float*>(out);
+  dispatch(vec4, K, [&](auto cfg) {
+    using C = decltype(cfg);
+    gather_mean_fwd_kernel<C::VEC, C::KS><<<grid, WARPS * 32, 0, s>>>(hp, ip, mp, N, B, K, D, op);
+  });
   return (int)cudaGetLastError();
 }
 
-int gather_mean_bwd_launch(const void* dout, const void* nbr, const void* mask, int N, int B,
-                           int K, int D, int vec4, void* dh, void* stream) {
-  const dim3 grid((B + WARPS - 1) / WARPS);
+// dh [N, D] from dout [B, D], the mask [B, K] and the transpose: order [L]
+// and start [N + 1] int32, the gather's first entry `off`, and `rows` (an
+// int32 on the device, or null for B): the entries walked are
+// [off, off + rows*K).  Every row of dh is written.
+int gather_mean_bwd_launch(const void* dout, const void* mask, const void* order,
+                           const void* start, const void* rows, int off, int N, int B, int K,
+                           int D, int vec4, void* dh, void* stream) {
+  const dim3 grid((N + WARPS - 1) / WARPS);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* gp = static_cast<const float*>(dout);
-  const auto* ip = static_cast<const int*>(nbr);
   const auto* mp = static_cast<const uint8_t*>(mask);
-  if (vec4)
-    gather_mean_bwd_kernel<4><<<grid, WARPS * 32, 0, s>>>(gp, ip, mp, N, B, K, D,
-                                                          static_cast<float*>(dh));
-  else
-    gather_mean_bwd_kernel<1><<<grid, WARPS * 32, 0, s>>>(gp, ip, mp, N, B, K, D,
-                                                          static_cast<float*>(dh));
+  const auto* op = static_cast<const int*>(order);
+  const auto* sp = static_cast<const int*>(start);
+  const auto* rp = static_cast<const int*>(rows);
+  auto* dp = static_cast<float*>(dh);
+  dispatch(vec4, K, [&](auto cfg) {
+    using C = decltype(cfg);
+    gather_mean_bwd_kernel<C::VEC, C::KS><<<grid, WARPS * 32, 0, s>>>(gp, mp, op, sp, rp, off,
+                                                                      N, B, K, D, dp);
+  });
   return (int)cudaGetLastError();
 }
 

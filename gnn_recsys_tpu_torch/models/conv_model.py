@@ -34,14 +34,15 @@ from gnn_recsys_tpu_torch.models.layers import (
     NodeEmbedding,
     l2_normalize,
 )
-from gnn_recsys_tpu_torch.ops.cuda.gather_mean import gather_mean
+from gnn_recsys_tpu_torch.ops.cuda.gather_mean import SlotTranspose, gather_mean
 from gnn_recsys_tpu_torch.ops.cuda.leaf_agg import leaf_kernel_supported, leaf_mean_nn
 from gnn_recsys_tpu_torch.ops.message import coo_segment_max, coo_segment_mean
 from gnn_recsys_tpu_torch.ops.sampling import (
+    UniquePlan,
     exclusion_table,
     full_neighbors_packed,
     sample_neighbors,
-    unique_capped,
+    unique_plan,
 )
 
 # Edge pairs per etype: (src ids, dst ids).
@@ -444,14 +445,17 @@ class ConvModel(nn.Module):
         (``conv_model.py:852-1040``), in two passes with static shapes:
 
         1. top-down: each level's frontier is deduplicated into a unique id
-           table of static capacity (:func:`unique_capped`), each unique node's
+           table of static capacity (:func:`unique_plan`), each unique node's
            neighbours are sampled once, and the positions of the self and
            neighbour ids in the next level's table are kept;
         2. bottom-up: each level computes over its unique nodes only, with the
            etype's ``transform_src`` applied to the unique source table before
            the gather (per-node maps commute with the gather).  The mean
            without edge weights is the gather-mean kernel
-           (:func:`~gnn_recsys_tpu_torch.ops.cuda.gather_mean.gather_mean`);
+           (:func:`~gnn_recsys_tpu_torch.ops.cuda.gather_mean.gather_mean`),
+           whose backward walks the lower frontier's sort from step 1 (a
+           :class:`~gnn_recsys_tpu_torch.ops.cuda.gather_mean.SlotTranspose`
+           of the gather's segment, up to its table's unique count);
            edge-weighted means and ``max`` are plain PyTorch.
 
         Draw order, the JAX package's, so that its draws replay: one draw per
@@ -471,29 +475,31 @@ class ConvModel(nn.Module):
             cap = min(n, graph.num_nodes(nt))
             return max(8, -(-cap // 8) * 8)
 
-        def uniqify(frontier: Dict[str, list]):
-            uniq, inv = {}, {}
+        def uniqify(frontier: Dict[str, list], transposed=()) -> Dict[str, UniquePlan]:
+            out = {}
             for nt, segs in frontier.items():
                 flat = torch.cat(segs)
-                uniq[nt], inv[nt] = unique_capped(flat, cap_for(nt, flat.shape[0]))
-            return uniq, inv
+                out[nt] = unique_plan(flat, cap_for(nt, flat.shape[0]), nt in transposed)
+            return out
 
-        levels: List[Optional[Dict[str, torch.Tensor]]] = [None] * (n_layers + 1)
-        levels[n_layers], top_inv = uniqify({nt: [ids.reshape(-1)] for nt, ids in seeds.items()})
+        tables: List[Optional[Dict[str, UniquePlan]]] = [None] * (n_layers + 1)
+        tables[n_layers] = uniqify({nt: [ids.reshape(-1)] for nt, ids in seeds.items()})
         plans: List[Optional[Dict]] = [None] * n_layers
         for lvl in range(n_layers, 0, -1):
             fanout = fanouts[lvl - 1]
             layer_dict = self.layers[lvl - 1]
-            lower: Dict[str, list] = {}
+            frontier: Dict[str, list] = {}
+            gathered = set()  # lower node types that a gather-mean reads
 
             def push(nt: str, arr: torch.Tensor):
-                segs = lower.setdefault(nt, [])
+                segs = frontier.setdefault(nt, [])
                 off = sum(s.numel() for s in segs)
                 segs.append(arr.reshape(-1))
                 return nt, off, arr.numel()
 
             plan = {}
-            for nt, uids in levels[lvl].items():
+            for nt, table in tables[lvl].items():
+                uids = table.uniq
                 in_etypes = [et for et in graph.canonical_etypes
                              if et[2] == nt and _etype_key(et) in layer_dict]
                 if not in_etypes:
@@ -508,22 +514,30 @@ class ConvModel(nn.Module):
                         rel, uids, max(fanout, 1), u=u,
                         mode="full" if fanout == -1 else "uniform", with_eids=need_eid,
                         **_exclusion_kwargs(excl))
+                    gather = layer.reducer == "mean" and not need_eid
+                    if gather:
+                        gathered.add(et[0])
                     entry["etypes"][et] = {"ref": push(et[0], nbr), "shape": nbr.shape,
-                                           "mask": mask, "eid": eid}
+                                           "mask": mask, "eid": eid, "gather": gather}
                 plan[nt] = entry
-            lower_uniq, lower_inv = uniqify(lower)
-            for entry in plan.values():
+            lower = uniqify(frontier, gathered)
+            for nt, entry in plan.items():
                 nt0, off, ln = entry["self_ref"]
-                entry["self_pos"] = lower_inv[nt0][off:off + ln]
+                entry["self_pos"] = lower[nt0].inv[off:off + ln]
                 for ed in entry["etypes"].values():
                     nt0, off, ln = ed["ref"]
-                    ed["nbr_pos"] = lower_inv[nt0][off:off + ln].reshape(ed["shape"])
-            levels[lvl - 1] = lower_uniq
+                    ed["nbr_pos"] = lower[nt0].inv[off:off + ln].reshape(ed["shape"])
+                    if ed["gather"]:
+                        # The backward walks this gather's segment of the lower
+                        # frontier's sort, up to its table's unique count.
+                        ed["transpose"] = SlotTranspose(lower[nt0].order, lower[nt0].start, off,
+                                                        tables[lvl][nt].count)
+            tables[lvl - 1] = lower
             plans[lvl - 1] = plan
 
         h = {}
-        for nt, ids in levels[0].items():
-            x = self._fetch_rows(features, nt, ids)
+        for nt, table in tables[0].items():
+            x = self._fetch_rows(features, nt, table.uniq)
             h[nt] = self.embed[nt](x) if self.embedding_layer and nt in self.embed else x
         for lvl in range(1, n_layers + 1):
             layer_dict = self.layers[lvl - 1]
@@ -535,19 +549,19 @@ class ConvModel(nn.Module):
                     layer, rel = layer_dict[_etype_key(et)], graph.rels[et]
                     src_table = layer.transform_src(h[et[0]])
                     nbr_pos, mask = ed["nbr_pos"], ed["mask"]
-                    weighted = self._edge_weighted(layer, et, rel)
-                    if layer.reducer == "mean" and not weighted:
-                        agg = gather_mean(src_table, nbr_pos, mask)
+                    if ed["gather"]:
+                        agg = gather_mean(src_table, nbr_pos, mask, ed["transpose"])
                     else:
                         msgs = _take_rows(src_table, nbr_pos)
-                        if weighted:
+                        if self._edge_weighted(layer, et, rel):
                             w = rel.edata["occurrence"].to(msgs.dtype)[ed["eid"].long()]
                             msgs = msgs * w[..., None]
                         agg = self._reduce(layer, msgs, mask)
                     zs.append(layer.combine(h_self, agg))
                 h_next[nt] = self._cross_etype_reduce(torch.stack(zs))
             h = h_next
-        return {nt: _take_rows(h[nt], top_inv[nt].reshape(seeds[nt].shape)) for nt in seeds}
+        return {nt: _take_rows(h[nt], tables[n_layers][nt].inv.reshape(seeds[nt].shape))
+                for nt in seeds}
 
     # ------------------------------------------------------------------
     # Scoring

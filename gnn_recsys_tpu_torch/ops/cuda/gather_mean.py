@@ -7,16 +7,25 @@ the ``csc_gather_mean`` contract without edge weights:
 
 with ids clipped into ``[0, N-1]`` and zeros for a row with no valid slot.
 :func:`gather_mean` is a ``torch.autograd.Function`` whose forward and
-backward are the kernels of ``gnn_recsys_tpu_torch/csrc/gather_mean.cu`` (its
-header says what bounds them); the gradient flows to ``h`` only.  The
-backward adds with atomics, so its sums come in another order on every run.
-Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
-it launches its kernel or raises, and counts its launches in ``.launches``.
+backward are the kernels of ``gnn_recsys_tpu_torch/csrc/gather_mean.cu``; the
+gradient flows to ``h`` only.  Both kernels move bytes (the header of the
+source says what bounds them at the training step's shapes).  The forward
+gives a warp a destination row and issues every valid slot's loads before
+the first add.  The backward uses no atomics: a warp owns one row of ``dh``,
+sums the cotangent rows of the slots that read it in ascending slot order,
+and writes it once, so two runs give the same bits.  It finds those slots
+through a :class:`SlotTranspose`: the dedup'd block forward passes the one
+its plan's sort already made (``ops/sampling.py:unique_plan``); any other
+caller gets one built here from a stable sort of the ids
+(:func:`slot_transpose`).  Each wrapper takes its plain version only for CPU
+tensors; for CUDA tensors it launches its kernel or raises, and counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,11 +39,31 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_typed", False):
+        lib.gather_mean_fwd_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        lib.gather_mean_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                               _P]
         for fn in (lib.gather_mean_fwd_launch, lib.gather_mean_bwd_launch):
-            fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
             fn.restype = _I
         lib._typed = True
     return lib
+
+
+class SlotTranspose(NamedTuple):
+    """The slots of a [B, K] gather grouped by the table row they read, for
+    the backward.  ``order`` (int32 [L]) lists slot positions, grouped by
+    row and ascending within one; row u's are ``order[start[u]:start[u+1]]``
+    (``start`` int32 [N + 1]).  Slot (b, k) of the gather is the entry
+    ``off + b * K + k``, and only the entries in ``[off, off + rows * K)``
+    are walked: ``rows`` (int32 [1], on the device of the other tensors) is
+    the number of destination rows whose cotangent can be nonzero, or None
+    for all B.  The dedup'd block forward's plan sorts a whole lower
+    frontier once; each gather reading that table has its own ``off``, and
+    its destination table's unique count as ``rows``."""
+
+    order: torch.Tensor
+    start: torch.Tensor
+    off: int = 0
+    rows: Optional[torch.Tensor] = None
 
 
 # ----------------------------------------------------------------------
@@ -55,13 +84,49 @@ def gather_mean_reference(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor
 
 def gather_mean_bwd_reference(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                               n: int) -> torch.Tensor:
-    """Plain version of the backward: dh [n, D], the scatter-add of
-    ``dout[b] * m[b, k] / max(count_b, 1)`` into the rows ``clip(nbr)``."""
+    """Independent plain version of the backward: dh [n, D], the scatter-add
+    (``index_add_``) of ``dout[b] * m[b, k] / max(count_b, 1)`` into the rows
+    ``clip(nbr)``."""
     m = mask.to(dout.dtype)
     w = m / m.sum(dim=1, keepdim=True).clamp(min=1.0)  # [B, K]
     contrib = (w[..., None] * dout[:, None, :]).reshape(-1, dout.shape[1])
     dh = dout.new_zeros((n, dout.shape[1]))
     return dh.index_add_(0, _clipped(nbr, n).reshape(-1), contrib)
+
+
+def slot_transpose(nbr: torch.Tensor, mask: torch.Tensor, n: int) -> SlotTranspose:
+    """The transpose of a gather that has no plan: a stable sort of the
+    clipped ids, with masked slots keyed to row ``n`` so that they sort past
+    every row and are never walked; no host sync."""
+    key = torch.where(mask, _clipped(nbr, n), n).reshape(-1).to(torch.int32)
+    srt, order = torch.sort(key, stable=True)
+    rows = torch.arange(n + 1, dtype=torch.int32, device=key.device)
+    return SlotTranspose(order.to(torch.int32), torch.searchsorted(srt, rows, out_int32=True))
+
+
+def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
+                          transpose: SlotTranspose) -> torch.Tensor:
+    """Plain version of the backward kernel: the same walk over the
+    transpose.  Entry e of ``order`` belongs to the dh row u with
+    ``start[u] <= e < start[u+1]``; inside the walked range, where its slot
+    is valid, it brings ``dout[b] / max(count_b, 1)``, and ``index_add_``
+    adds the entries in order (ascending slot within a row)."""
+    b, k = mask.shape
+    d = dout.shape[1]
+    if n == 0:
+        return dout.new_zeros((0, d))
+    order, start, off, rows = transpose
+    limit = b if rows is None else rows.long().clamp(0, b)
+    p = order.long() - off
+    walked = (p >= 0) & (p < limit * k)
+    p = torch.where(walked, p, 0)
+    take = walked & mask.reshape(-1)[p]
+    count = mask.to(dout.dtype).sum(dim=1).clamp(min=1.0)
+    contrib = torch.where(take[:, None], (dout * (1.0 / count)[:, None])[p // k], 0.0)
+    entries = torch.arange(order.numel(), dtype=start.dtype, device=start.device)
+    # Entries past start[n] (masked slots of slot_transpose) bring zeros.
+    row = (torch.searchsorted(start, entries, right=True) - 1).clamp(0, n - 1)
+    return dout.new_zeros((n, d)).index_add_(0, row, contrib)
 
 
 # ----------------------------------------------------------------------
@@ -81,6 +146,21 @@ def _checked(x: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, what: str):
     ids = nbr.to(torch.int32).contiguous()
     m = mask.to(torch.bool).contiguous().view(torch.uint8)
     return x.contiguous(), ids, m
+
+
+def _checked_transpose(t: SlotTranspose, n: int, b: int, k: int) -> SlotTranspose:
+    """The backward kernel's view of a transpose; raises on what it does not take."""
+    order, start, off, rows = t
+    if order.dtype != torch.int32 or start.dtype != torch.int32 or order.dim() != 1:
+        raise ValueError("transpose: order and start must be int32, order 1-D")
+    if start.numel() != n + 1:
+        raise ValueError(f"transpose: start has {start.numel()} entries for {n} rows")
+    if not 0 <= off <= off + b * k <= order.numel() < 2**31:
+        raise ValueError(f"transpose: entries [{off}, {off + b * k}) outside order "
+                         f"[0, {order.numel()})")
+    if rows is not None and (rows.dtype != torch.int32 or rows.numel() != 1):
+        raise ValueError("transpose: rows must be one int32")
+    return SlotTranspose(order.contiguous(), start.contiguous(), off, rows)
 
 
 def _vec4(*tensors: torch.Tensor) -> int:
@@ -112,23 +192,30 @@ def gather_mean_fwd(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor) -> t
 gather_mean_fwd.launches = 0
 
 
-def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
-                    n: int) -> torch.Tensor:
-    """Backward: dh [n, D] f32 for the cotangent ``dout`` [B, D]."""
-    if build.on_cpu(dout, nbr, mask):
-        return gather_mean_bwd_reference(dout, nbr, mask, n)
+def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n: int,
+                    transpose: Optional[SlotTranspose] = None) -> torch.Tensor:
+    """Backward: dh [n, D] f32 for the cotangent ``dout`` [B, D], walking
+    ``transpose`` (built from ``nbr`` and ``mask`` when None)."""
+    if transpose is None:
+        transpose = slot_transpose(nbr, mask, n)
+    if build.on_cpu(dout, nbr, mask, transpose.order, transpose.start):
+        return gather_mean_bwd_plain(dout, mask, n, transpose)
     g, ids, m = _checked(dout, nbr, mask, "dout")
     (b, d), k = g.shape, ids.shape[1]
     if ids.shape[0] != b:
         raise ValueError(f"dout has {b} rows, nbr {ids.shape[0]}")
+    order, start, off, rows = _checked_transpose(transpose, n, b, k)
     dev = g.device
-    dh = torch.zeros((n, d), dtype=torch.float32, device=dev)  # the kernel adds into it
-    if n and b and d:
+    if rows is not None and rows.device != dev:
+        raise ValueError(f"transpose rows on {rows.device}, dout on {dev}")
+    dh = torch.empty((n, d), dtype=torch.float32, device=dev)  # the kernel writes every row
+    if n and d:
         lib = _lib()
         with torch.cuda.device(dev):
-            err = lib.gather_mean_bwd_launch(g.data_ptr(), ids.data_ptr(), m.data_ptr(),
-                                             n, b, k, d, _vec4(g, dh), dh.data_ptr(),
-                                             build.stream(dev))
+            err = lib.gather_mean_bwd_launch(
+                g.data_ptr(), m.data_ptr(), order.data_ptr(), start.data_ptr(),
+                None if rows is None else rows.data_ptr(), off, n, b, k, d, _vec4(g, dh),
+                dh.data_ptr(), build.stream(dev))
         build.check(lib, err, "gather_mean_bwd")
         gather_mean_bwd.launches += 1
     return dh
@@ -139,27 +226,29 @@ gather_mean_bwd.launches = 0
 
 class _GatherMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, nbr, mask):
+    def forward(ctx, h, nbr, mask, transpose):
         ctx.save_for_backward(nbr, mask)
         ctx.n = h.shape[0]
+        ctx.transpose = transpose
         return gather_mean_fwd(h, nbr, mask)
 
     @staticmethod
     def backward(ctx, g):
         nbr, mask = ctx.saved_tensors
-        # The ids and the mask (graph structure) take no gradient.
-        return gather_mean_bwd(g, nbr, mask, ctx.n), None, None
+        # The ids, the mask and the transpose (graph structure) take no gradient.
+        return gather_mean_bwd(g, nbr, mask, ctx.n, ctx.transpose), None, None, None
 
 
-def gather_mean(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def gather_mean(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
+                transpose: Optional[SlotTranspose] = None) -> torch.Tensor:
     """``out[b] = sum_k mask[b,k] h[clip(nbr[b,k])] / max(sum_k mask[b,k], 1)``.
 
     h: [N, D] f32; nbr: [B, K] int32 or int64 (any value where the mask is
-    False); mask: [B, K] bool.  Returns [B, D].  CPU tensors go through the
-    plain version (autograd differentiates it); CUDA tensors through the
-    kernels, forward and backward."""
-    if build.on_cpu(h, nbr, mask):
-        return gather_mean_reference(h, nbr, mask)
+    False); mask: [B, K] bool; ``transpose``: the gather's slots grouped by
+    table row (:class:`SlotTranspose`), or None to have the backward sort
+    them.  Returns [B, D].  CPU tensors take the plain versions, CUDA
+    tensors the kernels, forward and backward, through the same
+    ``autograd.Function``."""
     # Converted once here, so that neither kernel's wrapper copies them again.
     return _GatherMean.apply(h, nbr.to(torch.int32).contiguous(),
-                             mask.to(torch.bool).contiguous())
+                             mask.to(torch.bool).contiguous(), transpose)

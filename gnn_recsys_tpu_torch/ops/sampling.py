@@ -3,9 +3,10 @@
 Port of ``gnn_recsys_tpu/ops/sampling.py`` (``sample_neighbors``,
 ``full_neighbors_packed``, ``exclusion_table``, ``exclusion_flags``), plus
 :func:`unique_capped`, the static-capacity ``jnp.unique`` of the dedup'd
-block forward's plan.  Sampling is WITH replacement into
-``fanout`` static slots, uniform over each node's true neighbour list;
-``mode='full'`` takes the whole padded row.  Excluded edges (the minibatch
+block forward's plan, and :func:`unique_plan`, which also keeps the unique
+count and the transpose that the gather-mean backward walks.  Sampling is
+WITH replacement into ``fanout`` static slots, uniform over each node's
+true neighbour list; ``mode='full'`` takes the whole padded row.  Excluded edges (the minibatch
 edges and their reverses) are masked after sampling: an excluded draw
 becomes an invalid slot.
 
@@ -18,7 +19,7 @@ random streams differ.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -194,23 +195,54 @@ def full_neighbors_packed(rel: Relation, ids: torch.Tensor,
     return feat, row >= 0
 
 
-def unique_capped(flat: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+class UniquePlan(NamedTuple):
+    """One table of the dedup'd block forward's plan (:func:`unique_plan`).
+
+    ``uniq`` [cap] and ``inv`` [L] int32 as :func:`unique_capped`; ``count``
+    int32 [1], on the device, the number of distinct ids (rows at or past it
+    are padding).  With ``transpose``: ``order`` int32 [L], the positions of
+    ``flat`` grouped by unique position and ascending within one, and
+    ``start`` int32 [cap + 1], where each unique position's begin in
+    ``order`` (the gather-mean backward walks it)."""
+
+    uniq: torch.Tensor
+    inv: torch.Tensor
+    count: torch.Tensor
+    order: Optional[torch.Tensor] = None
+    start: Optional[torch.Tensor] = None
+
+
+def unique_plan(flat: torch.Tensor, cap: int, transpose: bool = False) -> UniquePlan:
     """``jnp.unique(flat, return_inverse=True, size=cap, fill_value=0)`` with
-    static shapes: the sorted distinct ids of the 1-D ``flat``, padded with 0
-    to ``cap`` entries, and each element's position among them (int32).
-    Built from a sort, the first element of each run, a cumulative sum and
-    two scatters, so nothing waits on a data-dependent size (``torch.unique``
-    on CUDA synchronises with the host).  ``cap`` must be at least the number
-    of distinct ids."""
-    srt, order = torch.sort(flat)
+    static shapes, and what the plan keeps beside it (:class:`UniquePlan`).
+    Built from a stable sort, the first element of each run, a cumulative
+    sum, two scatters and (for the transpose) a ``searchsorted`` of the run
+    starts, so nothing waits on a data-dependent size (``torch.unique`` on
+    CUDA synchronises with the host).  ``cap`` must be at least the number of
+    distinct ids."""
+    srt, order = torch.sort(flat, stable=True)
     first = torch.ones_like(srt, dtype=torch.bool)
     first[1:] = srt[1:] != srt[:-1]
-    run = torch.cumsum(first, dim=0) - 1  # each sorted element's unique position
+    run = torch.cumsum(first, dim=0, dtype=torch.int32) - 1  # each sorted element's position
     uniq = torch.zeros(cap, dtype=flat.dtype, device=flat.device)
     uniq[run] = srt  # the elements of one run write the same value
     inv = torch.empty_like(run)
     inv[order] = run
-    return uniq, inv.to(torch.int32)
+    count = run[-1:] + 1
+    if not transpose:
+        return UniquePlan(uniq, inv, count)
+    positions = torch.arange(cap + 1, dtype=torch.int32, device=flat.device)
+    start = torch.searchsorted(run, positions, out_int32=True)
+    return UniquePlan(uniq, inv, count, order.to(torch.int32), start)
+
+
+def unique_capped(flat: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.unique(flat, return_inverse=True, size=cap, fill_value=0)`` with
+    static shapes: the sorted distinct ids of the 1-D ``flat``, padded with 0
+    to ``cap`` entries, and each element's position among them (int32), from
+    :func:`unique_plan`."""
+    plan = unique_plan(flat, cap)
+    return plan.uniq, plan.inv
 
 
 def _slot_positions(rel: Relation, eids: torch.Tensor) -> torch.Tensor:

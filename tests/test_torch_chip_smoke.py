@@ -54,8 +54,9 @@ def test_train_dedup_and_packed_leaf_rehearsal(data):
     # 8 gather-mean calls a step, in 4 shapes (2 levels x 2 node types).
     assert sum(tap.calls_by_shape.values()) == 16 * 8 and len(tap.calls_by_shape) == 4
     assert len(tap.captured) == 8 and all("dout" in c for c in tap.captured)
+    assert all(c["transpose"].rows is not None for c in tap.captured)
     assert chip_smoke.conv_model.gather_mean is chip_smoke.gm.gather_mean
-    rows = chip_smoke.phase_gather_steps(torch.device("cpu"), tap, tap.unique_counts, timed=False)
+    rows = chip_smoke.phase_gather_steps(torch.device("cpu"), tap, timed=False)
     assert [r["name"].split(":")[0] for r in rows] == ["gather_mean_fwd", "gather_mean_bwd"] * 4
     assert all(r["max_abs_err"] <= 1e-6 and r["bound_ms"] > 0 for r in rows)
     chip_smoke.phase_packed_leaf(torch.device("cpu"), data, model, seeds=8)

@@ -257,13 +257,22 @@ def _gather_case(dev, b, k, n, d, seed=0):
     return h, torch.tensor(nbr, device=dev), torch.tensor(mask, device=dev), g
 
 
-@pytest.mark.parametrize("b,k,n,d", [(38912, 8, 30000, 256), (2048, 4, 20992, 256),
-                                     (13, 8, 50, 16), (7, 40, 20, 33), (5, 3, 10, 6)])
+def _assert_dh_close(dh, want):
+    assert float((dh - want).abs().max()) <= GRAD_REL * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,k,n,d", [(38912, 8, 30000, 256), (20992, 8, 100000, 256),
+                                     (2048, 4, 20992, 256), (4608, 4, 38912, 256),
+                                     (13, 8, 50, 16), (7, 40, 20, 33), (5, 3, 10, 6),
+                                     (9, 4, 1, 256), (300, 1, 50, 33), (1001, 8, 3000, 33),
+                                     (1001, 40, 3000, 256), (333, 4, 7, 256)])
 def test_gather_mean_matches_plain(dev, b, k, n, d):
-    """Forward and backward at the dedup step's shapes, with K > 32 and a D
-    that is not a multiple of 4 (the scalar path).  The backward adds with
-    atomics: its sums come in another order than the plain version's, and
-    in another order on every run."""
+    """Forward and backward at the dedup step's four shapes, N = 1, K of 1,
+    4, 8 and 40, a D that is not a multiple of 4 (the scalar path) and a
+    ragged B.  The backward has no atomics: it matches both plain versions
+    (the walk of the same transpose, and index_add_) within 1e-5 of the
+    largest entry (fused multiply-adds in another order), and a second call
+    gives the same bits."""
     from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 
     h, nbr, mask, g = _gather_case(dev, b, k, n, d)
@@ -275,8 +284,56 @@ def test_gather_mean_matches_plain(dev, b, k, n, d):
     want = gm.gather_mean_reference(h, nbr, mask)
     assert float((out - want).abs().max()) <= TOL * max(1.0, float(want.abs().max()))
     assert (out[b // 2] == 0).all()
-    want_dh = gm.gather_mean_bwd_reference(g, nbr, mask, n)
-    assert float((dh - want_dh).abs().max()) <= GRAD_REL * max(1.0, float(want_dh.abs().max()))
+    tr = gm.slot_transpose(nbr, mask, n)
+    _assert_dh_close(dh, gm.gather_mean_bwd_reference(g, nbr, mask, n))
+    _assert_dh_close(dh, gm.gather_mean_bwd_plain(g, mask, n, tr))
+    assert torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, tr))
+
+
+def test_gather_mean_bwd_hot_row_and_masked_rows(dev):
+    """Every valid slot on one source row (a run of ~32,000 entries) and
+    rows with no valid slot: the hot row sums its slots in a fixed order."""
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    h, nbr, mask, g = _gather_case(dev, 5000, 8, 300, 256, seed=2)
+    nbr = torch.full_like(nbr, 17)
+    mask[:100] = False
+    dh = gm.gather_mean_bwd(g, nbr, mask, 300)
+    _assert_dh_close(dh, gm.gather_mean_bwd_reference(g, nbr, mask, 300))
+    assert (dh[:17] == 0).all() and (dh[18:] == 0).all()
+    assert torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, 300))
+
+
+@pytest.mark.parametrize("hot", [False, True])
+def test_gather_mean_bwd_plan_transpose_matches_wrapper_own(dev, hot):
+    """A transpose cut from one sort of a frontier that holds other slots
+    before and after this gather's (as the dedup plan's), walked up to
+    ``rows``: padding rows (zero cotangent) past it, pointing at one hot row
+    with ``hot``, so the 32-way search narrows a long run.  Bit-identical to
+    the wrapper's own transpose over every slot."""
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+    from gnn_recsys_tpu_torch.ops.sampling import unique_plan
+
+    rng = np.random.default_rng(6)
+    n_ids, b, k, d, rows = 5000, 4096, 8, 256, 3000
+    nbr = rng.integers(0, n_ids, (b, k)).astype(np.int32)
+    if hot:
+        nbr[rows:] = 11
+    before, after = rng.integers(0, n_ids, 7000), rng.integers(0, n_ids, 9000)
+    flat = torch.tensor(np.concatenate([before, nbr.reshape(-1), after]).astype(np.int32),
+                        device=dev)
+    cap = 5000
+    plan = unique_plan(flat, cap, transpose=True)
+    pos = plan.inv[before.size:before.size + b * k].reshape(b, k)
+    mask = torch.tensor(rng.random((b, k)) < 0.9, device=dev)
+    g = torch.tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+    g[rows:] = 0.0
+    tr = gm.SlotTranspose(plan.order, plan.start, before.size,
+                          torch.tensor([rows], dtype=torch.int32, device=dev))
+    dh = gm.gather_mean_bwd(g, pos, mask, cap, tr)
+    assert torch.equal(dh, gm.gather_mean_bwd(g, pos, mask, cap))
+    _assert_dh_close(dh, gm.gather_mean_bwd_reference(g, pos, mask, cap))
+    assert (dh[int(plan.count):] == 0).all()
 
 
 def test_gather_mean_autograd_and_refusals(dev):
@@ -329,3 +386,35 @@ def test_dedup_step_launch_counts(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert [fn.launches - n for fn, n in zip(counters, before)] == [8, 8, 2, 0, 0]
+
+
+def test_dedup_step_gradients_are_bit_identical(dev):
+    """Two dedup'd forward + backward passes from the same parameters and
+    draws give the same bits: the gather-mean backward has no atomics, and
+    PyTorch's deterministic algorithms keep its own index_add_ in order."""
+    from gnn_recsys_tpu_torch.models.conv_model import ConvModel
+    from gnn_recsys_tpu_torch.ops.sampling import Draws
+    from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
+
+    data = make_synthetic_data(num_users=300, num_items=120, seed=0)
+    g = data.graph.to(dev)
+    model = ConvModel(g.canonical_etypes, (("user", 8), ("item", 8), ("hidden", 64), ("out", 32)),
+                      aggregator_type="mean_nn").to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    seeds = {"user": torch.arange(0, 300, 3, device=dev) % 97,
+             "item": torch.arange(0, 120, 2, device=dev) % 41}
+    rec = Draws(torch.Generator(device=dev).manual_seed(0), record=True)
+    model.sampled_repr(g, feats, seeds, (8, 4), rec, dedup=True)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        out = model.sampled_repr(g, feats, seeds, (8, 4), rec.replay(), dedup=True)
+        sum(o.square().sum() for o in out.values()).backward()
+        return [p.grad.clone() for p in model.parameters()]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first, second = grads(), grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

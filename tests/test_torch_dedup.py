@@ -30,8 +30,10 @@ from gnn_recsys_tpu.ops.membership import build_padded_pair_set as jbuild_pairs
 from gnn_recsys_tpu.train import full_batch as jfb
 from gnn_recsys_tpu.train import minibatch as jmb
 from gnn_recsys_tpu.utils.synthetic import make_synthetic_data as jmake
+from gnn_recsys_tpu_torch.models import conv_model
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.models.convert import params_from_jax
+from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
 from gnn_recsys_tpu_torch.train import minibatch as tmb
@@ -116,6 +118,41 @@ def test_dedup_matches_tree_at_full_fanout(agg):
     h_t = tm.sampled_repr(td.graph, tfeats, seeds, (-1, -1), draws)
     for nt in seeds:
         torch.testing.assert_close(h_d[nt], h_t[nt], rtol=0, atol=REPR_TOL)
+
+
+def test_dedup_plan_transpose_gives_index_add_dh(monkeypatch):
+    """Every gather of one dedup'd forward and backward: the backward over
+    the plan's transpose (the gather's segment of the lower frontier's sort,
+    cut at its table's unique count) gives bit for bit the ``index_add_`` of
+    every slot of its ``nbr_pos``, padding rows included: their cotangent is
+    zero, so cutting them drops only additions of 0.0."""
+    _, td, _, tm, _, tfeats, _ = _pair("mean_nn")
+    calls = []
+
+    def tap(h, nbr, mask, transpose=None):
+        out = gm.gather_mean(h, nbr, mask, transpose)
+        call = {"n": h.shape[0], "nbr": nbr, "mask": mask, "transpose": transpose}
+        calls.append(call)
+        out.register_hook(lambda g: call.update(dout=g.detach()))
+        return out
+
+    monkeypatch.setattr(conv_model, "gather_mean", tap)
+    seeds = {"user": torch.tensor([0, 3, 3, 7, 1, 0, 11, 39, 3, 5]),
+             "item": torch.arange(24).reshape(6, 4) % 17}
+    out = tm.sampled_repr(td.graph, tfeats, seeds, (4, 3), Draws(torch.Generator().manual_seed(3)),
+                          dedup=True)
+    sum((o * torch.randn(o.shape, generator=torch.Generator().manual_seed(i))).sum()
+        for i, o in enumerate(out.values())).backward()
+    assert len(calls) == 8
+    padded = 0
+    for call in calls:
+        nbr, mask, tr, g, n = call["nbr"], call["mask"], call["transpose"], call["dout"], call["n"]
+        rows = int(tr.rows)
+        assert (g[rows:] == 0).all()
+        padded += nbr.shape[0] - rows
+        dh = gm.gather_mean_bwd(g, nbr, mask, n, tr)
+        assert torch.equal(dh, gm.gather_mean_bwd_reference(g, nbr, mask, n))
+    assert padded > 0  # the plan has padding rows to cut
 
 
 def test_dedup_dense_pool_step_matches_jax(monkeypatch):

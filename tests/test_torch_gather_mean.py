@@ -3,9 +3,13 @@
 against ``jax.grad``, and ``unique_capped`` against ``jnp.unique``.
 
 Tolerances: rtol 1e-5 / atol 1e-6 for the forward (sums of K terms in another
-order, then one division); the same for the gradient, whose entries are sums
-of a few scaled cotangent rows (the kernel's atomics add them in an order
-that changes from run to run)."""
+order, then one division); the same for the gradient through ``autograd``.
+The backward's plain version (the walk over a transpose) against
+``index_add_`` and ``jax.grad``: rtol and atol 1e-6, since each entry of dh
+is a sum of a few scaled cotangent rows, added in another order than XLA's
+scatter.  ``jax.grad`` cannot differentiate ``gather_mean_pallas`` (a
+``pallas_call`` has no transpose rule), so gradients are held against
+``jax.grad`` of ``csc_gather_mean``, the same contract."""
 
 import jax
 import jax.numpy as jnp
@@ -17,9 +21,10 @@ from gnn_recsys_tpu.ops.message import csc_gather_mean as jcsc_gather_mean
 from gnn_recsys_tpu.ops.pallas.gather_mean import gather_mean_pallas
 from gnn_recsys_tpu_torch.ops import message as tmsg
 from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
-from gnn_recsys_tpu_torch.ops.sampling import unique_capped
+from gnn_recsys_tpu_torch.ops.sampling import unique_capped, unique_plan
 
 RTOL, ATOL = 1e-5, 1e-6
+BWD_TOL = 1e-6
 
 
 def _case(b, k, n, d, seed=0):
@@ -66,6 +71,75 @@ def test_gradient_matches_jax_grad(b, k, n, d):
     # The plain backward (the backward kernel's oracle) gives the same.
     dh = gm.gather_mean_bwd(torch.tensor(c), torch.tensor(nbr), torch.tensor(mask), n)
     np.testing.assert_allclose(dh.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,k,n,d", [(13, 8, 50, 16), (32, 16, 200, 32), (7, 40, 20, 33),
+                                     (6, 4, 1, 8), (9, 1, 30, 4)])
+def test_transpose_backward_matches_index_add_and_jax_grad(b, k, n, d):
+    """The plain backward over the wrapper's own transpose (masked rows, ids
+    of -1 and >= N, K > 32, N = 1, K = 1)."""
+    h, nbr, mask = _case(b, k, n, d, seed=3) if k > 1 else _case(b, 2, n, d, seed=3)
+    nbr, mask = nbr[:, :k], mask[:, :k]
+    c = np.random.default_rng(4).normal(size=(b, d)).astype(np.float32)
+    want = np.asarray(jax.grad(lambda h_: jnp.sum(jcsc_gather_mean(
+        h_, jnp.asarray(nbr), jnp.asarray(mask)) * c))(jnp.asarray(h)))
+    tn, tm, tc = torch.tensor(nbr), torch.tensor(mask), torch.tensor(c)
+    tr = gm.slot_transpose(tn, tm, n)
+    dh = gm.gather_mean_bwd_plain(tc, tm, n, tr)
+    np.testing.assert_allclose(dh.numpy(), want, rtol=BWD_TOL, atol=BWD_TOL)
+    ref = gm.gather_mean_bwd_reference(tc, tn, tm, n)
+    np.testing.assert_allclose(dh.numpy(), ref.numpy(), rtol=BWD_TOL, atol=BWD_TOL)
+    assert torch.equal(gm.gather_mean_bwd(tc, tn, tm, n), dh)  # the wrapper builds the same
+
+
+def test_slot_transpose_groups_each_rows_valid_slots():
+    h, nbr, mask = _case(13, 8, 50, 16)
+    n = h.shape[0]
+    tr = gm.slot_transpose(torch.tensor(nbr), torch.tensor(mask), n)
+    order, start = tr.order.numpy(), tr.start.numpy()
+    assert tr.order.dtype == tr.start.dtype == torch.int32 and start.shape == (n + 1,)
+    flat_ids, flat_mask = np.clip(nbr, 0, n - 1).reshape(-1), mask.reshape(-1)
+    for u in range(n):
+        want = np.nonzero(flat_mask & (flat_ids == u))[0]  # ascending slots
+        np.testing.assert_array_equal(order[start[u]:start[u + 1]], want)
+    # Masked slots sort past every row and are never walked.
+    assert start[n] == flat_mask.sum() and not flat_mask[order[start[n]:]].any()
+
+
+def test_backward_walks_only_its_segment_up_to_rows():
+    """A plan-like transpose: one sort of a frontier that holds two gathers'
+    slots; the second gather (entries from ``off``) walks its own rows below
+    ``rows`` only.  Its padding rows point at one hot row and carry a zero
+    cotangent, so ``index_add_`` over every slot gives the same bits."""
+    rng = np.random.default_rng(5)
+    n, b, k, d, rows = 30, 20, 4, 8, 15
+    other = rng.integers(0, n, 50).astype(np.int32)
+    nbr = rng.integers(0, n, (b, k)).astype(np.int32)
+    nbr[rows:] = 7  # padding rows: a hot row
+    mask = rng.random((b, k)) < 0.8
+    plan = unique_plan(torch.tensor(np.concatenate([other, nbr.reshape(-1)])), 40,
+                       transpose=True)
+    off = other.size
+    pos = plan.inv[off:].reshape(b, k)
+    c = rng.normal(size=(b, d)).astype(np.float32)
+    c[rows:] = 0.0
+    tr = gm.SlotTranspose(plan.order, plan.start, off, torch.tensor([rows], dtype=torch.int32))
+    dh = gm.gather_mean_bwd(torch.tensor(c), pos, torch.tensor(mask), 40, tr)
+    tc, tm = torch.tensor(c), torch.tensor(mask)
+    assert torch.equal(dh, gm.gather_mean_bwd_reference(tc, pos, tm, 40))
+    assert torch.equal(dh, gm.gather_mean_bwd(tc, pos, tm, 40))  # the wrapper's own transpose
+
+
+@pytest.mark.parametrize("n,high,cap", [(40, 10, 16), (37, 1000, 40), (64, 64, 64), (5, 3, 8)])
+def test_unique_plan_transpose_lists_each_positions_slots(n, high, cap):
+    flat = np.random.default_rng(n).integers(0, high, n).astype(np.int32)
+    plan = unique_plan(torch.tensor(flat), cap, transpose=True)
+    inv, order, start = plan.inv.numpy(), plan.order.numpy(), plan.start.numpy()
+    distinct = len(np.unique(flat))
+    assert plan.count.dtype == torch.int32 and plan.count.tolist() == [distinct]
+    assert start.shape == (cap + 1,) and (start[distinct:] == n).all()
+    for u in range(cap):
+        np.testing.assert_array_equal(order[start[u]:start[u + 1]], np.nonzero(inv == u)[0])
 
 
 @pytest.mark.parametrize("n,high,cap", [(40, 10, 16), (37, 1000, 40), (64, 64, 64), (5, 3, 8)])
