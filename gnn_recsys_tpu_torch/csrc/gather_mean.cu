@@ -26,15 +26,22 @@
 // that fits in the 50 MB L2 serves its repeated rows from L2, so the time
 // lies between the two readings and the L2's rate sets it; a larger table
 // (the step's 100,000-row one, 102 MB) reads from device memory.  The
-// backward moves the same bytes the other way.
+// backward moves the same bytes the other way.  Neither kernel's warp has
+// much to do, so both are held by how many dependent loads are in flight on
+// an SM: more warps resident beat more loads a warp (measured on the H100,
+// PERF.md).
 //
 // Forward.  One warp a destination row.  Lane j < K holds slot j's clipped id
 // (or -1 where masked), loaded once; the count is one ballot.  The lanes span
-// D in 16-byte float4 columns (D=256: two a lane).  Every slot's loads issue
-// before the first add: K = 4 and 8 (the step's) are compiled for that K,
-// with the slots unrolled; any other K walks its slots 8 at a time.  Masked
-// slots are predicated off, not branched around, and the sums are taken in
-// ascending slot order.  The row is written once, scaled by 1 / max(count, 1).
+// D in 16-byte float4 columns (D=256: two a lane).  K = 4 and 8 (the step's)
+// are compiled for that K, with the slots unrolled; any other K walks its
+// slots 8 at a time.  Every slot's loads are unconditional (a masked slot
+// reads row 0 and is zeroed by a select), so no branch orders them and
+// ptxas schedules them freely: at 38 registers (6 blocks an SM) it
+// interleaves them with the adds, which was faster than hoisting all of a
+// row's loads ahead of them (84 registers, 3 blocks).  The sums are taken in
+// ascending slot order and the row is written once, scaled by
+// 1 / max(count, 1).
 //
 // Backward: no atomics, and bit-reproducible.  One warp owns one dh row u and
 // writes it once (a row that no slot reads gets zeros, so dh needs no fill).
@@ -50,10 +57,14 @@
 // sorts the clipped ids itself (ops/cuda/gather_mean.py: slot_transpose).
 // A run longer than 32 entries is first narrowed to [off, off + rows*K) by
 // a 32-way search (one load a lane a step); then the warp loads 32 entries
-// at a time, each lane computes its slot's row b and 1 / count_b, a ballot
-// keeps the valid ones, and the cotangent rows of up to 4 valid slots load
-// together before they are added, in ascending slot order.  Fixed order, no
-// atomics: two runs give the same bits.
+// at a time, each lane computes its slot's row b and 1 / count_b (one load of
+// the mask row's words gives the slot's validity and the count), a ballot
+// keeps the valid ones, and the cotangent rows of 2 valid slots at a time
+// load together before they are added, in ascending slot order.  At most 42
+// registers keep 6 blocks an SM: the 100,000-row table's rows have one or two
+// slots each, so a row costs its chain of dependent loads, and more rows in
+// flight is what shortens it.  Fixed order, no atomics: two runs give the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +75,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;  // rows per block (one warp each)
 constexpr int CH = 2;     // vector columns a lane holds per pass over the slots
 constexpr int G = 8;      // forward, any K: slots whose loads issue together
-constexpr int U = 4;      // backward: valid slots whose cotangent rows load together
+constexpr int U = 2;      // backward: valid slots whose cotangent rows load together
+constexpr int BWD_BLOCKS = 6;  // backward blocks resident an SM (at most 42 registers)
 
 template <int VEC>
 struct Vec;
@@ -133,14 +145,15 @@ gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
         int id[GS];
 #pragma unroll
         for (int i = 0; i < GS; ++i) id[i] = __shfl_sync(FULL, mine, s0 + i);
-        V v[GS][CH];  // every slot's loads in flight before the first add
+        V v[GS][CH];
 #pragma unroll
         for (int i = 0; i < GS; ++i) {
 #pragma unroll
           for (int j = 0; j < CH; ++j) {
             const int c = c0 + lane + 32 * j;
-            v[i][j] = Vec<VEC>::zero();
-            if (id[i] >= 0 && c < dv) v[i][j] = __ldg(hv + (size_t)id[i] * dv + c);
+            // Unconditional (a masked slot reads row 0), then zeroed: no branch.
+            const V x = __ldg(hv + (size_t)max(id[i], 0) * dv + min(c, dv - 1));
+            v[i][j] = (id[i] >= 0 && c < dv) ? x : Vec<VEC>::zero();
           }
         }
 #pragma unroll
@@ -174,6 +187,29 @@ __device__ __forceinline__ int mask_count(const uint8_t* __restrict__ m, int K, 
   return c;
 }
 
+// Whether slot k of the mask row at m is valid and, where it is, the row's
+// valid slots in `count`.  K = 4 or 8 on 4-byte-aligned rows: one load of
+// the row's words gives both.
+template <int KS>
+__device__ __forceinline__ bool slot_valid(const uint8_t* __restrict__ m, int k, int K,
+                                           bool words, int& count) {
+  if constexpr (KS == 4 || KS == 8) {
+    if (words) {
+      unsigned w[KS / 4];
+#pragma unroll
+      for (int i = 0; i < KS / 4; ++i) w[i] = __ldg(reinterpret_cast<const unsigned*>(m) + i);
+      count = 0;
+#pragma unroll
+      for (int i = 0; i < KS / 4; ++i) count += __popc(w[i] & 0x01010101u);
+      const unsigned word = k >= 4 ? w[KS / 4 - 1] : w[0];
+      return (word >> (8 * (k & 3))) & 0xffu;
+    }
+  }
+  if (!__ldg(m + k)) return false;
+  count = mask_count<KS>(m, K, words);
+  return true;
+}
+
 // First index in [lo, hi) whose entry is >= key, or hi (a[lo..hi) ascending).
 // 32 probes a step: a run of L entries takes ceil(log32 L) loads.
 __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int lo, int hi,
@@ -191,7 +227,7 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int l
 }
 
 template <int VEC, int KS>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, BWD_BLOCKS)
 gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict__ mask,
                        const int* __restrict__ order, const int* __restrict__ start,
                        const int* __restrict__ rows_dev, int off, int N, int B, int K_, int D,
@@ -228,10 +264,9 @@ gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict
           const int q = p - off;
           b = q / K;
           const uint8_t* m = mask + (size_t)b * K;
-          if (__ldg(m + (q - b * K))) {
-            ok = true;
-            inv = 1.f / (float)mask_count<KS>(m, K, words);
-          }
+          int cnt = 1;
+          ok = slot_valid<KS>(m, q - b * K, K, words, cnt);
+          if (ok) inv = 1.f / (float)cnt;
         }
       }
       unsigned bits = __ballot_sync(FULL, ok);

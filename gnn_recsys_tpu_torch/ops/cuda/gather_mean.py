@@ -8,12 +8,13 @@ the ``csc_gather_mean`` contract without edge weights:
 with ids clipped into ``[0, N-1]`` and zeros for a row with no valid slot.
 :func:`gather_mean` is a ``torch.autograd.Function`` whose forward and
 backward are the kernels of ``gnn_recsys_tpu_torch/csrc/gather_mean.cu``; the
-gradient flows to ``h`` only.  Both kernels move bytes (the header of the
-source says what bounds them at the training step's shapes).  The forward
-gives a warp a destination row and issues every valid slot's loads before
-the first add.  The backward uses no atomics: a warp owns one row of ``dh``,
-sums the cotangent rows of the slots that read it in ascending slot order,
-and writes it once, so two runs give the same bits.  It finds those slots
+gradient flows to ``h`` only.  Both kernels move bytes, and are held by how
+many dependent loads an SM keeps in flight (the header of the source says
+what bounds them at the training step's shapes).  The forward gives a warp a
+destination row and loads every slot's row without a branch.  The backward
+uses no atomics: a warp owns one row of ``dh``, sums the cotangent rows of
+the slots that read it in ascending slot order, and writes it once, so two
+runs give the same bits.  It finds those slots
 through a :class:`SlotTranspose`: the dedup'd block forward passes the one
 its plan's sort already made (``ops/sampling.py:unique_plan``); any other
 caller gets one built here from a stable sort of the ids
