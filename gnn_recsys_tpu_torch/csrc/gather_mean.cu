@@ -37,11 +37,11 @@
 // are compiled for that K, with the slots unrolled; any other K walks its
 // slots 8 at a time.  Every slot's loads are unconditional (a masked slot
 // reads row 0 and is zeroed by a select), so no branch orders them and
-// ptxas schedules them freely: at 38 registers (6 blocks an SM) it
-// interleaves them with the adds, which was faster than hoisting all of a
-// row's loads ahead of them (84 registers, 3 blocks).  The sums are taken in
-// ascending slot order and the row is written once, scaled by
-// 1 / max(count, 1).
+// ptxas schedules them freely; at its own register choice it interleaves
+// them with the adds and keeps 6 blocks an SM, which was faster than
+// forcing all of a row's loads ahead of the adds (more registers, fewer
+// blocks).  The sums are taken in ascending slot order and the row is
+// written once, scaled by 1 / max(count, 1).
 //
 // Backward: no atomics, and bit-reproducible.  One warp owns one dh row u and
 // writes it once (a row that no slot reads gets zeros, so dh needs no fill).

@@ -14,13 +14,12 @@ what bounds them at the training step's shapes).  The forward gives a warp a
 destination row and loads every slot's row without a branch.  The backward
 uses no atomics: a warp owns one row of ``dh``, sums the cotangent rows of
 the slots that read it in ascending slot order, and writes it once, so two
-runs give the same bits.  It finds those slots
-through a :class:`SlotTranspose`: the dedup'd block forward passes the one
-its plan's sort already made (``ops/sampling.py:unique_plan``); any other
-caller gets one built here from a stable sort of the ids
-(:func:`slot_transpose`).  Each wrapper takes its plain version only for CPU
-tensors; for CUDA tensors it launches its kernel or raises, and counts its
-launches in ``.launches``.
+runs give the same bits.  It finds those slots through a
+:class:`SlotTranspose`: the dedup'd block forward passes the one its plan's
+sort already made (``ops/sampling.py:unique_plan``); any other caller gets
+one built here from a stable sort of the ids (:func:`slot_transpose`).  Each
+wrapper takes its plain version only for CPU tensors; for CUDA tensors it
+launches its kernel or raises, and counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -113,9 +112,6 @@ def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
     is valid, it brings ``dout[b] / max(count_b, 1)``, and ``index_add_``
     adds the entries in order (ascending slot within a row)."""
     b, k = mask.shape
-    d = dout.shape[1]
-    if n == 0:
-        return dout.new_zeros((0, d))
     order, start, off, rows = transpose
     limit = b if rows is None else rows.long().clamp(0, b)
     p = order.long() - off
@@ -127,7 +123,7 @@ def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
     entries = torch.arange(order.numel(), dtype=start.dtype, device=start.device)
     # Entries past start[n] (masked slots of slot_transpose) bring zeros.
     row = (torch.searchsorted(start, entries, right=True) - 1).clamp(0, n - 1)
-    return dout.new_zeros((n, d)).index_add_(0, row, contrib)
+    return dout.new_zeros((n, dout.shape[1])).index_add_(0, row, contrib)
 
 
 # ----------------------------------------------------------------------
@@ -149,7 +145,8 @@ def _checked(x: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, what: str):
     return x.contiguous(), ids, m
 
 
-def _checked_transpose(t: SlotTranspose, n: int, b: int, k: int) -> SlotTranspose:
+def _checked_transpose(t: SlotTranspose, n: int, b: int, k: int,
+                       dev: torch.device) -> SlotTranspose:
     """The backward kernel's view of a transpose; raises on what it does not take."""
     order, start, off, rows = t
     if order.dtype != torch.int32 or start.dtype != torch.int32 or order.dim() != 1:
@@ -159,8 +156,9 @@ def _checked_transpose(t: SlotTranspose, n: int, b: int, k: int) -> SlotTranspos
     if not 0 <= off <= off + b * k <= order.numel() < 2**31:
         raise ValueError(f"transpose: entries [{off}, {off + b * k}) outside order "
                          f"[0, {order.numel()})")
-    if rows is not None and (rows.dtype != torch.int32 or rows.numel() != 1):
-        raise ValueError("transpose: rows must be one int32")
+    if rows is not None and (rows.dtype != torch.int32 or rows.numel() != 1
+                             or rows.device != dev):
+        raise ValueError(f"transpose: rows must be one int32 on {dev}")
     return SlotTranspose(order.contiguous(), start.contiguous(), off, rows)
 
 
@@ -205,10 +203,8 @@ def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n
     (b, d), k = g.shape, ids.shape[1]
     if ids.shape[0] != b:
         raise ValueError(f"dout has {b} rows, nbr {ids.shape[0]}")
-    order, start, off, rows = _checked_transpose(transpose, n, b, k)
     dev = g.device
-    if rows is not None and rows.device != dev:
-        raise ValueError(f"transpose rows on {rows.device}, dout on {dev}")
+    order, start, off, rows = _checked_transpose(transpose, n, b, k, dev)
     dh = torch.empty((n, d), dtype=torch.float32, device=dev)  # the kernel writes every row
     if n and d:
         lib = _lib()

@@ -6,9 +6,9 @@ Port of ``gnn_recsys_tpu/ops/sampling.py`` (``sample_neighbors``,
 block forward's plan, and :func:`unique_plan`, which also keeps the unique
 count and the transpose that the gather-mean backward walks.  Sampling is
 WITH replacement into ``fanout`` static slots, uniform over each node's
-true neighbour list; ``mode='full'`` takes the whole padded row.  Excluded edges (the minibatch
-edges and their reverses) are masked after sampling: an excluded draw
-becomes an invalid slot.
+true neighbour list; ``mode='full'`` takes the whole padded row.  Excluded
+edges (the minibatch edges and their reverses) are masked after sampling:
+an excluded draw becomes an invalid slot.
 
 The sampler takes its uniform draws ``u`` as an argument.  A training step
 takes every random number from one :class:`Draws` object, in a fixed call
