@@ -160,38 +160,53 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def profiled_kernels(run, n: int):
-    """``run`` ``n`` times under ``torch.profiler`` (after one warm-up call):
-    (host ms a run, [(kernel name, launches, device us)])."""
-    from torch.profiler import ProfilerActivity, profile
+    """``run`` ``n`` times under ``torch.profiler``: (host ms a run,
+    [(kernel name, launches, device us)]).  One call runs in the profiler's
+    warm-up cycle, which it discards: on the H100's host it lost the first
+    kernels launched as tracing started."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(n):
             run()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
+        prof.step()
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # User annotations (the profiler's own step, the optimizer's step)
+        # carry device time too: the span of the kernels inside them.
+        annotation = getattr(evt, "is_user_annotation", False) or evt.key.startswith("ProfilerStep")
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not annotation:
             us = getattr(evt, "self_device_time_total", None)
             kernels.append((evt.key, evt.count, evt.self_cuda_time_total if us is None else us))
     return host_ms, kernels
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
-    """Device time of one call of ``fn`` in ms: the summed durations of the
-    kernels it launches (``torch.profiler``).  A profile that lost kernels
-    (none recorded, or a kernel's count not a multiple of ``reps``: seen on
-    the H100's host, with all or part of a window missing) is taken again;
-    after ``tries`` such profiles this raises, so that ``ms`` always means
-    the device time of whole calls."""
+def per_call_ms(kernels, reps: int) -> float:
+    """Device ms of one call from a profile of ``reps`` calls: each kernel's
+    mean recorded duration times its launches a call.  The profiler on the
+    H100's host drops the records of a few launches now and then (up to 3 of
+    20 seen); the mean of the rest still times each launch, and the launches
+    a call are the recorded count rounded up to a multiple of ``reps``."""
+    return sum(us / count * -(-count // reps) for _, count, us in kernels) / 1e3
+
+
+def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms (``per_call_ms`` under
+    ``torch.profiler``).  A profile with no kernel recorded is taken again;
+    after ``tries`` of them this raises, so that ``ms`` always means device
+    time."""
     for _ in range(tries):
         _, kernels = profiled_kernels(fn, reps)
-        if kernels and all(count % reps == 0 for _, count, _ in kernels):
-            return sum(us for _, _, us in kernels) / 1e3 / reps
-    raise RuntimeError(f"torch.profiler lost kernels of {tries} profiles of a call: {kernels}")
+        if kernels:
+            return per_call_ms(kernels, reps)
+    raise RuntimeError("torch.profiler recorded no CUDA kernel for a call that launches one")
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -429,7 +444,7 @@ def leaf_rows(dev, gen, record, k, p, f, h) -> None:
         # The backward's two kernels apart: device ms a call of each.
         reps = 20
         _, kernels = profiled_kernels(lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g), reps)
-        split = {part: sum(us for key, _, us in kernels if pat in key) / 1e3 / reps
+        split = {part: per_call_ms([k for k in kernels if pat in k[0]], reps)
                  for part, pat in (("main_ms", "leaf_bwd_kernel"),
                                    ("reduce_ms", "leaf_bwd_reduce_kernel"))}
         if not all(split.values()):

@@ -62,6 +62,14 @@ def test_train_dedup_and_packed_leaf_rehearsal(data):
     chip_smoke.phase_packed_leaf(torch.device("cpu"), data, model, seeds=8)
 
 
+def test_per_call_ms_survives_lost_records():
+    """Each kernel's mean recorded duration times its launches a call: 17 of
+    20 records of a one-launch kernel and 37 of 40 of a two-launch one."""
+    full = [("a", 20, 200.0), ("b", 40, 400.0)]
+    lost = [("a", 17, 170.0), ("b", 37, 370.0)]
+    assert chip_smoke.per_call_ms(full, 20) == chip_smoke.per_call_ms(lost, 20) == 0.03
+
+
 def test_slot_stats_counts_valid_slots_per_source_row():
     nbr = torch.tensor([[0, 1, 1], [1, 2, 0], [0, 0, 0]])
     mask = torch.tensor([[True, True, False], [True, True, True], [True, True, False]])
