@@ -12,19 +12,22 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
 1. device: the card's name and power limit, torch and CUDA versions.
 2. build: ``nvcc`` of ``gnn_recsys_tpu_torch/csrc/*.cu`` for sm_90a (one
    process a source, all at once), with the compiler's register /
-   shared-memory / spill summary; the f32 F <= 8 instantiations of the leaf
-   kernels (the tree step's) must not spill.
+   shared-memory / spill summary; the instantiations the main path runs
+   (``NO_SPILL``: the leaf kernels' f32 F = 8, ``mips_topk``'s f32 kernel
+   with register lists, the pool mask) must not spill.
 3. kernels: each kernel against its plain version; its time (``ms``: the
    device time of its kernels under ``torch.profiler``; ``events_ms``: CUDA
    events around back-to-back calls, host overhead included) beside the
    bound, the plain version's device time and, where one PyTorch call
    computes the same function, that call's.  The MIPS kernels at a serving shape (U=4096 users,
-   I=30,000 items, D=128, k=26), a tied case, a bf16 case; ``leaf_mean_nn``
+   I=30,000 items, D=128, k=26), a tied case, a bf16 case, ``mips_topk`` at
+   D=33 (zero-padded to 36); ``leaf_mean_nn``
    forward and backward at the training step's widest leaf (P=18,432, K=8,
    F=8, H=256) in f32 and bf16, a ragged P and an all-masked row, the
    backward's main kernel and its reduce timed apart;
-   ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding and ragged
-   B and P; ``gather_mean`` forward and backward on uniform random ids at
+   ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding, ragged
+   B and P, P = 2557, K = 128, and repeated ids with negative pool
+   entries, bit for bit; ``gather_mean`` forward and backward on uniform random ids at
    the dedup step's widest mean (B=38,912, K=8, N=30,000, D=256) and a
    ragged B, with an all-masked row and ids of -1 and >= N among the valid
    slots; the backward against both plain versions (the walk of the same
@@ -264,18 +267,24 @@ def phase_device() -> str:
     return kind
 
 
-# The leaf kernels' f32 instantiations at F <= 8 (the tree step's), by a
-# piece of their mangled names.
-LEAF_PTXAS = {"leaf_mean_nn_fwd": ("leaf_fwd_kernelIfLi8EE",),
-              "leaf_mean_nn_bwd": ("leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel")}
+# The instantiations each row's main path runs, by a piece of their mangled
+# names: the leaf kernels' f32 F = 8 ones (the tree step's), mips_topk's f32
+# kernel with lists of k <= 32 (serving), the pool mask.  None may spill.
+NO_SPILL = {
+    "leaf_mean_nn_fwd": ("leaf_agg", ("leaf_fwd_kernelIfLi8EE",)),
+    "leaf_mean_nn_bwd": ("leaf_agg", ("leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel")),
+    "mips_topk": ("topk_mips", ("topk_kernelIfLb1EE",)),
+    "pool_membership_mask": ("pool_mask", ("pool_mask_kernel",)),
+}
 
 
-def leaf_ptxas(lines) -> dict:
-    """Registers and spill bytes of each kernel the tree step's leaf launches
-    run; raises where one spills."""
-    funcs = build.ptxas_summary(lines)
+def kernel_ptxas(info, rows=NO_SPILL) -> dict:
+    """Registers and spill bytes of each instantiation that ``rows`` names,
+    from ``build.build_info`` (library -> {"ptxas": lines}); raises where
+    one spills."""
     out = {}
-    for name, pieces in LEAF_PTXAS.items():
+    for name, (lib, pieces) in rows.items():
+        funcs = build.ptxas_summary(info[lib]["ptxas"])
         for piece in pieces:
             hits = [v for k, v in funcs.items() if piece in k]
             if len(hits) != 1:
@@ -287,11 +296,12 @@ def leaf_ptxas(lines) -> dict:
 
 
 def phase_build() -> dict:
-    """Builds every kernel; returns the leaf kernels' ptxas summary."""
+    """Builds every kernel; returns the main path's instantiations' ptxas
+    summary by kernels-line row."""
     t0 = time.perf_counter()
     build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean"])
-    ptxas = leaf_ptxas(build.build_info["leaf_agg"]["ptxas"])
-    say("build", seconds=time.perf_counter() - t0, info=build.build_info, leaf_ptxas=ptxas)
+    ptxas = kernel_ptxas(build.build_info)
+    say("build", seconds=time.perf_counter() - t0, info=build.build_info, ptxas=ptxas)
     return ptxas
 
 
@@ -356,7 +366,16 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     err_bf16 = check_topk("mips_topk bf16", bvals, bidx, brvals, bridx,
                           dot_scores(ue.bfloat16(), ie.bfloat16()))
     say("kernel_bf16", name="mips_topk", max_abs_err=err_bf16)
-    mips("mips_topk", 52, max(err, err_bf16),
+    # a width that is not a multiple of 4 (zero-padded by the wrapper), from
+    # a generator of its own: the later cases keep their inputs (the leaf
+    # backward's check is sensitive to them, ROADMAP.md queue 3)
+    gen33 = torch.Generator(device=dev).manual_seed(seed + 33)
+    ue33 = l2_normalize(torch.randn(num_users, 33, generator=gen33, device=dev))
+    ie33 = l2_normalize(torch.randn(num_items, 33, generator=gen33, device=dev))
+    err_d33 = check_topk("mips_topk D=33", *tm.mips_topk(ue33, ie33, k),
+                         *tm.mips_topk_reference(ue33, ie33, k), dot_scores(ue33, ie33))
+    say("kernel_case", name="mips_topk", case="D=33", max_abs_err=err_d33)
+    mips("mips_topk", 52, max(err, err_bf16, err_d33),
            lambda: tm.mips_topk(ue, ie, k), lambda: tm.mips_topk_reference(ue, ie, k),
            lambda: torch.topk(ue @ ie.T, k, dim=1), flops, emb_bytes + topk_bytes)
 
@@ -453,18 +472,32 @@ def leaf_rows(dev, gen, record, k, p, f, h) -> None:
         say("kernel_split", name="leaf_mean_nn_bwd", **split)
 
 
+def pool_case(dev, gen, b, k, p, ids=30_000):
+    """Rows [B, K] of ids below ``ids``, -1 padded; a pool [P] whose first
+    entries are row 0's (some pairs hit; -1 never matches)."""
+    rows = torch.randint(0, ids, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    valid = torch.randint(0, k + 1, (b, 1), generator=gen, device=dev)
+    rows[torch.arange(k, device=dev)[None, :] >= valid] = -1
+    pool = torch.randint(0, ids, (p,), generator=gen, device=dev, dtype=torch.int32)
+    pool[: min(p, k)] = rows[0, : min(p, k)]
+    return rows, pool
+
+
 def pool_rows(dev, gen, record, b, k, p) -> None:
-    """``pool_membership_mask`` against its plain version: -1 padded rows,
-    the shape given and a ragged (B, P)."""
-    for bb, pp in ((b, p), (b - 24 if b > 24 else b, p - 60 if p > 60 else p)):
-        rows = torch.randint(0, 30_000, (bb, k), generator=gen, device=dev, dtype=torch.int32)
-        valid = torch.randint(0, k + 1, (bb, 1), generator=gen, device=dev)
-        rows[torch.arange(k, device=dev)[None, :] >= valid] = -1
-        pool = torch.randint(0, 30_000, (pp,), generator=gen, device=dev, dtype=torch.int32)
-        pool[: min(pp, k)] = rows[0, : min(pp, k)]  # some pairs hit; -1 never matches
+    """``pool_membership_mask`` against its plain version, bit for bit: -1
+    padded rows at the shape given, ragged (B, P), P = p - 3 (2557: a tail
+    that is not a whole 16-byte store), K = 128, and ids from 300 values (pool
+    entries and row slots repeat) with negative pool entries."""
+    cases = {"shape": (b, k, p), "ragged": (max(1, b - 24), k, max(1, p - 60)),
+             "P-3": (b, k, max(1, p - 3)), "K=128": (b, 128, p), "repeats": (b, k, p)}
+    for name, (bb, kk, pp) in cases.items():
+        rows, pool = pool_case(dev, gen, bb, kk, pp, 300 if name == "repeats" else 30_000)
+        if name == "repeats":
+            pool[::5] = -1 - pool[::5]
         out = pm.pool_membership_mask(rows, pool)
         if not torch.equal(out, pm.pool_membership_mask_reference(rows, pool)):
-            raise AssertionError(f"pool_membership_mask [{bb}, {k}, {pp}] differs")
+            raise AssertionError(f"pool_membership_mask {name} [{bb}, {kk}, {pp}] differs")
+    rows, pool = pool_case(dev, gen, b, k, p)
     # Compares the function needs: every valid slot of a row, per pool entry.
     compares = float(p) * float((rows >= 0).sum())
     record("pool_membership_mask", POOL, 31, 0.0, lambda: pm.pool_membership_mask(rows, pool),

@@ -1,51 +1,78 @@
 // Full-catalog maximum-inner-product top-k for Hopper (sm_90a).
 //
 // Replaces the three Pallas kernels of gnn_recsys_tpu/ops/pallas/topk_mips.py:
-//   * mips_topk           (_mips_kernel,  topk_mips.py:52)  -> MODE_TOPK
-//   * mips_topk_boosted   pass 1 (_lse_kernel,   :108)     -> MODE_LSE
-//   * mips_topk_boosted   pass 2 (_boost_kernel, :141)     -> MODE_BOOST
+//   * mips_topk           (_mips_kernel,  topk_mips.py:52)  -> topk_kernel
+//   * mips_topk_boosted   pass 1 (_lse_kernel,   :108)     -> mips_kernel, MODE_LSE
+//   * mips_topk_boosted   pass 2 (_boost_kernel, :141)     -> mips_kernel, MODE_BOOST
 //
-// What bounds it.  Ranking U users against I items at width D is 2*U*I*D
+// What bounds them.  Ranking U users against I items at width D is 2*U*I*D
 // floating-point operations (7.7e11 at the serving shape U=100k, I=30k,
-// D=128) and only O(U*D + I*D + U*k) bytes, so the kernel is bound by f32
+// D=128) and only O(U*D + I*D + U*k) bytes, so the kernels are bound by f32
 // FMA throughput (67 TFLOP/s on an H100 SXM), not by memory.  The scores
 // are f32 FMAs on the CUDA cores: no TF32 and no tensor cores, because a
 // truncated product reorders near-tied catalog rankings (the TPU kernel pins
 // Precision.HIGHEST for the same reason).  bf16 inputs are widened to f32
-// while they are staged, and accumulate in f32.
+// as they are read, and accumulate in f32.  Widths are a multiple of 4 (the
+// wrappers zero-pad), the kernels' copy and load granule.
 //
-// The simple design.  A block of 128 threads owns BU=64 users and one
-// contiguous range of the catalog; a loop over catalog tiles of BI=128 items
-// takes the place of the TPU's sequential grid axis.  Each tile's [BU, BI]
-// scores are an SGEMM-style register tile (8x8 scores a thread, D staged
-// through shared memory BK=32 dims at a time), written to a shared score
-// tile that reuses the staging space.  A thread flags each of its users
-// whose scores reach that user's current k-th value; a warp then merges only
-// the flagged users' rows into their running top-k, kept in shared memory
-// (and, for k <= 32, held in registers one entry a lane while a row merges)
-// and ordered by (value descending, index ascending).  A candidate enters only if it comes before
-// the current k-th entry in that order, so a list is the first k entries of
-// a stable descending sort (the lowest-index tie rule of _extract_topk).
-// Columns >= num_items never enter.
+// topk_kernel, the score tile of mips_topk.  A block of 256 threads owns
+// BU=128 users and one contiguous range of the catalog, walked in tiles of
+// BI=128 items; a thread holds an 8 x 8 register tile of scores, users
+// ty + 16p and items tx + 16q, so that a warp's fragment reads fall on
+// distinct banks.  The catalog streams through a ring of STAGES shared-memory
+// stages of BK=32 dims, copied with cp.async in its own row-major layout (4
+// dims of one row a copy: 16 bytes in f32, 8 in bf16; zero-filled past the
+// range and past D) while earlier stages are multiplied, one barrier a stage.
+// Fragments are read 4 dims of one row at a time, so nothing is transposed;
+// bf16 stays bf16 in shared memory and is widened when it is read.  The
+// block's users are copied once for the whole walk where shared memory holds
+// them (66 KB in f32 at D=128); otherwise they go through the ring beside
+// the items.  The epilogue works in registers: a thread compares its 64
+// scores with its users' current k-th values and sends only those that
+// reach them to the user's buffer in shared memory (the 16 lanes of a
+// half-warp share a user: a prefix sum of their counts and one shared atomic
+// place them).  For k <= 32 the buffer holds BUF=64 entries: the user's list,
+// then the candidates offered since.  Offers only append, so a tile costs
+// one barrier; when a buffer fills, its warp sorts it (a bitonic network over
+// 64 entries, two a lane, in registers) and keeps the k best, which also
+// raises the user's k-th value.  Every candidate that reaches a k-th value
+// needs an insert in a list kept in order, one at a time a user; a buffer
+// needs one sort for every 32 or more of them.  For
+// k > 32 a warp merges up to CAP candidates a user at a time into its list
+// in the block's row of the partial lists in device memory.  A list is the
+// first k entries of the order (value descending, index ascending), that of a
+// stable
+// descending sort (the lowest-index tie rule of _extract_topk); columns
+// >= num_items never enter.
 //
-// When there are too few user blocks to fill the card (a request of a few
-// thousand users is 64 blocks on 132 SMs), the catalog is split into S
-// contiguous ranges, one block column each; each block writes its partial
-// list (or its partial max / sum-exp for MODE_LSE) and a second small kernel
-// merges the S partials per user under the same order, which stays exact.
+// Catalog splits.  When there are too few user blocks to fill the card (a
+// request of a few thousand users is 32 blocks on 132 SMs), the catalog is
+// split into S contiguous ranges, one block column each; each block writes
+// its partial list (or its partial max / sum-exp for MODE_LSE) and a second
+// small kernel merges the S partials per user under the same order, which
+// stays exact.
+//
+// mips_kernel, the first design, still runs both passes of the boosted
+// top-k: 128 threads own 64 users; each 32-dim chunk of both operands is
+// staged synchronously (transposed), each tile's scores go through a shared
+// score tile, and flagged users' rows merge into lists in shared memory.
 // MODE_LSE keeps an online max and sum-exp per user; MODE_BOOST re-scores
 // each tile as exp(s - m) / sum + w * pop[i] and runs the same top-k merge.
-//
-// Left for later work: wgmma for bf16, TMA staging with an mbarrier ring,
-// warp specialisation, and double buffering of the staged chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMEM_LIMIT = 232448; // bytes of shared memory a block may use
+constexpr int MIN_SPLIT_TILES = 4; // catalog tiles per split, at least
+constexpr int MERGE_WARPS = 4;     // users per block of the merge kernel
+
+// mips_kernel (the boosted passes)
 constexpr int BU = 64;             // users per block
 constexpr int BI = 128;            // catalog items per tile
 constexpr int BK = 32;             // embedding dims per staged chunk
@@ -54,12 +81,8 @@ constexpr int NWARPS = THREADS / 32;
 constexpr int A_STRIDE = BU + 4;   // floats per staged user row (16-byte aligned)
 constexpr int B_STRIDE = BI + 4;   // floats per staged item row
 constexpr int S_STRIDE = BI + 1;   // floats per score-tile row
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_LIMIT = 232448; // bytes of shared memory a block may use
-constexpr int MIN_SPLIT_TILES = 4; // catalog tiles per split, at least
-constexpr int MERGE_WARPS = 4;     // users per block of the merge kernel
 
-enum { MODE_TOPK = 0, MODE_LSE = 1, MODE_BOOST = 2 };
+enum { MODE_LSE = 1, MODE_BOOST = 2 };
 
 // The score tile reuses the staging buffers' space (they are idle while
 // it lives), so four blocks fit on an SM at the serving k.
@@ -67,6 +90,22 @@ constexpr int STAGE_FLOATS = BK * A_STRIDE + BK * B_STRIDE;
 constexpr int TILE_FLOATS = STAGE_FLOATS > BU * S_STRIDE ? STAGE_FLOATS : BU * S_STRIDE;
 constexpr int fixed_smem_bytes() { return (TILE_FLOATS + 5 * BU) * 4; }
 constexpr int MAX_K = ((SMEM_LIMIT - fixed_smem_bytes()) / (BU * 8)) / 32 * 32;
+
+// topk_kernel
+namespace tk {
+constexpr int BU = 128;            // users per block
+constexpr int BI = 128;            // catalog items per tile
+constexpr int BK = 32;             // embedding dims per ring stage
+constexpr int TY = BU / 8;         // thread rows: users ty + TY * p
+constexpr int THREADS = 16 * TY;   // 16 x TY threads, 8 x 8 scores each
+constexpr int NWARPS = THREADS / 32;
+constexpr int STAGES = 3;          // ring stages in flight
+constexpr int BUF = 64;            // a user's buffer: its list, then new candidates
+constexpr int CAP = 32;            // candidate slots a user between merges, k > SHARED_K
+constexpr int SHARED_K = 32;       // largest k whose lists live in the buffer
+constexpr int LDK = BK + 4;        // elements a staged row: an odd count of 4-element groups
+constexpr int MAX_K = 1024;        // the merge kernel holds 4 lists of k in shared memory
+}  // namespace tk
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -108,8 +147,8 @@ __device__ __forceinline__ bool before(float v, int i, float pv, int pi) {
 }
 
 // Merge 32 candidates (one per lane; `valid` marks real ones) into a
-// running top-k (lv, li; n valid entries, n uniform across the warp).
-// Called by a whole warp; returns the new n.
+// running top-k (lv, li; n valid entries, n uniform across the warp), in
+// shared or device memory.  Called by a whole warp; returns the new n.
 __device__ __forceinline__ int merge_chunk(float* lv, int* li, int n, int k,
                                            float v, int idx, bool valid, int lane) {
   bool pass = valid;
@@ -187,6 +226,374 @@ __device__ __forceinline__ int merge_chunk_reg(float& lv, int& li, int n, int k,
   return n;
 }
 
+// Sort 64 (value, index) pairs held two a lane (entry lane and lane + 32)
+// into the list order (value descending, index ascending): a bitonic
+// network of 21 compare-exchange steps.  Called by a whole warp.
+__device__ __forceinline__ void sort64(float (&v)[2], int (&id)[2], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 64; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // the pair (lane, lane + 32) lies in one lane
+        if (before(v[1], id[1], v[0], id[0])) {
+          const float tv = v[0];
+          const int ti = id[0];
+          v[0] = v[1];
+          id[0] = id[1];
+          v[1] = tv;
+          id[1] = ti;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = lane + 32 * h;
+        const float pv = __shfl_xor_sync(FULL, v[h], stride);
+        const int pi = __shfl_xor_sync(FULL, id[h], stride);
+        // The lower entry of a pair takes the one that comes first where
+        // its block of `size` runs in list order, the later one elsewhere.
+        const bool first = ((e & stride) == 0) == ((e & size) == 0);
+        if (first ? before(pv, pi, v[h], id[h]) : before(v[h], id[h], pv, pi)) {
+          v[h] = pv;
+          id[h] = pi;
+        }
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
+// topk_kernel
+// ----------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One cp.async of BYTES (16: f32, 8: bf16), zero-filled when !valid.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+                 "n"(BYTES), "r"(n));
+}
+
+// Copy rows [row0, row0 + nrows) x dims [d0, d0 + ncols) of a row-major
+// [*, D] matrix into dst[r * ld + c], 4 elements a copy, zero-filled at rows
+// >= row_end and dims >= D.
+// NCOLS: ncols known at compile time (0: read ncols).
+template <int NCOLS, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* __restrict__ src, int row0,
+                                          int nrows, int row_end, int d0, int ncols, int D) {
+  const int groups = (NCOLS ? NCOLS : ncols) / 4;
+  for (int g = threadIdx.x; g < nrows * groups; g += tk::THREADS) {
+    const int r = g / groups;
+    const int c = (g - r * groups) * 4;
+    const bool ok = row0 + r < row_end && d0 + c < D;
+    cp_async<4 * sizeof(T)>(dst + r * ld + c, ok ? src + (size_t)(row0 + r) * D + d0 + c : src,
+                            ok);
+  }
+}
+
+// Elements a row of the resident user block: D rounded up to BK, then to an
+// odd count of 4-element groups, so that neighbouring users' fragment reads
+// fall on distinct banks.
+__host__ __device__ inline int tk_user_stride(int D) {
+  const int padded = (D + tk::BK - 1) / tk::BK * tk::BK;
+  return 4 * ((padded / 4) | 1);
+}
+
+// Shared-memory bytes: a ring stage, the resident users, and the whole block
+// (ring, users, the per-user buffers, per-user counters).
+struct TkLayout {
+  int stage;
+  int users;
+  int total;
+};
+
+__host__ __device__ inline TkLayout tk_layout(int D, int esize, int resident) {
+  TkLayout L;
+  L.stage = (tk::BI + (resident ? 0 : tk::BU)) * tk::LDK * esize;
+  L.users = resident ? tk::BU * tk_user_stride(D) * esize : 0;
+  L.total = tk::STAGES * L.stage + L.users + tk::BU * tk::BUF * 8 + 3 * tk::BU * 4;
+  return L;
+}
+
+// Scores users [u0, u0 + BU) against catalog range [i_begin, i_end) and
+// writes the range's top-k per user to part_vals / part_idx [split][user][k]
+// (idx -1 past the range's item count).  SHARED_LIST: k <= SHARED_K.
+template <typename T, bool SHARED_LIST>
+__global__ void __launch_bounds__(tk::THREADS, 1)
+topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_users,
+            int num_items, int D, int k, int split_items, int resident,
+            float* __restrict__ part_vals, int* __restrict__ part_idx) {
+  constexpr int BU = tk::BU, BI = tk::BI, BK = tk::BK, TY = tk::TY, THREADS = tk::THREADS;
+  constexpr int NWARPS = tk::NWARPS, STAGES = tk::STAGES, CAP = tk::CAP, LDK = tk::LDK;
+  constexpr int BUF = tk::BUF;
+  extern __shared__ __align__(16) unsigned char tsmem[];
+  const TkLayout L = tk_layout(D, sizeof(T), resident);
+  T* ring = reinterpret_cast<T*>(tsmem);
+  const int stage_elems = L.stage / static_cast<int>(sizeof(T));
+  T* us = reinterpret_cast<T*>(tsmem + STAGES * L.stage);          // [BU][ldu], resident
+  // A user's buffer: with SHARED_LIST its list (the first cnt entries,
+  // sorted) and then the candidates offered since (ccnt entries in all);
+  // else the candidates offered since the last merge.
+  float* buf_v = reinterpret_cast<float*>(tsmem + STAGES * L.stage + L.users);  // [BU][BUF]
+  int* buf_i = reinterpret_cast<int*>(buf_v + BU * BUF);          // [BU][BUF]
+  int* ccnt = buf_i + BU * BUF;                                   // [BU] entries offered
+  float* thr = reinterpret_cast<float*>(ccnt + BU);               // [BU] k-th value, -inf until k
+  int* cnt = reinterpret_cast<int*>(thr + BU);                    // [BU] list entries
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tx = tid & 15;  // items tx + 16q of a tile
+  const int ty = tid >> 4;  // users ty + TY * p of the block
+  const int u0 = blockIdx.x * BU;
+  const int split = blockIdx.y;
+  const int i_begin = split * split_items;
+  const int i_end = min(num_items, i_begin + split_items);
+  const int nchunks = (D + BK - 1) / BK;
+  const int total = (i_end - i_begin + BI - 1) / BI * nchunks;  // ring stages of the walk
+  const int ldu = resident ? tk_user_stride(D) : LDK;
+
+  for (int r = tid; r < BU; r += THREADS) {
+    ccnt[r] = 0;
+    cnt[r] = 0;
+    thr[r] = -INFINITY;
+  }
+  if (resident) copy_rows<0>(us, ldu, users, u0, BU, num_users, 0, nchunks * BK, D);
+  // Stage s holds tile s / nchunks, dims (s % nchunks) * BK onward; a
+  // commit group a stage (empty past the walk), the users in the first.
+  auto issue = [&](int s) {
+    if (s < total) {
+      T* st = ring + (s % STAGES) * stage_elems;
+      const int d0 = (s % nchunks) * BK;
+      copy_rows<BK>(st, LDK, items, i_begin + (s / nchunks) * BI, BI, i_end, d0, BK, D);
+      if (!resident) copy_rows<BK>(st + BI * LDK, LDK, users, u0, BU, num_users, d0, BK, D);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s is in; every thread is done with stage s - 1
+    issue(s + STAGES - 1);
+    const int c = s % nchunks;
+    const T* bs = ring + (s % STAGES) * stage_elems + tx * LDK;
+    const T* as = (resident ? us + c * BK : ring + (s % STAGES) * stage_elems + BI * LDK) +
+                  ty * ldu;
+    const int astep = TY * ldu;
+#pragma unroll
+    for (int g = 0; g < BK / 4; ++g) {
+      float4 a[8], b[8];
+#pragma unroll
+      for (int p = 0; p < 8; ++p) a[p] = load4(as + p * astep + 4 * g);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) b[q] = load4(bs + q * 16 * LDK + 4 * g);
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p].x, b[q].x, acc[p][q]);
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p].y, b[q].y, acc[p][q]);
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p].z, b[q].z, acc[p][q]);
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p].w, b[q].w, acc[p][q]);
+    }
+    if (c != nchunks - 1) continue;
+
+    // Epilogue: scores that reach their user's k-th value, bit 8p + q.
+    const int i0 = i_begin + (s / nchunks) * BI;
+    unsigned long long pend = 0ull;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const float t = thr[ty + TY * p];
+      const bool uok = u0 + ty + TY * p < num_users;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (uok && i0 + tx + 16 * q < i_end && acc[p][q] >= t) pend |= 1ull << (8 * p + q);
+    }
+    while (true) {
+      // Offer: the 16 lanes of a half-warp hold the tile's scores of users
+      // ty + TY * p.  Their counts, a byte a user, take one prefix sum over
+      // the half-warp (sums stay under 256), and its first lane reserves
+      // each user's slots with one atomic (a user's count before an offer is
+      // at most BUF, so a byte holds every start position too).
+      const unsigned long long offer_bits = pend;
+      bool offered = false;
+      if (__any_sync(FULL, pend != 0ull)) {
+        unsigned long long mine = 0ull;
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+          mine |= static_cast<unsigned long long>(
+                      __popc(static_cast<unsigned>(pend >> (8 * p)) & 0xffu)) << (8 * p);
+        unsigned long long incl = mine;
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) {
+          const unsigned long long y = __shfl_up_sync(FULL, incl, off, 16);
+          if ((lane & 15) >= off) incl += y;
+        }
+        const unsigned long long offers = __shfl_sync(FULL, incl, 15, 16);
+        unsigned long long base = 0ull;
+        if ((lane & 15) == 0) {
+#pragma unroll
+          for (int p = 0; p < 8; ++p) {
+            const int n = static_cast<int>(offers >> (8 * p)) & 0xff;
+            if (n)
+              base |= static_cast<unsigned long long>(atomicAdd(&ccnt[ty + TY * p], n))
+                      << (8 * p);
+          }
+        }
+        base = __shfl_sync(FULL, base, 0, 16) + (incl - mine);  // bytewise: no carries
+        offered = mine != 0ull;
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          const int r = ty + TY * p;
+          int pos = static_cast<int>(base >> (8 * p)) & 0xff;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (!((offer_bits >> (8 * p + q)) & 1ull)) continue;
+            if (pos < (SHARED_LIST ? BUF : CAP)) {  // else it stays pending
+              buf_v[r * BUF + pos] = acc[p][q];
+              buf_i[r * BUF + pos] = i0 + tx + 16 * q;
+              pend &= ~(1ull << (8 * p + q));
+            }
+            ++pos;
+          }
+        }
+      }
+      if constexpr (SHARED_LIST) {
+        // Offers only append; a tile whose offers all found room is done.
+        if (!__syncthreads_or(pend != 0ull)) break;
+        // Some buffer is full: each warp sorts its users' fuller buffers
+        // (users warp + NWARPS * j) and cuts each back to its k best.
+        const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
+        unsigned todo = __ballot_sync(FULL, mine > BUF - 16);
+        while (todo) {
+          const int j = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int r = warp + NWARPS * j;
+          const int n = min(__shfl_sync(FULL, mine, j), BUF);
+          float v[2];
+          int id[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = lane + 32 * h;
+            v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
+            id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
+          }
+          sort64(v, id, lane);
+          const int kept = min(n, k);
+          if (lane < kept) {
+            buf_v[r * BUF + lane] = v[0];
+            buf_i[r * BUF + lane] = id[0];
+          }
+          const float kth = __shfl_sync(FULL, v[0], k - 1);
+          if (lane == 0) {
+            ccnt[r] = kept;
+            thr[r] = kept == k ? kth : -INFINITY;
+          }
+        }
+        __syncthreads();
+      } else {
+        if (!__syncthreads_or(offered)) break;  // no candidate: the tile is done
+        // A warp merges the candidates of its users (warp + NWARPS * j, lane
+        // j reads user j's count) into their lists in device memory.
+        const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
+        unsigned todo = __ballot_sync(FULL, mine > 0);
+        while (todo) {
+          const int j = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int r = warp + NWARPS * j;
+          const int nc = min(__shfl_sync(FULL, mine, j), CAP);
+          const bool valid = lane < nc;
+          const float cv = valid ? buf_v[r * BUF + lane] : -INFINITY;
+          const int ci = valid ? buf_i[r * BUF + lane] : -1;
+          const size_t row = ((size_t)split * num_users + u0 + r) * k;
+          const int n = merge_chunk(part_vals + row, part_idx + row, cnt[r], k, cv, ci, valid,
+                                    lane);
+          if (lane == 0) {
+            cnt[r] = n;
+            ccnt[r] = 0;
+            thr[r] = n == k ? part_vals[row + k - 1] : -INFINITY;
+          }
+        }
+        // Lists, thresholds and counters are settled; offers that found a
+        // full buffer are filtered again and offered in another round.
+        if (!__syncthreads_or(pend != 0ull)) break;
+      }
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const float t = thr[ty + TY * p];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (!(acc[p][q] >= t)) pend &= ~(1ull << (8 * p + q));
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  }
+  __syncthreads();
+
+  for (int r = warp; r < BU; r += NWARPS) {
+    const int u = u0 + r;
+    if (u >= num_users) continue;
+    const size_t row = ((size_t)split * num_users + u) * k;
+    if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
+      const int n = min(ccnt[r], BUF);
+      float v[2];
+      int id[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = lane + 32 * h;
+        v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
+        id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
+      }
+      sort64(v, id, lane);
+      if (lane < k) {
+        part_vals[row + lane] = lane < n ? v[0] : -INFINITY;
+        part_idx[row + lane] = lane < n ? id[0] : -1;
+      }
+    } else {
+      for (int p = cnt[r] + lane; p < k; p += 32) {
+        part_vals[row + p] = -INFINITY;
+        part_idx[row + p] = -1;
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
+// mips_kernel (the boosted passes)
+// ----------------------------------------------------------------------
+
 // Merge one user's BI-wide score row into its list in shared memory.
 __device__ __forceinline__ int merge_row(float* ulv, int* uli, int n, int k,
                                          const float* srow, int i0, int i_end, int lane) {
@@ -214,9 +621,9 @@ __device__ __forceinline__ int merge_row(float* ulv, int* uli, int n, int k,
 }
 
 // Scores users [u0, u0 + BU) against catalog range [i_begin, i_end).
-// MODE_TOPK / MODE_BOOST write the range's top-k per user to part_vals /
-// part_idx [split][user][k] (idx -1 past the range's item count);
-// MODE_LSE writes the range's max and sum-exp to part_m / part_s [split][user].
+// MODE_BOOST writes the range's top-k per user to part_vals / part_idx
+// [split][user][k] (idx -1 past the range's item count); MODE_LSE writes
+// the range's max and sum-exp to part_m / part_s [split][user].
 template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
 mips_kernel(const T* __restrict__ users, const T* __restrict__ items,
@@ -255,7 +662,7 @@ mips_kernel(const T* __restrict__ users, const T* __restrict__ items,
     if (MODE == MODE_LSE) {
       row_m[r] = -INFINITY;
       row_s[r] = 0.f;
-    } else if (MODE == MODE_BOOST) {
+    } else {
       row_m[r] = u < num_users ? m_in[u] : 0.f;
       row_s[r] = u < num_users ? s_in[u] : 1.f;
     }
@@ -375,6 +782,10 @@ mips_kernel(const T* __restrict__ users, const T* __restrict__ items,
   }
 }
 
+// ----------------------------------------------------------------------
+// Combining the catalog splits
+// ----------------------------------------------------------------------
+
 // One warp per user: merge the S partial lists (splits in catalog order)
 // into the final top-k.
 __global__ void __launch_bounds__(MERGE_WARPS * 32)
@@ -432,34 +843,72 @@ __global__ void lse_combine_kernel(const float* __restrict__ part_m,
   s_out[u] = sum;
 }
 
-int smem_bytes(int k) { return fixed_smem_bytes() + BU * k * 8; }
-
-template <typename T, int MODE>
-cudaError_t configure(int k, int* blocks_per_sm) {
-  const int smem = smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      mips_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, mips_kernel<T, MODE>,
-                                                       THREADS, smem);
-}
+// ----------------------------------------------------------------------
+// Host side
+// ----------------------------------------------------------------------
 
 // Catalog splits: as many block columns as fit in one wave of resident
 // blocks (a second, nearly empty wave would cost as much as the first),
 // each at least MIN_SPLIT_TILES tiles long.
-template <typename T, int MODE>
-int num_splits(int num_users, int num_items, int k) {
-  int blocks_per_sm = 1, device = 0, sms = 1;
-  if (configure<T, MODE>(k, &blocks_per_sm) != cudaSuccess) return 1;
+int split_count(int user_blocks, int tiles, int blocks_per_sm) {
+  int device = 0, sms = 1;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int user_blocks = (num_users + BU - 1) / BU;
-  const int tiles = (num_items + BI - 1) / BI;
   const int target = max(1, sms * max(blocks_per_sm, 1));
   int splits = target / user_blocks;
   splits = max(1, min(splits, tiles / MIN_SPLIT_TILES));
   const int tiles_per_split = (tiles + splits - 1) / splits;
   return (tiles + tiles_per_split - 1) / tiles_per_split;
+}
+
+// Sets the dynamic shared memory of a kernel and reads its occupancy.
+template <typename K>
+cudaError_t configure(K kernel, int threads, int smem, int* blocks_per_sm) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem);
+}
+
+template <typename T>
+cudaError_t tk_configure(int D, int k, int resident, int* blocks_per_sm) {
+  const int smem = tk_layout(D, sizeof(T), resident).total;
+  return k <= tk::SHARED_K ? configure(topk_kernel<T, true>, tk::THREADS, smem, blocks_per_sm)
+                           : configure(topk_kernel<T, false>, tk::THREADS, smem, blocks_per_sm);
+}
+
+template <typename T>
+cudaError_t tk_launch(const void* users, const void* items, int num_users, int num_items,
+                      int D, int k, int resident, int splits, void* part_vals,
+                      void* part_idx, cudaStream_t stream) {
+  int blocks_per_sm = 0;
+  cudaError_t err = tk_configure<T>(D, k, resident, &blocks_per_sm);
+  if (err != cudaSuccess) return err;
+  const int tiles = (num_items + tk::BI - 1) / tk::BI;
+  const int split_items = ((tiles + splits - 1) / splits) * tk::BI;
+  const dim3 grid((num_users + tk::BU - 1) / tk::BU, splits);
+  const int smem = tk_layout(D, sizeof(T), resident).total;
+  const T* u = static_cast<const T*>(users);
+  const T* it = static_cast<const T*>(items);
+  float* pv = static_cast<float*>(part_vals);
+  int* pi = static_cast<int*>(part_idx);
+  if (k <= tk::SHARED_K)
+    topk_kernel<T, true><<<grid, tk::THREADS, smem, stream>>>(
+        u, it, num_users, num_items, D, k, split_items, resident, pv, pi);
+  else
+    topk_kernel<T, false><<<grid, tk::THREADS, smem, stream>>>(
+        u, it, num_users, num_items, D, k, split_items, resident, pv, pi);
+  return cudaGetLastError();
+}
+
+int smem_bytes(int k) { return fixed_smem_bytes() + BU * k * 8; }
+
+template <typename T, int MODE>
+int num_splits(int num_users, int num_items, int k) {
+  int blocks_per_sm = 1;
+  if (configure(mips_kernel<T, MODE>, THREADS, smem_bytes(k), &blocks_per_sm) != cudaSuccess)
+    return 1;
+  return split_count((num_users + BU - 1) / BU, (num_items + BI - 1) / BI, blocks_per_sm);
 }
 
 template <typename T, int MODE>
@@ -469,7 +918,7 @@ cudaError_t launch_main(const void* users, const void* items, int num_users,
                         void* part_vals, void* part_idx, void* part_m, void* part_s,
                         cudaStream_t stream) {
   int blocks_per_sm = 0;
-  cudaError_t err = configure<T, MODE>(k, &blocks_per_sm);
+  cudaError_t err = configure(mips_kernel<T, MODE>, THREADS, smem_bytes(k), &blocks_per_sm);
   if (err != cudaSuccess) return err;
   const int tiles = (num_items + BI - 1) / BI;
   const int split_items = ((tiles + splits - 1) / splits) * BI;
@@ -503,33 +952,45 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Largest k the top-k kernels take (the running lists live in shared memory).
-int mips_max_k() { return MAX_K; }
+// Largest k the top-k kernels take: the smaller of mips_kernel's (its
+// running lists live in shared memory) and topk_kernel's.
+int mips_max_k() { return MAX_K < tk::MAX_K ? MAX_K : tk::MAX_K; }
+
+// Shared-memory bytes of a topk_kernel launch (the host plans with a mirror
+// of this layout and picks resident users where they fit).
+int mips_topk_smem_bytes(int D, int bf16, int resident) {
+  return tk_layout(D, bf16 ? 2 : 4, resident).total;
+}
 
 // Number of catalog splits a launch with these sizes uses; the caller sizes
 // the partial buffers ([splits][num_users][k], or [splits][num_users]).
+int mips_topk_splits(int num_users, int num_items, int D, int k, int resident, int bf16) {
+  int blocks_per_sm = 1;
+  const cudaError_t err = bf16 ? tk_configure<__nv_bfloat16>(D, k, resident, &blocks_per_sm)
+                               : tk_configure<float>(D, k, resident, &blocks_per_sm);
+  if (err != cudaSuccess) return 1;
+  return split_count((num_users + tk::BU - 1) / tk::BU, (num_items + tk::BI - 1) / tk::BI,
+                     blocks_per_sm);
+}
+
 int mips_num_splits(int num_users, int num_items, int k, int mode, int bf16) {
   if (mode == MODE_LSE)
     return bf16 ? num_splits<__nv_bfloat16, MODE_LSE>(num_users, num_items, 0)
                 : num_splits<float, MODE_LSE>(num_users, num_items, 0);
-  if (mode == MODE_BOOST)
-    return bf16 ? num_splits<__nv_bfloat16, MODE_BOOST>(num_users, num_items, k)
-                : num_splits<float, MODE_BOOST>(num_users, num_items, k);
-  return bf16 ? num_splits<__nv_bfloat16, MODE_TOPK>(num_users, num_items, k)
-              : num_splits<float, MODE_TOPK>(num_users, num_items, k);
+  return bf16 ? num_splits<__nv_bfloat16, MODE_BOOST>(num_users, num_items, k)
+              : num_splits<float, MODE_BOOST>(num_users, num_items, k);
 }
 
 int mips_topk_launch(const void* users, const void* items, int num_users, int num_items,
-                     int D, int k, int bf16, int splits, void* part_vals, void* part_idx,
-                     void* out_vals, void* out_idx, void* stream) {
+                     int D, int k, int bf16, int resident, int splits, void* part_vals,
+                     void* part_idx, void* out_vals, void* out_idx, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D % 4 || k < 1 || k > mips_max_k()) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      bf16 ? launch_main<__nv_bfloat16, MODE_TOPK>(users, items, num_users, num_items, D, k,
-                                                   splits, nullptr, 0.f, nullptr, nullptr,
-                                                   part_vals, part_idx, nullptr, nullptr, st)
-           : launch_main<float, MODE_TOPK>(users, items, num_users, num_items, D, k, splits,
-                                           nullptr, 0.f, nullptr, nullptr, part_vals,
-                                           part_idx, nullptr, nullptr, st);
+      bf16 ? tk_launch<__nv_bfloat16>(users, items, num_users, num_items, D, k, resident,
+                                      splits, part_vals, part_idx, st)
+           : tk_launch<float>(users, items, num_users, num_items, D, k, resident, splits,
+                              part_vals, part_idx, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_vals, part_idx, splits, num_users, k, out_vals, out_idx, st);
 }

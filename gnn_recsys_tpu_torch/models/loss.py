@@ -24,6 +24,15 @@ from gnn_recsys_tpu_torch.graph.hetero import CanonicalEtype
 Scores = Dict[CanonicalEtype, torch.Tensor]
 
 
+def _zero(*score_dicts: Optional[Scores]) -> torch.Tensor:
+    """The loss of no scores: a 0-d f32 zero (JAX's 0 / max(0, 1)), on the
+    device of the first tensor given, or on the CPU when none is."""
+    for d in score_dicts:
+        for t in (d or {}).values():
+            return torch.zeros((), dtype=torch.float32, device=t.device)
+    return torch.zeros((), dtype=torch.float32)
+
+
 def max_margin_loss(
     pos_score: Scores,
     neg_score: Scores,
@@ -53,7 +62,7 @@ def max_margin_loss(
         total = scores.sum() if total is None else total + scores.sum()
         count = n if count is None else count + n
     if total is None:
-        raise ValueError("no scores")
+        return _zero(pos_score, negative_mask, recency_scores, pair_mask)
     return total / count.clamp(min=1.0)
 
 
@@ -84,5 +93,5 @@ def sampled_softmax_loss(
         total = (nll * w).sum() if total is None else total + (nll * w).sum()
         wsum = w.sum() if wsum is None else wsum + w.sum()
     if total is None:
-        raise ValueError("no scores")
+        return _zero(pos_score, negative_mask, recency_scores, pair_mask)
     return total / wsum.clamp(min=1e-9)

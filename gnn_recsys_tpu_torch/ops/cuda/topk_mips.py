@@ -2,7 +2,7 @@
 
 Port of ``gnn_recsys_tpu/ops/pallas/topk_mips.py``.  The kernels live in
 ``gnn_recsys_tpu_torch/csrc/topk_mips.cu`` (its header says what bounds them
-and how the simple design works):
+and how each design works):
 
 * :func:`mips_topk` — per user, the top-``k`` of ``u . i`` over the whole
   catalog (TPU ``mips_topk``).
@@ -15,15 +15,16 @@ and how the simple design works):
 Ties go to the lowest item index (the TPU kernel's rule), so every plain
 version selects with a stable descending sort; ``torch.topk`` does not
 promise that order.  A wrapper takes the plain version only when its tensors
-lie on the CPU; for CUDA tensors it launches the kernel or raises.  Each
-wrapper counts its launches in a plain integer attribute ``.launches``.
+lie on the CPU; for CUDA tensors it launches the kernel or raises (at any
+width: :func:`kernel_inputs` zero-pads it to a multiple of 4).  Each wrapper
+counts its launches in a plain integer attribute ``.launches``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -41,7 +42,12 @@ def _lib() -> ctypes.CDLL:
         lib.mips_max_k.restype = _I
         lib.mips_num_splits.argtypes = [_I, _I, _I, _I, _I]
         lib.mips_num_splits.restype = _I
-        lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.mips_topk_smem_bytes.argtypes = [_I, _I, _I]
+        lib.mips_topk_smem_bytes.restype = _I
+        lib.mips_topk_splits.argtypes = [_I, _I, _I, _I, _I, _I]
+        lib.mips_topk_splits.restype = _I
+        lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                         _P]
         lib.mips_topk_launch.restype = _I
         lib.mips_lse_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.mips_lse_launch.restype = _I
@@ -49,6 +55,14 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
         ]
         lib.mips_boost_launch.restype = _I
+        for d in (36, 128, 256):  # the host's plan must be the kernel's
+            for bf16 in (False, True):
+                for resident in (False, True):
+                    got = lib.mips_topk_smem_bytes(d, int(bf16), int(resident))
+                    if got != topk_smem_bytes(d, bf16, resident):
+                        raise RuntimeError(f"topk_mips.cu plans {got} bytes at D={d}, "
+                                           f"bf16={bf16}, resident={resident}; the host "
+                                           f"{topk_smem_bytes(d, bf16, resident)}")
         lib._typed = True
     return lib
 
@@ -56,6 +70,42 @@ def _lib() -> ctypes.CDLL:
 def max_k() -> int:
     """Largest ``k`` the CUDA top-k kernels take (builds the library)."""
     return int(_lib().mips_max_k())
+
+
+# The shared-memory layout of the mips_topk kernel (csrc/topk_mips.cu,
+# tk_layout): users and catalog items a block and a tile, dims a ring stage,
+# ring stages, entries of a user's buffer.
+_TK_BU, _TK_BI, _TK_BK, _TK_STAGES, _TK_BUF = 128, 128, 32, 3, 64
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use
+
+
+class TopkPlan(NamedTuple):
+    """A mips_topk launch: whether the block's users stay in shared memory
+    for the whole catalog walk (else they stream through the ring beside the
+    items), and the block's shared-memory bytes."""
+
+    resident_users: bool
+    smem_bytes: int
+
+
+def topk_smem_bytes(d: int, bf16: bool, resident_users: bool) -> int:
+    """Shared-memory bytes of a mips_topk block at width ``d`` (a multiple of
+    4): the ring, the resident users, the per-user buffers (list and
+    candidates) and three per-user counters."""
+    esize = 2 if bf16 else 4
+    ldk = _TK_BK + 4
+    stage = (_TK_BI + (0 if resident_users else _TK_BU)) * ldk * esize
+    padded = -(-d // _TK_BK) * _TK_BK
+    users = _TK_BU * 4 * ((padded // 4) | 1) * esize if resident_users else 0
+    return _TK_STAGES * stage + users + _TK_BU * _TK_BUF * 8 + 3 * _TK_BU * 4
+
+
+def topk_plan(d: int, bf16: bool) -> TopkPlan:
+    """Resident users where they fit in a block's shared memory."""
+    resident = topk_smem_bytes(d, bf16, True)
+    if resident <= SMEM_LIMIT:
+        return TopkPlan(True, resident)
+    return TopkPlan(False, topk_smem_bytes(d, bf16, False))
 
 
 # ----------------------------------------------------------------------
@@ -150,19 +200,31 @@ def mips_topk_boosted_reference(user_emb, item_emb, popularity, k: int,
 # Wrappers
 # ----------------------------------------------------------------------
 
-def _kernel_input(x: torch.Tensor, bf16: bool) -> torch.Tensor:
-    x = x.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
-    if x.data_ptr() % 16:  # the kernel reads 16-byte (f32) / 8-byte (bf16) groups
-        x = x.clone()
-    return x
+def kernel_inputs(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                  bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both embedding matrices as the kernels read them: in the working type,
+    contiguous, 16-byte aligned, and zero-padded on the right to a width that
+    is a multiple of 4 (the kernels copy and load 4 dims of a row at a time).
+    A zero column adds exactly 0 to every product, so no score changes."""
+    pad = -user_emb.shape[1] % 4
+    out = []
+    for x in (user_emb, item_emb):
+        x = x.to(torch.bfloat16 if bf16 else torch.float32)
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        out.append(x)
+    return out[0], out[1]
 
 
-def _check_shapes(user_emb, item_emb, k=None) -> Tuple[int, int, int]:
+def _check_shapes(user_emb, item_emb, k=None) -> Tuple[int, int]:
     if user_emb.dim() != 2 or item_emb.dim() != 2:
         raise ValueError("user_emb and item_emb must be 2-D")
     (num_users, d), (num_items, d_i) = user_emb.shape, item_emb.shape
-    if d != d_i or d == 0 or d % 4:
-        raise ValueError(f"embedding widths must match and be a multiple of 4, got {d}, {d_i}")
+    if d != d_i or d == 0:
+        raise ValueError(f"embedding widths must match and be positive, got {d}, {d_i}")
     if num_items == 0:
         raise ValueError("empty catalog")
     if k is not None:
@@ -170,24 +232,23 @@ def _check_shapes(user_emb, item_emb, k=None) -> Tuple[int, int, int]:
             raise ValueError(f"k={k} must be in [1, num_items={num_items}]")
         if k > max_k():
             raise ValueError(f"k={k} exceeds the CUDA kernel's limit {max_k()}")
-    return num_users, num_items, d
+    return num_users, num_items
 
 
-# Kernel modes of csrc/topk_mips.cu.
-_TOPK, _LSE, _BOOST = 0, 1, 2
+# Modes of csrc/topk_mips.cu's mips_kernel.
+_LSE, _BOOST = 1, 2
 
 
-def _partials(lib, mode: int, num_users: int, num_items: int, k: int, bf16: bool, dev):
-    """(splits, partial buffers) for one launch: the kernel splits the
-    catalog into block columns when the users alone cannot fill the card."""
-    splits = lib.mips_num_splits(num_users, num_items, k, mode, int(bf16))
-    if mode == _LSE:
+def _partials(splits: int, num_users: int, k: int, dev):
+    """Partial buffers for ``splits`` block columns of the catalog: (max,
+    sum-exp) [splits, U] for ``k`` = 0, else top-k lists [splits, U, k]."""
+    if not k:
         shape = (splits, num_users)
-        return splits, (torch.empty(shape, dtype=torch.float32, device=dev),
-                        torch.empty(shape, dtype=torch.float32, device=dev))
+        return (torch.empty(shape, dtype=torch.float32, device=dev),
+                torch.empty(shape, dtype=torch.float32, device=dev))
     shape = (splits, num_users, k)
-    return splits, (torch.empty(shape, dtype=torch.float32, device=dev),
-                    torch.empty(shape, dtype=torch.int32, device=dev))
+    return (torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev))
 
 
 def mips_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
@@ -200,18 +261,21 @@ def mips_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     """
     if build.on_cpu(user_emb, item_emb):
         return mips_topk_reference(user_emb, item_emb, k, bf16=bf16)
-    num_users, num_items, d = _check_shapes(user_emb, item_emb, k)
+    num_users, num_items = _check_shapes(user_emb, item_emb, k)
     dev = user_emb.device
-    ue, ie = _kernel_input(user_emb, bf16), _kernel_input(item_emb, bf16)
+    ue, ie = kernel_inputs(user_emb, item_emb, bf16)
+    d = ue.shape[1]
     vals, idx = _empty_topk(num_users, k, dev)
     if num_users:
         lib = _lib()
+        resident = int(topk_plan(d, bf16).resident_users)
         with torch.cuda.device(dev):
-            splits, (pv, pi) = _partials(lib, _TOPK, num_users, num_items, k, bf16, dev)
+            splits = lib.mips_topk_splits(num_users, num_items, d, k, resident, int(bf16))
+            pv, pi = _partials(splits, num_users, k, dev)
             err = lib.mips_topk_launch(
                 ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, k, int(bf16),
-                splits, pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                build.stream(dev),
+                resident, splits, pv.data_ptr(), pi.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), build.stream(dev),
             )
         build.check(lib, err, "mips_topk")
         mips_topk.launches += 1
@@ -225,15 +289,17 @@ def mips_lse(user_emb: torch.Tensor, item_emb: torch.Tensor, bf16: bool = False)
     """Per-user softmax normaliser of the scores: (max [U], sum-exp [U])."""
     if build.on_cpu(user_emb, item_emb):
         return mips_lse_reference(user_emb, item_emb, bf16=bf16)
-    num_users, num_items, d = _check_shapes(user_emb, item_emb)
+    num_users, num_items = _check_shapes(user_emb, item_emb)
     dev = user_emb.device
-    ue, ie = _kernel_input(user_emb, bf16), _kernel_input(item_emb, bf16)
+    ue, ie = kernel_inputs(user_emb, item_emb, bf16)
+    d = ue.shape[1]
     m = torch.empty(num_users, dtype=torch.float32, device=dev)
     s = torch.empty_like(m)
     if num_users:
         lib = _lib()
         with torch.cuda.device(dev):
-            splits, (pm, ps) = _partials(lib, _LSE, num_users, num_items, 0, bf16, dev)
+            splits = lib.mips_num_splits(num_users, num_items, 0, _LSE, int(bf16))
+            pm, ps = _partials(splits, num_users, 0, dev)
             err = lib.mips_lse_launch(
                 ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, int(bf16),
                 splits, pm.data_ptr(), ps.data_ptr(), m.data_ptr(), s.data_ptr(),
@@ -254,18 +320,20 @@ def mips_boost(user_emb: torch.Tensor, item_emb: torch.Tensor,
     if build.on_cpu(user_emb, item_emb, popularity, m, s):
         return mips_boost_reference(user_emb, item_emb, popularity, m, s, k,
                                     weight=weight, bf16=bf16)
-    num_users, num_items, d = _check_shapes(user_emb, item_emb, k)
+    num_users, num_items = _check_shapes(user_emb, item_emb, k)
     if popularity.numel() != num_items or m.numel() != num_users or s.numel() != num_users:
         raise ValueError("popularity must be [I]; m and s must be [U]")
     dev = user_emb.device
-    ue, ie = _kernel_input(user_emb, bf16), _kernel_input(item_emb, bf16)
+    ue, ie = kernel_inputs(user_emb, item_emb, bf16)
+    d = ue.shape[1]
     pop = popularity.reshape(-1).float().contiguous()
     m32, s32 = m.float().contiguous(), s.float().contiguous()
     vals, idx = _empty_topk(num_users, k, dev)
     if num_users:
         lib = _lib()
         with torch.cuda.device(dev):
-            splits, (pv, pi) = _partials(lib, _BOOST, num_users, num_items, k, bf16, dev)
+            splits = lib.mips_num_splits(num_users, num_items, k, _BOOST, int(bf16))
+            pv, pi = _partials(splits, num_users, k, dev)
             err = lib.mips_boost_launch(
                 ue.data_ptr(), ie.data_ptr(), pop.data_ptr(), m32.data_ptr(),
                 s32.data_ptr(), float(weight), num_users, num_items, d, k, int(bf16),

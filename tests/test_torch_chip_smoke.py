@@ -105,13 +105,11 @@ def test_main_refuses_without_a_card():
         raise AssertionError("main() ran without a card")
 
 
-def _ptxas_lines(fwd_spill=0):
-    """``ptxas -v`` lines as ``build`` keeps them, for the leaf kernels."""
+def _ptxas_lines(names):
+    """``ptxas -v`` lines as ``build`` keeps them: (mangled piece, registers,
+    spill bytes) per entry function."""
     lines = []
-    for name, regs, spill in (("leaf_fwd_kernelIfLi8EEEvPKT_", 128, fwd_spill),
-                              ("leaf_fwd_kernelIfLi16EEEvPKT_", 154, 0),
-                              ("leaf_bwd_kernelIfLi8EEEvPKT_", 162, 0),
-                              ("leaf_bwd_reduce_kernelEPKfS1_", 26, 0)):
+    for name, regs, spill in names:
         lines += [f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115{name}' "
                   f"for 'sm_90a'",
                   f"{spill} bytes stack frame, {spill} bytes spill stores, "
@@ -120,13 +118,61 @@ def _ptxas_lines(fwd_spill=0):
     return lines
 
 
+def _leaf_lines(fwd_spill=0):
+    return _ptxas_lines((("leaf_fwd_kernelIfLi8EEEvPKT_", 128, fwd_spill),
+                         ("leaf_fwd_kernelIfLi16EEEvPKT_", 154, 0),
+                         ("leaf_bwd_kernelIfLi8EEEvPKT_", 162, 0),
+                         ("leaf_bwd_reduce_kernelEPKfS1_", 26, 0)))
+
+
 def test_leaf_ptxas_reads_registers_and_refuses_spills():
-    summary = chip_smoke.build.ptxas_summary(_ptxas_lines())
+    summary = chip_smoke.build.ptxas_summary(_leaf_lines())
     assert len(summary) == 4
     assert {v["registers"] for v in summary.values()} == {128, 154, 162, 26}
-    got = chip_smoke.leaf_ptxas(_ptxas_lines())
+    leaf = {name: v for name, v in chip_smoke.NO_SPILL.items() if v[0] == "leaf_agg"}
+    got = chip_smoke.kernel_ptxas({"leaf_agg": {"ptxas": _leaf_lines()}}, leaf)
     assert got["leaf_mean_nn_fwd"] == {"leaf_fwd_kernelIfLi8EE": {"registers": 128,
                                                                  "spill_bytes": 0}}
     assert set(got["leaf_mean_nn_bwd"]) == {"leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel"}
     with pytest.raises(AssertionError, match="spills 12 bytes"):
-        chip_smoke.leaf_ptxas(_ptxas_lines(fwd_spill=8))
+        chip_smoke.kernel_ptxas({"leaf_agg": {"ptxas": _leaf_lines(fwd_spill=8)}}, leaf)
+
+
+def test_topk_and_pool_mask_ptxas_rows():
+    """The serving top-k's f32 register-list kernel and the pool mask get a
+    row each; the other instantiations are reported by the build phase but
+    hold no row; a spill in a row's kernel fails the run."""
+    def info(topk_spill=0):
+        return {"leaf_agg": {"ptxas": _leaf_lines()},
+                "topk_mips": {"ptxas": _ptxas_lines((
+                    ("topk_kernelIfLb1EEEvPKT_S3_iiiiiiPfPi", 168, topk_spill),
+                    ("topk_kernelIfLb0EEEvPKT_S3_iiiiiiPfPi", 170, 0),
+                    ("topk_kernelI13__nv_bfloat16Lb1EEEvPKT_S4_iiiiiiPfPi", 166, 0),
+                    ("mips_kernelIfLi2EEEvPKT_S3_iiiiiPKffS5_S5_PfPiS6_S6_", 128, 0)))},
+                "pool_mask": {"ptxas": _ptxas_lines((
+                    ("pool_mask_kernelEPKiS1_iiiiPf", 40, 0),))}}
+
+    got = chip_smoke.kernel_ptxas(info())
+    assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "mips_topk",
+                        "pool_membership_mask"}
+    assert got["mips_topk"] == {"topk_kernelIfLb1EE": {"registers": 168, "spill_bytes": 0}}
+    assert got["pool_membership_mask"]["pool_mask_kernel"]["registers"] == 40
+    with pytest.raises(AssertionError, match="topk_kernelIfLb1EE spills 12 bytes"):
+        chip_smoke.kernel_ptxas(info(topk_spill=8))
+
+
+def test_kernel_probe_patches_apply_to_the_sources():
+    """kernel_probe.py edits copies of the kernel sources by text: every
+    edit must still find its one line."""
+    import os
+
+    import kernel_probe
+
+    csrc = kernel_probe.build.CSRC_DIR
+    topk = open(os.path.join(csrc, "topk_mips.cu")).read()
+    pool = open(os.path.join(csrc, "pool_mask.cu")).read()
+    for src, edits in ((topk, kernel_probe.SCORE_ONLY), (topk, kernel_probe.TOPK_PHASES),
+                       (pool, kernel_probe.POOL_BLOCKS)):
+        assert kernel_probe.patch(src, edits) != src
+    with pytest.raises(RuntimeError, match="no longer has one"):
+        kernel_probe.patch(pool, kernel_probe.SCORE_ONLY)

@@ -7,6 +7,8 @@ fixture).  On a CUDA host, without JAX installed::
         tests/test_torch_cuda_kernels.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -57,8 +59,14 @@ def _scores(ue, ie, bf16=False):
 @pytest.mark.parametrize("u,i,d,k", [
     (17, 100, 16, 5), (128, 1000, 32, 10), (300, 30000, 128, 26),
     (70, 30000, 128, 266), (30000, 2000, 32, 10),
+    # k = max_k() (0 below); widths that are not a multiple of 4 (zero-padded
+    # by the wrapper); k on both sides of the register lists' 32; users
+    # streamed through the ring (D = 256 in f32), with k above 32 too.
+    (70, 2000, 32, 0), (50, 3000, 6, 10), (300, 5000, 33, 26), (130, 4000, 30, 32),
+    (200, 4000, 128, 33), (300, 5000, 256, 26), (70, 3000, 256, 100),
 ])
 def test_mips_topk_matches_plain(dev, u, i, d, k):
+    k = k or tm.max_k()
     rng = np.random.default_rng(0)
     ue, ie = _emb(rng, u, d, dev), _emb(rng, i, d, dev)
     n0 = tm.mips_topk.launches
@@ -86,15 +94,17 @@ def test_mips_topk_catalog_padding(dev):
     assert_topk_close(vals, idx, rvals, ridx, _scores(ue, ie))
 
 
-def test_mips_topk_bf16(dev):
+@pytest.mark.parametrize("d", [128, 33])
+def test_mips_topk_bf16(dev, d):
     rng = np.random.default_rng(4)
-    ue, ie = _emb(rng, 200, 128, dev), _emb(rng, 3000, 128, dev)
+    ue, ie = _emb(rng, 200, d, dev), _emb(rng, 3000, d, dev)
     vals, idx = tm.mips_topk(ue, ie, 26, bf16=True)
     rvals, ridx = tm.mips_topk_reference(ue, ie, 26, bf16=True)
     assert_topk_close(vals, idx, rvals, ridx, _scores(ue, ie, bf16=True))
 
 
-@pytest.mark.parametrize("u,i,d,k,w", [(13, 333, 16, 6, 2.5), (300, 30000, 128, 26, 1.0)])
+@pytest.mark.parametrize("u,i,d,k,w", [(13, 333, 16, 6, 2.5), (300, 30000, 128, 26, 1.0),
+                                       (40, 3000, 30, 10, 1.0)])
 def test_mips_topk_boosted_matches_plain(dev, u, i, d, k, w):
     rng = np.random.default_rng(5)
     ue, ie = _emb(rng, u, d, dev), _emb(rng, i, d, dev)
@@ -221,7 +231,9 @@ def test_train_minibatch_runs_the_kernels_on_the_card(dev):
     assert pm.pool_membership_mask.launches > n_pool
 
 
-@pytest.mark.parametrize("b,k,p", [(1024, 32, 2560), (1000, 24, 2500), (3, 128, 7)])
+@pytest.mark.parametrize("b,k,p", [(1024, 32, 2560), (1000, 24, 2500), (3, 128, 7),
+                                   (1000, 24, 2557), (1001, 32, 2560), (50, 1, 300),
+                                   (17, 128, 4099)])
 def test_pool_membership_mask_matches_plain(dev, b, k, p):
     rng = np.random.default_rng(3)
     rows = rng.integers(0, 3000, (b, k)).astype(np.int32)
@@ -241,6 +253,44 @@ def test_pool_membership_mask_matches_plain(dev, b, k, p):
     assert float(out.sum()) > 0 and (out[:, -1] == 0).all()
     with pytest.raises(ValueError):
         pm.pool_membership_mask(torch.zeros((2, 129), dtype=torch.int32, device=dev), pool_t)
+
+
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_pool_membership_mask_repeats_and_negatives(dev, k):
+    """Ids drawn from a few values, so that pool entries repeat and rows
+    repeat an id (a row's set holds it once), with negative pool entries
+    and rows of nothing but -1; and ids that all share one home slot, where
+    every probe walks the row's whole run."""
+    rng = np.random.default_rng(k)
+    b, p = 203, 1031
+    rows = rng.integers(0, 40, (b, k)).astype(np.int32)
+    rows[rng.random((b, k)) < 0.2] = -1
+    rows[5] = -1
+    pool = rng.integers(-3, 40, p).astype(np.int32)
+    # ids that all share one home slot under the kernel's multiplicative hash
+    # (csrc/pool_mask.cu, home_slot)
+    shift = 32 - pm.set_slots(k).bit_length() + 1
+    ids = np.arange(1000, 1 << 20, dtype=np.int64)
+    home = ((ids * 0x9E3779B1) & 0xFFFFFFFF) >> shift
+    same = ids[home == home[0]][:k].astype(np.int32)
+    rows[7], pool[:k] = same, same[::-1]
+    for r, q in ((rows, pool), (rows[:, ::-1].copy(), pool[::-1].copy())):
+        rows_t, pool_t = torch.tensor(r, device=dev), torch.tensor(q, device=dev)
+        out = pm.pool_membership_mask(rows_t, pool_t)
+        assert torch.equal(out, pm.pool_membership_mask_reference(rows_t, pool_t))
+    assert float(out.sum()) > 0 and (out[5] == 0).all()
+
+
+def test_host_plans_match_the_c_exports(dev):
+    """The wrappers' pure launch plans against the kernels' own exports."""
+    lib = tm._lib()
+    for d in (4, 32, 36, 128, 132, 256, 1024):
+        for bf16 in (False, True):
+            for resident in (False, True):
+                assert lib.mips_topk_smem_bytes(d, int(bf16), int(resident)) == \
+                    tm.topk_smem_bytes(d, bf16, resident)
+    tile = (ctypes.c_int * 2)()
+    assert pm._lib().pool_mask_tile(tile) == 0 and tuple(tile) == pm._TILE
 
 
 def _gather_case(dev, b, k, n, d, seed=0):

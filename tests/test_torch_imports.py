@@ -15,6 +15,7 @@ FORBIDDEN = re.compile(
 
 def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "kernel_probe.py")
     for dirpath, _, files in os.walk(os.path.join(ROOT, "gnn_recsys_tpu_torch")):
         for name in files:
             if name.endswith(".py"):

@@ -149,6 +149,23 @@ def test_losses_match_jax(loss, options):
     assert got == pytest.approx(want, rel=LOSS_RTOL)
 
 
+@pytest.mark.parametrize("loss", ["max_margin", "sampled_softmax"])
+def test_losses_of_no_scores_match_jax(loss):
+    """No etype scored: JAX returns 0 / max(0, 1) = 0.0; so does the port, as
+    a 0-d f32 zero on the device of a tensor passed in (the CPU here)."""
+    pos = {ET_BUYS: torch.zeros(3)}
+    if loss == "max_margin":
+        want = float(jmax_margin({}, {}, delta=0.266))
+        got = [max_margin_loss({}, {}, delta=0.266), max_margin_loss(pos, {}, delta=0.266)]
+    else:
+        want = float(jsoftmax({}, {}, tau=0.1))
+        got = [sampled_softmax_loss({}, {}, tau=0.1), sampled_softmax_loss(pos, {}, tau=0.1)]
+    assert want == 0.0
+    for g in got:
+        assert g.shape == () and g.dtype == torch.float32 and g.device.type == "cpu"
+        assert float(g) == want
+
+
 def _batch(train_pairs, n=16):
     jbatch, tbatch = {}, {}
     for et, (u, i) in train_pairs.items():

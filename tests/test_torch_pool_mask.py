@@ -71,3 +71,33 @@ def test_padding_rows_never_match():
     got = pair_set_contains_pool(ps, torch.arange(4), pool, use_kernel=True)
     np.testing.assert_array_equal(got.numpy()[0], [1, 0, 1, 0, 1, 0])
     assert got[1:].sum() == 0
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 24, 32, 33, 100, 128])
+def test_set_slots_hold_a_row_at_most_a_sixteenth_full(k):
+    s = pm.set_slots(k)
+    assert s & (s - 1) == 0 and 16 * k <= s < 64 * k and (s <= 2048 or s < 32 * k)
+
+
+@pytest.mark.parametrize("b,k,p", [(1024, 32, 2560), (1000, 24, 2557), (3, 128, 7), (9, 1, 1),
+                                   (1001, 32, 4097)])
+def test_launch_geometry_covers_each_row_and_position_once(b, k, p):
+    """The kernel's grid, walked as it walks it: block (x, y) takes rows
+    y * tile_rows onward and pool positions [x * chunk, (x + 1) * chunk), 4
+    a thread of 256; every (row, position) of [B, P] is written once, the
+    chunks are whole 16-byte stores and equal but for the last, and the
+    block's row sets fit its shared memory."""
+    geo = pm.launch_geometry(b, k, p)
+    assert geo.slots == pm.set_slots(k) and geo.chunk % 4 == 0 and geo.chunk <= 256 * 4
+    assert geo.smem_bytes == 4 * geo.tile_rows * geo.slots <= 48 * 1024
+    rows, cols = np.zeros(b, np.int64), np.zeros(p, np.int64)
+    for y in range(geo.grid_y):
+        rows[y * geo.tile_rows:(y + 1) * geo.tile_rows] += 1
+    for x in range(geo.grid_x):
+        end = min(p, (x + 1) * geo.chunk)
+        for t in range(256):
+            p0 = x * geo.chunk + 4 * t
+            cols[p0:min(p0 + 4, end)] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert (geo.grid_y - 1) * geo.tile_rows < b and (geo.grid_x - 1) * geo.chunk < p
+    assert geo.grid_x == -(-p // 1024) and p - (geo.grid_x - 1) * geo.chunk > geo.chunk - 4 * geo.grid_x

@@ -130,3 +130,56 @@ def test_cpu_wrappers_count_no_launch():
     tm.mips_topk(ue, ie, 3)
     tm.mips_topk_boosted(ue, ie, torch.zeros(20), 3)
     assert tm.mips_topk.launches == tm.mips_topk_boosted.launches == 0
+
+
+@pytest.mark.parametrize("d", [6, 30])
+def test_odd_widths_match_pallas_through_the_padding_helper(d):
+    """Widths that are not a multiple of 4: the kernels see both matrices
+    zero-padded by ``kernel_inputs`` (here the plain versions on the padded
+    CPU tensors), which must rank as JAX ranks the unpadded ones."""
+    rng = np.random.default_rng(d)
+    u, i, k, w = 11, 150, 5, 2.0
+    ue = rng.normal(size=(u, d)).astype(np.float32)
+    ie = rng.normal(size=(i, d)).astype(np.float32)
+    pop = rng.uniform(0, 0.05, i).astype(np.float32)
+    pu, pi = tm.kernel_inputs(torch.from_numpy(ue), torch.from_numpy(ie), False)
+    assert pu.shape[1] == pi.shape[1] == d + (-d % 4)
+    s64 = ue.astype(np.float64) @ ie.astype(np.float64).T
+    jv, ji = jmips(jnp.asarray(ue), jnp.asarray(ie), k, tile_users=8, tile_items=64,
+                   interpret=True)
+    _check_near_ties(*tm.mips_topk(pu, pi, k), jv, ji, s64)
+    e64 = np.exp(s64 - s64.max(axis=1, keepdims=True))
+    boosted = e64 / e64.sum(axis=1, keepdims=True) + w * pop.astype(np.float64)
+    jv, ji = jmips_boosted(jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(pop), k, weight=w,
+                           tile_users=8, tile_items=64, interpret=True)
+    _check_near_ties(*tm.mips_topk_boosted(pu, pi, torch.from_numpy(pop), k, weight=w),
+                     jv, ji, boosted)
+
+
+@pytest.mark.parametrize("d,bf16", [(6, False), (33, True), (128, False)])
+def test_kernel_inputs_are_aligned_and_pad_with_exact_zeros(d, bf16):
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.normal(size=(9 * d + 1,)).astype(np.float32))
+    ue = base[1:].reshape(9, d)  # 4 bytes past an aligned start
+    ie = torch.from_numpy(rng.normal(size=(d, 20)).astype(np.float32)).T  # not contiguous
+    pu, pi = tm.kernel_inputs(ue, ie, bf16)
+    for got, src in ((pu, ue), (pi, ie)):
+        assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert got.shape == (src.shape[0], d + (-d % 4))
+        assert torch.equal(got[:, :d], src.to(got.dtype))
+        assert (got[:, d:] == 0).all()
+
+
+def test_topk_plan_fits_shared_memory():
+    """The mips_topk kernel's shared-memory plan: users resident at the
+    serving width, streamed through the ring where they do not fit, and
+    every plan within a block's 227 KB in 16-byte sections."""
+    assert tm.topk_plan(128, False).resident_users and tm.topk_plan(128, True).resident_users
+    assert not tm.topk_plan(256, False).resident_users
+    assert tm.topk_plan(256, True).resident_users
+    for d in range(4, 1025, 4):
+        for bf16 in (False, True):
+            plan = tm.topk_plan(d, bf16)
+            assert plan.smem_bytes <= tm.SMEM_LIMIT and plan.smem_bytes % 16 == 0
+            assert plan.smem_bytes == tm.topk_smem_bytes(d, bf16, plan.resident_users)
