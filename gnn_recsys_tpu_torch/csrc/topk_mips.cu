@@ -1,9 +1,10 @@
-// Full-catalog maximum-inner-product top-k for Hopper (sm_90a).
+// Full-catalog maximum-inner-product search for Hopper (sm_90a): one
+// score-tile kernel, topk_kernel<T, SHARED_LIST, EPI>, with three epilogues.
 //
 // Replaces the three Pallas kernels of gnn_recsys_tpu/ops/pallas/topk_mips.py:
-//   * mips_topk           (_mips_kernel,  topk_mips.py:52)  -> topk_kernel
-//   * mips_topk_boosted   pass 1 (_lse_kernel,   :108)     -> mips_kernel, MODE_LSE
-//   * mips_topk_boosted   pass 2 (_boost_kernel, :141)     -> mips_kernel, MODE_BOOST
+//   * mips_topk           (_mips_kernel,  topk_mips.py:52)  -> EPI_TOPK
+//   * mips_topk_boosted   pass 1 (_lse_kernel,   :108)     -> EPI_LSE
+//   * mips_topk_boosted   pass 2 (_boost_kernel, :141)     -> EPI_BOOST
 //
 // What bounds them.  Ranking U users against I items at width D is 2*U*I*D
 // floating-point operations (7.7e11 at the serving shape U=100k, I=30k,
@@ -15,9 +16,9 @@
 // as they are read, and accumulate in f32.  Widths are a multiple of 4 (the
 // wrappers zero-pad), the kernels' copy and load granule.
 //
-// topk_kernel, the score tile of mips_topk.  A block of 256 threads owns
-// BU=128 users and one contiguous range of the catalog, walked in tiles of
-// BI=128 items; a thread holds an 8 x 8 register tile of scores, users
+// The score tile, shared by the three epilogues.  A block of 256 threads
+// owns BU=128 users and one contiguous range of the catalog, walked in tiles
+// of BI=128 items; a thread holds an 8 x 8 register tile of scores, users
 // ty + 16p and items tx + 16q, so that a warp's fragment reads fall on
 // distinct banks.  The catalog streams through a ring of STAGES shared-memory
 // stages of BK=32 dims, copied with cp.async in its own row-major layout (4
@@ -27,37 +28,54 @@
 // bf16 stays bf16 in shared memory and is widened when it is read.  The
 // block's users are copied once for the whole walk where shared memory holds
 // them (66 KB in f32 at D=128); otherwise they go through the ring beside
-// the items.  The epilogue works in registers: a thread compares its 64
-// scores with its users' current k-th values and sends only those that
-// reach them to the user's buffer in shared memory (the 16 lanes of a
-// half-warp share a user: a prefix sum of their counts and one shared atomic
-// place them).  For k <= 32 the buffer holds BUF=64 entries: the user's list,
-// then the candidates offered since.  Offers only append, so a tile costs
-// one barrier; when a buffer fills, its warp sorts it (a bitonic network over
-// 64 entries, two a lane, in registers) and keeps the k best, which also
-// raises the user's k-th value.  Every candidate that reaches a k-th value
-// needs an insert in a list kept in order, one at a time a user; a buffer
-// needs one sort for every 32 or more of them.  For
-// k > 32 a warp merges up to CAP candidates a user at a time into its list
-// in the block's row of the partial lists in device memory.  A list is the
-// first k entries of the order (value descending, index ascending), that of a
-// stable
-// descending sort (the lowest-index tie rule of _extract_topk); columns
-// >= num_items never enter.
+// the items.  Each epilogue runs after a tile's last chunk, on the registers.
+//
+// EPI_TOPK.  A thread compares its 64 scores with its users' current k-th
+// values and sends only those that reach them to the user's buffer in shared
+// memory (the 16 lanes of a half-warp share a user: a prefix sum of their
+// counts and one shared atomic place them).  For k <= 32 the buffer holds
+// BUF=64 entries: the user's list, then the candidates offered since.  Offers
+// only append, so a tile costs one barrier; when a buffer fills, its warp
+// sorts it (a bitonic network over 64 entries, two a lane, in registers) and
+// keeps the k best, which also raises the user's k-th value.  Every
+// candidate that reaches a k-th value needs an insert in a list kept in
+// order, one at a time a user; a buffer needs one sort for every 32 or more
+// of them.  For k > 32 a warp merges up to CAP candidates a user at a time
+// into its list in the block's row of the partial lists in device memory.  A
+// list is the first k entries of the order (value descending, index
+// ascending), that of a stable descending sort (the lowest-index tie rule of
+// _extract_topk); columns >= num_items never enter.
+//
+// EPI_BOOST.  The same top-k on exp(score - m[u]) / s[u] + weight * pop[i],
+// m and s from pass 1.  A thread turns its 64 accumulators into those values
+// in place (m and s of its 8 users from per-user arrays in shared memory,
+// loaded once a block; pop of its 8 items from device memory, where the
+// vector stays in L2), so the filter, offers and sorts run unchanged and the
+// FMA loop keeps its registers.  The exponential is __expf and the division
+// __fdividef (2 ulps each where the exponent is small, against expf and the
+// true division of the plain version; a value's absolute error stays below
+// 1e-6, within the checks' 1e-5); weight * pop[i] is rounded once and
+// added with __fadd_rn, as the plain version adds it, so nvcc contracts
+// nothing.  Items with equal scores and popularity get the same bits, so
+// ties still go to the lowest index.
+//
+// EPI_LSE.  A thread keeps a running max m and sum-exp s in registers for
+// each of its 8 users over its own items.  It folds in a tile's valid scores
+// (the max of its 8 scores a user, a rescale by exp(m_old - m_new) only where
+// the max grew, then one __expf a score: the sum's relative error stays near
+// 1e-6, within the checks' 1e-5 on the log-sum-exp scale), with no shared
+// memory and no barrier.  At the end the 16 lanes of a half-warp, which
+// share a user, combine their pairs by shuffles.  A thread with no valid item
+// (the last partial tile, a catalog of fewer than 16 items) keeps (-inf, 0),
+// and no path evaluates exp(-inf - (-inf)).  The layout holds no per-user
+// buffers.
 //
 // Catalog splits.  When there are too few user blocks to fill the card (a
 // request of a few thousand users is 32 blocks on 132 SMs), the catalog is
 // split into S contiguous ranges, one block column each; each block writes
-// its partial list (or its partial max / sum-exp for MODE_LSE) and a second
-// small kernel merges the S partials per user under the same order, which
-// stays exact.
-//
-// mips_kernel, the first design, still runs both passes of the boosted
-// top-k: 128 threads own 64 users; each 32-dim chunk of both operands is
-// staged synchronously (transposed), each tile's scores go through a shared
-// score tile, and flagged users' rows merge into lists in shared memory.
-// MODE_LSE keeps an online max and sum-exp per user; MODE_BOOST re-scores
-// each tile as exp(s - m) / sum + w * pop[i] and runs the same top-k merge.
+// its partial list (or its partial max and sum-exp) and a second small
+// kernel merges the S partials per user (merge_kernel under the list order,
+// which stays exact; lse_combine_kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,28 +86,13 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int SMEM_LIMIT = 232448; // bytes of shared memory a block may use
 constexpr int MIN_SPLIT_TILES = 4; // catalog tiles per split, at least
 constexpr int MERGE_WARPS = 4;     // users per block of the merge kernel
 
-// mips_kernel (the boosted passes)
-constexpr int BU = 64;             // users per block
-constexpr int BI = 128;            // catalog items per tile
-constexpr int BK = 32;             // embedding dims per staged chunk
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
-constexpr int A_STRIDE = BU + 4;   // floats per staged user row (16-byte aligned)
-constexpr int B_STRIDE = BI + 4;   // floats per staged item row
-constexpr int S_STRIDE = BI + 1;   // floats per score-tile row
-
-enum { MODE_LSE = 1, MODE_BOOST = 2 };
-
-// The score tile reuses the staging buffers' space (they are idle while
-// it lives), so four blocks fit on an SM at the serving k.
-constexpr int STAGE_FLOATS = BK * A_STRIDE + BK * B_STRIDE;
-constexpr int TILE_FLOATS = STAGE_FLOATS > BU * S_STRIDE ? STAGE_FLOATS : BU * S_STRIDE;
-constexpr int fixed_smem_bytes() { return (TILE_FLOATS + 5 * BU) * 4; }
-constexpr int MAX_K = ((SMEM_LIMIT - fixed_smem_bytes()) / (BU * 8)) / 32 * 32;
+// topk_kernel's epilogues
+constexpr int EPI_TOPK = 0;   // top-k of the scores
+constexpr int EPI_BOOST = 1;  // top-k of exp(score - m) / s + weight * pop
+constexpr int EPI_LSE = 2;    // max and sum-exp of the scores
 
 // topk_kernel
 namespace tk {
@@ -116,29 +119,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// Stage rows [row0, row0 + NROWS) x dims [d0, d0 + BK) of a row-major
-// [nrows, D] matrix into dst[BK][STRIDE], transposed and widened to f32.
-// Out-of-range rows and dims are zero.
-template <int NROWS, int STRIDE, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int row0, int nrows, int d0, int D) {
-  constexpr int GROUPS = NROWS * BK / 4;
-#pragma unroll
-  for (int rep = 0; rep < GROUPS / THREADS; ++rep) {
-    const int g = rep * THREADS + threadIdx.x;
-    const int r = g / (BK / 4);
-    const int c = (g % (BK / 4)) * 4;
-    const int row = row0 + r;
-    const int d = d0 + c;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < nrows && d < D) v = load4(src + (size_t)row * D + d);
-    dst[(c + 0) * STRIDE + r] = v.x;
-    dst[(c + 1) * STRIDE + r] = v.y;
-    dst[(c + 2) * STRIDE + r] = v.z;
-    dst[(c + 3) * STRIDE + r] = v.w;
-  }
 }
 
 // Whether (v, i) comes before (pv, pi): value descending, index ascending.
@@ -313,34 +293,80 @@ __host__ __device__ inline int tk_user_stride(int D) {
 }
 
 // Shared-memory bytes: a ring stage, the resident users, and the whole block
-// (ring, users, the per-user buffers, per-user counters).
+// (ring, users and, for the top-k epilogues, the per-user buffers and three
+// per-user counters, with EPI_BOOST also the users' m and s).
 struct TkLayout {
   int stage;
   int users;
   int total;
 };
 
-__host__ __device__ inline TkLayout tk_layout(int D, int esize, int resident) {
+__host__ __device__ inline TkLayout tk_layout(int D, int esize, int resident, int epi) {
   TkLayout L;
   L.stage = (tk::BI + (resident ? 0 : tk::BU)) * tk::LDK * esize;
   L.users = resident ? tk::BU * tk_user_stride(D) * esize : 0;
-  L.total = tk::STAGES * L.stage + L.users + tk::BU * tk::BUF * 8 + 3 * tk::BU * 4;
+  L.total = tk::STAGES * L.stage + L.users;
+  if (epi != EPI_LSE) L.total += tk::BU * tk::BUF * 8 + (epi == EPI_BOOST ? 5 : 3) * tk::BU * 4;
   return L;
 }
 
-// Scores users [u0, u0 + BU) against catalog range [i_begin, i_end) and
-// writes the range's top-k per user to part_vals / part_idx [split][user][k]
-// (idx -1 past the range's item count).  SHARED_LIST: k <= SHARED_K.
-template <typename T, bool SHARED_LIST>
+// EPI_LSE: fold a tile's scores into a thread's running max m and sum-exp s
+// of each of its 8 users; item q is valid where 16 * q < nvalid.  Without a
+// valid item a thread keeps (-inf, 0) and evaluates no exp.
+__device__ __forceinline__ void lse_fold(const float (&acc)[8][8], float (&m)[8], float (&s)[8],
+                                         int nvalid) {
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (16 * q < nvalid) tmax = fmaxf(tmax, acc[p][q]);
+    if (tmax > m[p]) {  // the max grew: rescale the sum (0 while m is -inf)
+      s[p] *= expf(m[p] - tmax);
+      m[p] = tmax;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (16 * q < nvalid) s[p] += __expf(acc[p][q] - m[p]);
+  }
+}
+
+// EPI_BOOST: turn a thread's scores into exp(score - m) / s + weight * pop in
+// place, m and s of its users ty + TY * p (row_m[TY * p], row_s[TY * p]),
+// pop of its items tx + 16 q (pop[16 * q], read where 16 * q < nvalid).
+__device__ __forceinline__ void boost_scores(float (&acc)[8][8], const float* row_m,
+                                             const float* row_s, const float* __restrict__ pop,
+                                             float weight, int nvalid) {
+  float wp[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) wp[q] = 16 * q < nvalid ? weight * __ldg(pop + 16 * q) : 0.f;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const float m = row_m[tk::TY * p], s = row_s[tk::TY * p];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      acc[p][q] = __fadd_rn(__fdividef(__expf(acc[p][q] - m), s), wp[q]);
+  }
+}
+
+// Scores users [u0, u0 + BU) against catalog range [i_begin, i_end).  The
+// top-k epilogues write the range's top-k per user to part_vals / part_idx
+// [split][user][k] (idx -1 past the range's item count), EPI_BOOST on the
+// boosted values of pop, weight and pass 1's m_in, s_in; EPI_LSE writes the
+// range's max and sum-exp to part_vals / part_sums [split][user].
+// SHARED_LIST (top-k epilogues): k <= SHARED_K.
+template <typename T, bool SHARED_LIST, int EPI>
 __global__ void __launch_bounds__(tk::THREADS, 1)
 topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_users,
             int num_items, int D, int k, int split_items, int resident,
-            float* __restrict__ part_vals, int* __restrict__ part_idx) {
+            const float* __restrict__ pop, float weight, const float* __restrict__ m_in,
+            const float* __restrict__ s_in, float* __restrict__ part_vals,
+            int* __restrict__ part_idx, float* __restrict__ part_sums) {
   constexpr int BU = tk::BU, BI = tk::BI, BK = tk::BK, TY = tk::TY, THREADS = tk::THREADS;
   constexpr int NWARPS = tk::NWARPS, STAGES = tk::STAGES, CAP = tk::CAP, LDK = tk::LDK;
   constexpr int BUF = tk::BUF;
   extern __shared__ __align__(16) unsigned char tsmem[];
-  const TkLayout L = tk_layout(D, sizeof(T), resident);
+  const TkLayout L = tk_layout(D, sizeof(T), resident, EPI);
   T* ring = reinterpret_cast<T*>(tsmem);
   const int stage_elems = L.stage / static_cast<int>(sizeof(T));
   T* us = reinterpret_cast<T*>(tsmem + STAGES * L.stage);          // [BU][ldu], resident
@@ -352,6 +378,8 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
   int* ccnt = buf_i + BU * BUF;                                   // [BU] entries offered
   float* thr = reinterpret_cast<float*>(ccnt + BU);               // [BU] k-th value, -inf until k
   int* cnt = reinterpret_cast<int*>(thr + BU);                    // [BU] list entries
+  float* row_m = reinterpret_cast<float*>(cnt + BU);              // [BU] EPI_BOOST: m
+  float* row_s = row_m + BU;                                      // [BU] EPI_BOOST: s
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -366,10 +394,16 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
   const int total = (i_end - i_begin + BI - 1) / BI * nchunks;  // ring stages of the walk
   const int ldu = resident ? tk_user_stride(D) : LDK;
 
-  for (int r = tid; r < BU; r += THREADS) {
-    ccnt[r] = 0;
-    cnt[r] = 0;
-    thr[r] = -INFINITY;
+  if constexpr (EPI != EPI_LSE) {
+    for (int r = tid; r < BU; r += THREADS) {
+      ccnt[r] = 0;
+      cnt[r] = 0;
+      thr[r] = -INFINITY;
+      if constexpr (EPI == EPI_BOOST) {  // rows past the users are never offered
+        row_m[r] = u0 + r < num_users ? m_in[u0 + r] : 0.f;
+        row_s[r] = u0 + r < num_users ? s_in[u0 + r] : 1.f;
+      }
+    }
   }
   if (resident) copy_rows<0>(us, ldu, users, u0, BU, num_users, 0, nchunks * BK, D);
   // Stage s holds tile s / nchunks, dims (s % nchunks) * BK onward; a
@@ -387,10 +421,14 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
   float acc[8][8];
+  float run_m[8], run_s[8];  // EPI_LSE: users ty + TY * p over this thread's items
 #pragma unroll
-  for (int p = 0; p < 8; ++p)
+  for (int p = 0; p < 8; ++p) {
+    run_m[p] = -INFINITY;
+    run_s[p] = 0.f;
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  }
 #pragma unroll 1
   for (int s = 0; s < total; ++s) {
     cp_async_wait<STAGES - 2>();
@@ -427,132 +465,138 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
     }
     if (c != nchunks - 1) continue;
 
-    // Epilogue: scores that reach their user's k-th value, bit 8p + q.
     const int i0 = i_begin + (s / nchunks) * BI;
-    unsigned long long pend = 0ull;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const float t = thr[ty + TY * p];
-      const bool uok = u0 + ty + TY * p < num_users;
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (uok && i0 + tx + 16 * q < i_end && acc[p][q] >= t) pend |= 1ull << (8 * p + q);
-    }
-    while (true) {
-      // Offer: the 16 lanes of a half-warp hold the tile's scores of users
-      // ty + TY * p.  Their counts, a byte a user, take one prefix sum over
-      // the half-warp (sums stay under 256), and its first lane reserves
-      // each user's slots with one atomic (a user's count before an offer is
-      // at most BUF, so a byte holds every start position too).
-      const unsigned long long offer_bits = pend;
-      bool offered = false;
-      if (__any_sync(FULL, pend != 0ull)) {
-        unsigned long long mine = 0ull;
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-          mine |= static_cast<unsigned long long>(
-                      __popc(static_cast<unsigned>(pend >> (8 * p)) & 0xffu)) << (8 * p);
-        unsigned long long incl = mine;
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1) {
-          const unsigned long long y = __shfl_up_sync(FULL, incl, off, 16);
-          if ((lane & 15) >= off) incl += y;
-        }
-        const unsigned long long offers = __shfl_sync(FULL, incl, 15, 16);
-        unsigned long long base = 0ull;
-        if ((lane & 15) == 0) {
-#pragma unroll
-          for (int p = 0; p < 8; ++p) {
-            const int n = static_cast<int>(offers >> (8 * p)) & 0xff;
-            if (n)
-              base |= static_cast<unsigned long long>(atomicAdd(&ccnt[ty + TY * p], n))
-                      << (8 * p);
-          }
-        }
-        base = __shfl_sync(FULL, base, 0, 16) + (incl - mine);  // bytewise: no carries
-        offered = mine != 0ull;
-#pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          const int r = ty + TY * p;
-          int pos = static_cast<int>(base >> (8 * p)) & 0xff;
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            if (!((offer_bits >> (8 * p + q)) & 1ull)) continue;
-            if (pos < (SHARED_LIST ? BUF : CAP)) {  // else it stays pending
-              buf_v[r * BUF + pos] = acc[p][q];
-              buf_i[r * BUF + pos] = i0 + tx + 16 * q;
-              pend &= ~(1ull << (8 * p + q));
-            }
-            ++pos;
-          }
-        }
-      }
-      if constexpr (SHARED_LIST) {
-        // Offers only append; a tile whose offers all found room is done.
-        if (!__syncthreads_or(pend != 0ull)) break;
-        // Some buffer is full: each warp sorts its users' fuller buffers
-        // (users warp + NWARPS * j) and cuts each back to its k best.
-        const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
-        unsigned todo = __ballot_sync(FULL, mine > BUF - 16);
-        while (todo) {
-          const int j = __ffs(todo) - 1;
-          todo &= todo - 1;
-          const int r = warp + NWARPS * j;
-          const int n = min(__shfl_sync(FULL, mine, j), BUF);
-          float v[2];
-          int id[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = lane + 32 * h;
-            v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
-            id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
-          }
-          sort64(v, id, lane);
-          const int kept = min(n, k);
-          if (lane < kept) {
-            buf_v[r * BUF + lane] = v[0];
-            buf_i[r * BUF + lane] = id[0];
-          }
-          const float kth = __shfl_sync(FULL, v[0], k - 1);
-          if (lane == 0) {
-            ccnt[r] = kept;
-            thr[r] = kept == k ? kth : -INFINITY;
-          }
-        }
-        __syncthreads();
-      } else {
-        if (!__syncthreads_or(offered)) break;  // no candidate: the tile is done
-        // A warp merges the candidates of its users (warp + NWARPS * j, lane
-        // j reads user j's count) into their lists in device memory.
-        const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
-        unsigned todo = __ballot_sync(FULL, mine > 0);
-        while (todo) {
-          const int j = __ffs(todo) - 1;
-          todo &= todo - 1;
-          const int r = warp + NWARPS * j;
-          const int nc = min(__shfl_sync(FULL, mine, j), CAP);
-          const bool valid = lane < nc;
-          const float cv = valid ? buf_v[r * BUF + lane] : -INFINITY;
-          const int ci = valid ? buf_i[r * BUF + lane] : -1;
-          const size_t row = ((size_t)split * num_users + u0 + r) * k;
-          const int n = merge_chunk(part_vals + row, part_idx + row, cnt[r], k, cv, ci, valid,
-                                    lane);
-          if (lane == 0) {
-            cnt[r] = n;
-            ccnt[r] = 0;
-            thr[r] = n == k ? part_vals[row + k - 1] : -INFINITY;
-          }
-        }
-        // Lists, thresholds and counters are settled; offers that found a
-        // full buffer are filtered again and offered in another round.
-        if (!__syncthreads_or(pend != 0ull)) break;
-      }
+    if constexpr (EPI == EPI_LSE) {
+      lse_fold(acc, run_m, run_s, i_end - i0 - tx);
+    } else {
+      if constexpr (EPI == EPI_BOOST)
+        boost_scores(acc, row_m + ty, row_s + ty, pop + i0 + tx, weight, i_end - i0 - tx);
+      // Epilogue: scores that reach their user's k-th value, bit 8p + q.
+      unsigned long long pend = 0ull;
 #pragma unroll
       for (int p = 0; p < 8; ++p) {
         const float t = thr[ty + TY * p];
+        const bool uok = u0 + ty + TY * p < num_users;
 #pragma unroll
         for (int q = 0; q < 8; ++q)
-          if (!(acc[p][q] >= t)) pend &= ~(1ull << (8 * p + q));
+          if (uok && i0 + tx + 16 * q < i_end && acc[p][q] >= t) pend |= 1ull << (8 * p + q);
+      }
+      while (true) {
+        // Offer: the 16 lanes of a half-warp hold the tile's scores of users
+        // ty + TY * p.  Their counts, a byte a user, take one prefix sum over
+        // the half-warp (sums stay under 256), and its first lane reserves
+        // each user's slots with one atomic (a user's count before an offer is
+        // at most BUF, so a byte holds every start position too).
+        const unsigned long long offer_bits = pend;
+        bool offered = false;
+        if (__any_sync(FULL, pend != 0ull)) {
+          unsigned long long mine = 0ull;
+#pragma unroll
+          for (int p = 0; p < 8; ++p)
+            mine |= static_cast<unsigned long long>(
+                        __popc(static_cast<unsigned>(pend >> (8 * p)) & 0xffu)) << (8 * p);
+          unsigned long long incl = mine;
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) {
+            const unsigned long long y = __shfl_up_sync(FULL, incl, off, 16);
+            if ((lane & 15) >= off) incl += y;
+          }
+          const unsigned long long offers = __shfl_sync(FULL, incl, 15, 16);
+          unsigned long long base = 0ull;
+          if ((lane & 15) == 0) {
+#pragma unroll
+            for (int p = 0; p < 8; ++p) {
+              const int n = static_cast<int>(offers >> (8 * p)) & 0xff;
+              if (n)
+                base |= static_cast<unsigned long long>(atomicAdd(&ccnt[ty + TY * p], n))
+                        << (8 * p);
+            }
+          }
+          base = __shfl_sync(FULL, base, 0, 16) + (incl - mine);  // bytewise: no carries
+          offered = mine != 0ull;
+#pragma unroll
+          for (int p = 0; p < 8; ++p) {
+            const int r = ty + TY * p;
+            int pos = static_cast<int>(base >> (8 * p)) & 0xff;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              if (!((offer_bits >> (8 * p + q)) & 1ull)) continue;
+              if (pos < (SHARED_LIST ? BUF : CAP)) {  // else it stays pending
+                buf_v[r * BUF + pos] = acc[p][q];
+                buf_i[r * BUF + pos] = i0 + tx + 16 * q;
+                pend &= ~(1ull << (8 * p + q));
+              }
+              ++pos;
+            }
+          }
+        }
+        if constexpr (SHARED_LIST) {
+          // Offers only append; a tile whose offers all found room is done.
+          if (!__syncthreads_or(pend != 0ull)) break;
+          // Some buffer is full: each warp sorts its users' fuller buffers
+          // (users warp + NWARPS * j) and cuts each back to its k best.
+          const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
+          unsigned todo = __ballot_sync(FULL, mine > BUF - 16);
+          while (todo) {
+            const int j = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int r = warp + NWARPS * j;
+            const int n = min(__shfl_sync(FULL, mine, j), BUF);
+            float v[2];
+            int id[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int e = lane + 32 * h;
+              v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
+              id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
+            }
+            sort64(v, id, lane);
+            const int kept = min(n, k);
+            if (lane < kept) {
+              buf_v[r * BUF + lane] = v[0];
+              buf_i[r * BUF + lane] = id[0];
+            }
+            const float kth = __shfl_sync(FULL, v[0], k - 1);
+            if (lane == 0) {
+              ccnt[r] = kept;
+              thr[r] = kept == k ? kth : -INFINITY;
+            }
+          }
+          __syncthreads();
+        } else {
+          if (!__syncthreads_or(offered)) break;  // no candidate: the tile is done
+          // A warp merges the candidates of its users (warp + NWARPS * j, lane
+          // j reads user j's count) into their lists in device memory.
+          const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
+          unsigned todo = __ballot_sync(FULL, mine > 0);
+          while (todo) {
+            const int j = __ffs(todo) - 1;
+            todo &= todo - 1;
+            const int r = warp + NWARPS * j;
+            const int nc = min(__shfl_sync(FULL, mine, j), CAP);
+            const bool valid = lane < nc;
+            const float cv = valid ? buf_v[r * BUF + lane] : -INFINITY;
+            const int ci = valid ? buf_i[r * BUF + lane] : -1;
+            const size_t row = ((size_t)split * num_users + u0 + r) * k;
+            const int n = merge_chunk(part_vals + row, part_idx + row, cnt[r], k, cv, ci, valid,
+                                      lane);
+            if (lane == 0) {
+              cnt[r] = n;
+              ccnt[r] = 0;
+              thr[r] = n == k ? part_vals[row + k - 1] : -INFINITY;
+            }
+          }
+          // Lists, thresholds and counters are settled; offers that found a
+          // full buffer are filtered again and offered in another round.
+          if (!__syncthreads_or(pend != 0ull)) break;
+        }
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          const float t = thr[ty + TY * p];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (!(acc[p][q] >= t)) pend &= ~(1ull << (8 * p + q));
+        }
       }
     }
 #pragma unroll
@@ -562,221 +606,52 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
   }
   __syncthreads();
 
-  for (int r = warp; r < BU; r += NWARPS) {
-    const int u = u0 + r;
-    if (u >= num_users) continue;
-    const size_t row = ((size_t)split * num_users + u) * k;
-    if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
-      const int n = min(ccnt[r], BUF);
-      float v[2];
-      int id[2];
+  if constexpr (EPI == EPI_LSE) {
+    // The 16 lanes of a half-warp hold user ty + TY * p's pairs over their
+    // items: combine them (a lane without a valid item holds (-inf, 0)).
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = lane + 32 * h;
-        v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
-        id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
-      }
-      sort64(v, id, lane);
-      if (lane < k) {
-        part_vals[row + lane] = lane < n ? v[0] : -INFINITY;
-        part_idx[row + lane] = lane < n ? id[0] : -1;
-      }
-    } else {
-      for (int p = cnt[r] + lane; p < k; p += 32) {
-        part_vals[row + p] = -INFINITY;
-        part_idx[row + p] = -1;
-      }
-    }
-  }
-}
-
-// ----------------------------------------------------------------------
-// mips_kernel (the boosted passes)
-// ----------------------------------------------------------------------
-
-// Merge one user's BI-wide score row into its list in shared memory.
-__device__ __forceinline__ int merge_row(float* ulv, int* uli, int n, int k,
-                                         const float* srow, int i0, int i_end, int lane) {
-  if (k <= 32) {  // warp-uniform
-    float rv = lane < n ? ulv[lane] : -INFINITY;
-    int ri = lane < n ? uli[lane] : -1;
+    for (int p = 0; p < 8; ++p) {
+      float m = run_m[p], sum = run_s[p];
 #pragma unroll
-    for (int q = 0; q < BI / 32; ++q) {
-      const int c = q * 32 + lane;
-      n = merge_chunk_reg(rv, ri, n, k, srow[c], i0 + c, i0 + c < i_end, lane);
-    }
-    if (lane < k) {
-      ulv[lane] = rv;
-      uli[lane] = ri;
+      for (int off = 8; off > 0; off >>= 1) {
+        const float mo = __shfl_xor_sync(FULL, m, off);
+        const float so = __shfl_xor_sync(FULL, sum, off);
+        const float mn = fmaxf(m, mo);
+        if (mn != -INFINITY)
+          sum = (m == mn ? sum : sum * expf(m - mn)) + (mo == mn ? so : so * expf(mo - mn));
+        m = mn;
+      }
+      const int u = u0 + ty + TY * p;
+      if (tx == 0 && u < num_users) {
+        part_vals[(size_t)split * num_users + u] = m;
+        part_sums[(size_t)split * num_users + u] = sum;
+      }
     }
   } else {
-#pragma unroll 1
-    for (int q = 0; q < BI / 32; ++q) {
-      const int c = q * 32 + lane;
-      n = merge_chunk(ulv, uli, n, k, srow[c], i0 + c, i0 + c < i_end, lane);
-    }
-  }
-  __syncwarp();
-  return n;
-}
-
-// Scores users [u0, u0 + BU) against catalog range [i_begin, i_end).
-// MODE_BOOST writes the range's top-k per user to part_vals / part_idx
-// [split][user][k] (idx -1 past the range's item count); MODE_LSE writes
-// the range's max and sum-exp to part_m / part_s [split][user].
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
-mips_kernel(const T* __restrict__ users, const T* __restrict__ items,
-            int num_users, int num_items, int D, int k, int split_items,
-            const float* __restrict__ pop, float weight,
-            const float* __restrict__ m_in, const float* __restrict__ s_in,
-            float* __restrict__ part_vals, int* __restrict__ part_idx,
-            float* __restrict__ part_m, float* __restrict__ part_s) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                      // [BK][A_STRIDE]
-  float* Bs = As + BK * A_STRIDE;        // [BK][B_STRIDE]
-  float* S = smem;                       // [BU][S_STRIDE], over As and Bs
-  float* row_m = smem + TILE_FLOATS;     // [BU] running max (LSE) / m (BOOST)
-  float* row_s = row_m + BU;             // [BU] running sum-exp (LSE) / sum (BOOST)
-  float* thr = row_s + BU;               // [BU] k-th value, -inf until k entries
-  int* flag = reinterpret_cast<int*>(thr + BU);   // [BU] a score reached thr
-  int* cnt = flag + BU;                           // [BU] valid top-k entries
-  float* lv = reinterpret_cast<float*>(cnt + BU); // [BU][k]
-  int* li = reinterpret_cast<int*>(lv + BU * k);  // [BU][k]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tx = tid % 16;  // items 4tx..4tx+3 and 64+4tx..64+4tx+3
-  const int ty = tid / 16;  // users 4ty..4ty+3 and 32+4ty..32+4ty+3
-  const int u0 = blockIdx.x * BU;
-  const int split = blockIdx.y;
-  const int i_begin = split * split_items;
-  const int i_end = min(num_items, i_begin + split_items);
-
-  for (int r = tid; r < BU; r += THREADS) {
-    const int u = u0 + r;
-    cnt[r] = 0;
-    flag[r] = 0;
-    thr[r] = -INFINITY;
-    if (MODE == MODE_LSE) {
-      row_m[r] = -INFINITY;
-      row_s[r] = 0.f;
-    } else {
-      row_m[r] = u < num_users ? m_in[u] : 0.f;
-      row_s[r] = u < num_users ? s_in[u] : 1.f;
-    }
-  }
-
-#pragma unroll 1
-  for (int i0 = i_begin; i0 < i_end; i0 += BI) {
-    float acc[8][8];
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-#pragma unroll 1
-    for (int d0 = 0; d0 < D; d0 += BK) {
-      __syncthreads();  // the previous chunk and the previous merge are done
-      stage<BU, A_STRIDE>(As, users, u0, num_users, d0, D);
-      stage<BI, B_STRIDE>(Bs, items, i0, i_end, d0, D);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * A_STRIDE + 4 * ty]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk * A_STRIDE + 32 + 4 * ty]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk * B_STRIDE + 4 * tx]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk * B_STRIDE + 64 + 4 * tx]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-#pragma unroll
-          for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
-      }
-    }
-
-    // Epilogue: the tile's scores (boosted for MODE_BOOST) into S; flag the
-    // users with a score that reaches their current k-th value.
-    __syncthreads();  // S overwrites the staged chunks
-#pragma unroll
-    for (int x = 0; x < 8; ++x) {
-      const int r = (x < 4) ? 4 * ty + x : 32 + 4 * ty + (x - 4);
-      const float t = thr[r];
-      bool hit = false;
-#pragma unroll
-      for (int y = 0; y < 8; ++y) {
-        const int c = (y < 4) ? 4 * tx + y : 64 + 4 * tx + (y - 4);
-        float v = acc[x][y];
-        if (i0 + c < i_end) {
-          if (MODE == MODE_BOOST) v = expf(v - row_m[r]) / row_s[r] + weight * pop[i0 + c];
-          hit = hit || v >= t;
-        }
-        S[r * S_STRIDE + c] = v;
-      }
-      if (MODE != MODE_LSE && hit) flag[r] = 1;
-    }
-    __syncthreads();
-
-#pragma unroll 1
     for (int r = warp; r < BU; r += NWARPS) {
-      if (u0 + r >= num_users) continue;
-      const float* srow = S + r * S_STRIDE;
-      if (MODE == MODE_LSE) {
-        float v[BI / 32];
-        float tmax = -INFINITY;
+      const int u = u0 + r;
+      if (u >= num_users) continue;
+      const size_t row = ((size_t)split * num_users + u) * k;
+      if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
+        const int n = min(ccnt[r], BUF);
+        float v[2];
+        int id[2];
 #pragma unroll
-        for (int q = 0; q < BI / 32; ++q) {
-          const int c = q * 32 + lane;
-          v[q] = (i0 + c < i_end) ? srow[c] : -INFINITY;
-          tmax = fmaxf(tmax, v[q]);
+        for (int h = 0; h < 2; ++h) {
+          const int e = lane + 32 * h;
+          v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
+          id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, off));
-        const float m_old = row_m[r];
-        const float m_new = fmaxf(m_old, tmax);
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < BI / 32; ++q) sum += expf(v[q] - m_new);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
-        __syncwarp();
-        if (lane == 0) {
-          row_s[r] = row_s[r] * expf(m_old - m_new) + sum;
-          row_m[r] = m_new;
+        sort64(v, id, lane);
+        if (lane < k) {
+          part_vals[row + lane] = lane < n ? v[0] : -INFINITY;
+          part_idx[row + lane] = lane < n ? id[0] : -1;
         }
       } else {
-        if (!flag[r]) continue;
-        float* ulv = lv + r * k;
-        int* uli = li + r * k;
-        const int n = merge_row(ulv, uli, cnt[r], k, srow, i0, i_end, lane);
-        if (lane == 0) {
-          cnt[r] = n;
-          flag[r] = 0;
-          thr[r] = (n == k) ? ulv[k - 1] : -INFINITY;
+        for (int p = cnt[r] + lane; p < k; p += 32) {
+          part_vals[row + p] = -INFINITY;
+          part_idx[row + p] = -1;
         }
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int r = warp; r < BU; r += NWARPS) {
-    const int u = u0 + r;
-    if (u >= num_users) continue;
-    const size_t row = (size_t)split * num_users + u;
-    if (MODE == MODE_LSE) {
-      if (lane == 0) {
-        part_m[row] = row_m[r];
-        part_s[row] = row_s[r];
-      }
-    } else {
-      const int n = cnt[r];
-      for (int p = lane; p < k; p += 32) {
-        const bool ok = p < n;
-        part_vals[row * k + p] = ok ? lv[r * k + p] : -INFINITY;
-        part_idx[row * k + p] = ok ? li[r * k + p] : -1;
       }
     }
   }
@@ -871,65 +746,59 @@ cudaError_t configure(K kernel, int threads, int smem, int* blocks_per_sm) {
 }
 
 template <typename T>
-cudaError_t tk_configure(int D, int k, int resident, int* blocks_per_sm) {
-  const int smem = tk_layout(D, sizeof(T), resident).total;
-  return k <= tk::SHARED_K ? configure(topk_kernel<T, true>, tk::THREADS, smem, blocks_per_sm)
-                           : configure(topk_kernel<T, false>, tk::THREADS, smem, blocks_per_sm);
+using TkKernel = void (*)(const T*, const T*, int, int, int, int, int, int, const float*, float,
+                          const float*, const float*, float*, int*, float*);
+
+// The instantiation of topk_kernel a launch with epilogue epi and k runs.
+template <typename T>
+TkKernel<T> tk_kernel(int epi, int k) {
+  const bool shared_list = k <= tk::SHARED_K;
+  if (epi == EPI_LSE) return topk_kernel<T, false, EPI_LSE>;
+  if (epi == EPI_BOOST)
+    return shared_list ? topk_kernel<T, true, EPI_BOOST> : topk_kernel<T, false, EPI_BOOST>;
+  return shared_list ? topk_kernel<T, true, EPI_TOPK> : topk_kernel<T, false, EPI_TOPK>;
 }
 
 template <typename T>
-cudaError_t tk_launch(const void* users, const void* items, int num_users, int num_items,
-                      int D, int k, int resident, int splits, void* part_vals,
-                      void* part_idx, cudaStream_t stream) {
+cudaError_t tk_configure(int epi, int D, int k, int resident, int* blocks_per_sm) {
+  return configure(tk_kernel<T>(epi, k), tk::THREADS,
+                   tk_layout(D, sizeof(T), resident, epi).total, blocks_per_sm);
+}
+
+// One launch of topk_kernel over `splits` block columns of the catalog.
+template <typename T>
+cudaError_t tk_launch(int epi, const void* users, const void* items, int num_users,
+                      int num_items, int D, int k, int resident, int splits, const void* pop,
+                      float weight, const void* m_in, const void* s_in, void* part_vals,
+                      void* part_idx, void* part_sums, cudaStream_t stream) {
   int blocks_per_sm = 0;
-  cudaError_t err = tk_configure<T>(D, k, resident, &blocks_per_sm);
+  cudaError_t err = tk_configure<T>(epi, D, k, resident, &blocks_per_sm);
   if (err != cudaSuccess) return err;
   const int tiles = (num_items + tk::BI - 1) / tk::BI;
   const int split_items = ((tiles + splits - 1) / splits) * tk::BI;
   const dim3 grid((num_users + tk::BU - 1) / tk::BU, splits);
-  const int smem = tk_layout(D, sizeof(T), resident).total;
-  const T* u = static_cast<const T*>(users);
-  const T* it = static_cast<const T*>(items);
-  float* pv = static_cast<float*>(part_vals);
-  int* pi = static_cast<int*>(part_idx);
-  if (k <= tk::SHARED_K)
-    topk_kernel<T, true><<<grid, tk::THREADS, smem, stream>>>(
-        u, it, num_users, num_items, D, k, split_items, resident, pv, pi);
-  else
-    topk_kernel<T, false><<<grid, tk::THREADS, smem, stream>>>(
-        u, it, num_users, num_items, D, k, split_items, resident, pv, pi);
-  return cudaGetLastError();
-}
-
-int smem_bytes(int k) { return fixed_smem_bytes() + BU * k * 8; }
-
-template <typename T, int MODE>
-int num_splits(int num_users, int num_items, int k) {
-  int blocks_per_sm = 1;
-  if (configure(mips_kernel<T, MODE>, THREADS, smem_bytes(k), &blocks_per_sm) != cudaSuccess)
-    return 1;
-  return split_count((num_users + BU - 1) / BU, (num_items + BI - 1) / BI, blocks_per_sm);
-}
-
-template <typename T, int MODE>
-cudaError_t launch_main(const void* users, const void* items, int num_users,
-                        int num_items, int D, int k, int splits, const void* pop,
-                        float weight, const void* m_in, const void* s_in,
-                        void* part_vals, void* part_idx, void* part_m, void* part_s,
-                        cudaStream_t stream) {
-  int blocks_per_sm = 0;
-  cudaError_t err = configure(mips_kernel<T, MODE>, THREADS, smem_bytes(k), &blocks_per_sm);
-  if (err != cudaSuccess) return err;
-  const int tiles = (num_items + BI - 1) / BI;
-  const int split_items = ((tiles + splits - 1) / splits) * BI;
-  const dim3 grid((num_users + BU - 1) / BU, splits);
-  mips_kernel<T, MODE><<<grid, THREADS, smem_bytes(k), stream>>>(
-      static_cast<const T*>(users), static_cast<const T*>(items), num_users, num_items,
-      D, k, split_items, static_cast<const float*>(pop), weight,
+  const int smem = tk_layout(D, sizeof(T), resident, epi).total;
+  const TkKernel<T> kernel = tk_kernel<T>(epi, k);
+  kernel<<<grid, tk::THREADS, smem, stream>>>(
+      static_cast<const T*>(users), static_cast<const T*>(items), num_users, num_items, D, k,
+      split_items, resident, static_cast<const float*>(pop), weight,
       static_cast<const float*>(m_in), static_cast<const float*>(s_in),
       static_cast<float*>(part_vals), static_cast<int*>(part_idx),
-      static_cast<float*>(part_m), static_cast<float*>(part_s));
+      static_cast<float*>(part_sums));
   return cudaGetLastError();
+}
+
+cudaError_t launch_scores(int epi, int bf16, const void* users, const void* items,
+                          int num_users, int num_items, int D, int k, int resident, int splits,
+                          const void* pop, float weight, const void* m_in, const void* s_in,
+                          void* part_vals, void* part_idx, void* part_sums,
+                          cudaStream_t stream) {
+  return bf16 ? tk_launch<__nv_bfloat16>(epi, users, items, num_users, num_items, D, k,
+                                         resident, splits, pop, weight, m_in, s_in, part_vals,
+                                         part_idx, part_sums, stream)
+              : tk_launch<float>(epi, users, items, num_users, num_items, D, k, resident,
+                                 splits, pop, weight, m_in, s_in, part_vals, part_idx,
+                                 part_sums, stream);
 }
 
 cudaError_t launch_merge(const void* part_vals, const void* part_idx, int splits,
@@ -952,60 +821,50 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Largest k the top-k kernels take: the smaller of mips_kernel's (its
-// running lists live in shared memory) and topk_kernel's.
-int mips_max_k() { return MAX_K < tk::MAX_K ? MAX_K : tk::MAX_K; }
+// Largest k the top-k epilogues take.
+int mips_max_k() { return tk::MAX_K; }
 
-// Shared-memory bytes of a topk_kernel launch (the host plans with a mirror
-// of this layout and picks resident users where they fit).
-int mips_topk_smem_bytes(int D, int bf16, int resident) {
-  return tk_layout(D, bf16 ? 2 : 4, resident).total;
+// Shared-memory bytes of a topk_kernel launch with epilogue epi (0: top-k,
+// 1: boost, 2: LSE); the host plans with a mirror of this layout and picks
+// resident users where they fit.
+int mips_topk_smem_bytes(int D, int bf16, int resident, int epi) {
+  return tk_layout(D, bf16 ? 2 : 4, resident, epi).total;
 }
 
 // Number of catalog splits a launch with these sizes uses; the caller sizes
-// the partial buffers ([splits][num_users][k], or [splits][num_users]).
-int mips_topk_splits(int num_users, int num_items, int D, int k, int resident, int bf16) {
+// the partial buffers ([splits][num_users][k], or [splits][num_users] for
+// the LSE epilogue).
+int mips_topk_splits(int num_users, int num_items, int D, int k, int resident, int bf16,
+                     int epi) {
   int blocks_per_sm = 1;
-  const cudaError_t err = bf16 ? tk_configure<__nv_bfloat16>(D, k, resident, &blocks_per_sm)
-                               : tk_configure<float>(D, k, resident, &blocks_per_sm);
+  const cudaError_t err =
+      bf16 ? tk_configure<__nv_bfloat16>(epi, D, k, resident, &blocks_per_sm)
+           : tk_configure<float>(epi, D, k, resident, &blocks_per_sm);
   if (err != cudaSuccess) return 1;
   return split_count((num_users + tk::BU - 1) / tk::BU, (num_items + tk::BI - 1) / tk::BI,
                      blocks_per_sm);
-}
-
-int mips_num_splits(int num_users, int num_items, int k, int mode, int bf16) {
-  if (mode == MODE_LSE)
-    return bf16 ? num_splits<__nv_bfloat16, MODE_LSE>(num_users, num_items, 0)
-                : num_splits<float, MODE_LSE>(num_users, num_items, 0);
-  return bf16 ? num_splits<__nv_bfloat16, MODE_BOOST>(num_users, num_items, k)
-              : num_splits<float, MODE_BOOST>(num_users, num_items, k);
 }
 
 int mips_topk_launch(const void* users, const void* items, int num_users, int num_items,
                      int D, int k, int bf16, int resident, int splits, void* part_vals,
                      void* part_idx, void* out_vals, void* out_idx, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 4 || k < 1 || k > mips_max_k()) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      bf16 ? tk_launch<__nv_bfloat16>(users, items, num_users, num_items, D, k, resident,
-                                      splits, part_vals, part_idx, st)
-           : tk_launch<float>(users, items, num_users, num_items, D, k, resident, splits,
-                              part_vals, part_idx, st);
+  if (D % 4 || k < 1 || k > tk::MAX_K) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_scores(EPI_TOPK, bf16, users, items, num_users, num_items, D, k,
+                                  resident, splits, nullptr, 0.f, nullptr, nullptr, part_vals,
+                                  part_idx, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_vals, part_idx, splits, num_users, k, out_vals, out_idx, st);
 }
 
 int mips_lse_launch(const void* users, const void* items, int num_users, int num_items,
-                    int D, int bf16, int splits, void* part_m, void* part_s, void* m_out,
-                    void* s_out, void* stream) {
+                    int D, int bf16, int resident, int splits, void* part_m, void* part_s,
+                    void* m_out, void* s_out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? launch_main<__nv_bfloat16, MODE_LSE>(users, items, num_users, num_items, D, 0,
-                                                  splits, nullptr, 0.f, nullptr, nullptr,
-                                                  nullptr, nullptr, part_m, part_s, st)
-           : launch_main<float, MODE_LSE>(users, items, num_users, num_items, D, 0, splits,
-                                          nullptr, 0.f, nullptr, nullptr, nullptr, nullptr,
-                                          part_m, part_s, st);
+  if (D % 4) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_scores(EPI_LSE, bf16, users, items, num_users, num_items, D, 0,
+                                  resident, splits, nullptr, 0.f, nullptr, nullptr, part_m,
+                                  nullptr, part_s, st);
   if (err != cudaSuccess) return (int)err;
   lse_combine_kernel<<<(num_users + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_s), splits,
@@ -1015,17 +874,14 @@ int mips_lse_launch(const void* users, const void* items, int num_users, int num
 
 int mips_boost_launch(const void* users, const void* items, const void* pop,
                       const void* m_in, const void* s_in, float weight, int num_users,
-                      int num_items, int D, int k, int bf16, int splits, void* part_vals,
-                      void* part_idx, void* out_vals, void* out_idx, void* stream) {
+                      int num_items, int D, int k, int bf16, int resident, int splits,
+                      void* part_vals, void* part_idx, void* out_vals, void* out_idx,
+                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? launch_main<__nv_bfloat16, MODE_BOOST>(users, items, num_users, num_items, D,
-                                                    k, splits, pop, weight, m_in, s_in,
-                                                    part_vals, part_idx, nullptr, nullptr,
-                                                    st)
-           : launch_main<float, MODE_BOOST>(users, items, num_users, num_items, D, k,
-                                            splits, pop, weight, m_in, s_in, part_vals,
-                                            part_idx, nullptr, nullptr, st);
+  if (D % 4 || k < 1 || k > tk::MAX_K) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_scores(EPI_BOOST, bf16, users, items, num_users, num_items, D, k,
+                                  resident, splits, pop, weight, m_in, s_in, part_vals,
+                                  part_idx, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_vals, part_idx, splits, num_users, k, out_vals, out_idx, st);
 }

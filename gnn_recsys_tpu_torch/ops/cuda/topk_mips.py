@@ -1,8 +1,9 @@
 """Full-catalog MIPS top-k: CUDA kernels, their plain versions, the wrappers.
 
 Port of ``gnn_recsys_tpu/ops/pallas/topk_mips.py``.  The kernels live in
-``gnn_recsys_tpu_torch/csrc/topk_mips.cu`` (its header says what bounds them
-and how each design works):
+``gnn_recsys_tpu_torch/csrc/topk_mips.cu``: one score-tile kernel whose three
+epilogues serve the first three wrappers below (its header says what bounds
+it and how each epilogue works):
 
 * :func:`mips_topk` — per user, the top-``k`` of ``u . i`` over the whole
   catalog (TPU ``mips_topk``).
@@ -40,29 +41,30 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.mips_max_k.argtypes = []
         lib.mips_max_k.restype = _I
-        lib.mips_num_splits.argtypes = [_I, _I, _I, _I, _I]
-        lib.mips_num_splits.restype = _I
-        lib.mips_topk_smem_bytes.argtypes = [_I, _I, _I]
+        lib.mips_topk_smem_bytes.argtypes = [_I, _I, _I, _I]
         lib.mips_topk_smem_bytes.restype = _I
-        lib.mips_topk_splits.argtypes = [_I, _I, _I, _I, _I, _I]
+        lib.mips_topk_splits.argtypes = [_I] * 7
         lib.mips_topk_splits.restype = _I
         lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                          _P]
         lib.mips_topk_launch.restype = _I
-        lib.mips_lse_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+        lib.mips_lse_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.mips_lse_launch.restype = _I
         lib.mips_boost_launch.argtypes = [
-            _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+            _P,
         ]
         lib.mips_boost_launch.restype = _I
         for d in (36, 128, 256):  # the host's plan must be the kernel's
             for bf16 in (False, True):
                 for resident in (False, True):
-                    got = lib.mips_topk_smem_bytes(d, int(bf16), int(resident))
-                    if got != topk_smem_bytes(d, bf16, resident):
-                        raise RuntimeError(f"topk_mips.cu plans {got} bytes at D={d}, "
-                                           f"bf16={bf16}, resident={resident}; the host "
-                                           f"{topk_smem_bytes(d, bf16, resident)}")
+                    for epi in EPILOGUES:
+                        got = lib.mips_topk_smem_bytes(d, int(bf16), int(resident), epi)
+                        want = topk_smem_bytes(d, bf16, resident, epi)
+                        if got != want:
+                            raise RuntimeError(
+                                f"topk_mips.cu plans {got} bytes at D={d}, bf16={bf16}, "
+                                f"resident={resident}, epilogue={epi}; the host {want}")
         lib._typed = True
     return lib
 
@@ -72,15 +74,20 @@ def max_k() -> int:
     return int(_lib().mips_max_k())
 
 
-# The shared-memory layout of the mips_topk kernel (csrc/topk_mips.cu,
-# tk_layout): users and catalog items a block and a tile, dims a ring stage,
-# ring stages, entries of a user's buffer.
+# The epilogues of csrc/topk_mips.cu's topk_kernel: the top-k of the scores
+# (mips_topk), the top-k of the boosted values (mips_boost), and the max and
+# sum-exp of the scores (mips_lse).
+EPI_TOPK, EPI_BOOST, EPI_LSE = 0, 1, 2
+EPILOGUES = (EPI_TOPK, EPI_BOOST, EPI_LSE)
+
+# Its shared-memory layout (tk_layout): users and catalog items a block and a
+# tile, dims a ring stage, ring stages, entries of a user's buffer.
 _TK_BU, _TK_BI, _TK_BK, _TK_STAGES, _TK_BUF = 128, 128, 32, 3, 64
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use
 
 
 class TopkPlan(NamedTuple):
-    """A mips_topk launch: whether the block's users stay in shared memory
+    """A topk_kernel launch: whether the block's users stay in shared memory
     for the whole catalog walk (else they stream through the ring beside the
     items), and the block's shared-memory bytes."""
 
@@ -88,24 +95,28 @@ class TopkPlan(NamedTuple):
     smem_bytes: int
 
 
-def topk_smem_bytes(d: int, bf16: bool, resident_users: bool) -> int:
-    """Shared-memory bytes of a mips_topk block at width ``d`` (a multiple of
-    4): the ring, the resident users, the per-user buffers (list and
-    candidates) and three per-user counters."""
+def topk_smem_bytes(d: int, bf16: bool, resident_users: bool, epilogue: int = EPI_TOPK) -> int:
+    """Shared-memory bytes of a topk_kernel block at width ``d`` (a multiple
+    of 4): the ring and the resident users; for the top-k epilogues also the
+    per-user buffers (list and candidates) and three per-user counters, and
+    for the boost the users' m and s."""
     esize = 2 if bf16 else 4
     ldk = _TK_BK + 4
     stage = (_TK_BI + (0 if resident_users else _TK_BU)) * ldk * esize
     padded = -(-d // _TK_BK) * _TK_BK
     users = _TK_BU * 4 * ((padded // 4) | 1) * esize if resident_users else 0
-    return _TK_STAGES * stage + users + _TK_BU * _TK_BUF * 8 + 3 * _TK_BU * 4
+    total = _TK_STAGES * stage + users
+    if epilogue != EPI_LSE:
+        total += _TK_BU * _TK_BUF * 8 + (5 if epilogue == EPI_BOOST else 3) * _TK_BU * 4
+    return total
 
 
-def topk_plan(d: int, bf16: bool) -> TopkPlan:
+def topk_plan(d: int, bf16: bool, epilogue: int = EPI_TOPK) -> TopkPlan:
     """Resident users where they fit in a block's shared memory."""
-    resident = topk_smem_bytes(d, bf16, True)
+    resident = topk_smem_bytes(d, bf16, True, epilogue)
     if resident <= SMEM_LIMIT:
         return TopkPlan(True, resident)
-    return TopkPlan(False, topk_smem_bytes(d, bf16, False))
+    return TopkPlan(False, topk_smem_bytes(d, bf16, False, epilogue))
 
 
 # ----------------------------------------------------------------------
@@ -235,8 +246,13 @@ def _check_shapes(user_emb, item_emb, k=None) -> Tuple[int, int]:
     return num_users, num_items
 
 
-# Modes of csrc/topk_mips.cu's mips_kernel.
-_LSE, _BOOST = 1, 2
+def _launch_plan(lib, num_users: int, num_items: int, d: int, k: int, bf16: bool,
+                 epilogue: int) -> Tuple[int, int]:
+    """(resident users, catalog splits) of a topk_kernel launch, on the
+    current device."""
+    resident = int(topk_plan(d, bf16, epilogue).resident_users)
+    splits = lib.mips_topk_splits(num_users, num_items, d, k, resident, int(bf16), epilogue)
+    return resident, splits
 
 
 def _partials(splits: int, num_users: int, k: int, dev):
@@ -268,9 +284,8 @@ def mips_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     vals, idx = _empty_topk(num_users, k, dev)
     if num_users:
         lib = _lib()
-        resident = int(topk_plan(d, bf16).resident_users)
         with torch.cuda.device(dev):
-            splits = lib.mips_topk_splits(num_users, num_items, d, k, resident, int(bf16))
+            resident, splits = _launch_plan(lib, num_users, num_items, d, k, bf16, EPI_TOPK)
             pv, pi = _partials(splits, num_users, k, dev)
             err = lib.mips_topk_launch(
                 ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, k, int(bf16),
@@ -298,10 +313,10 @@ def mips_lse(user_emb: torch.Tensor, item_emb: torch.Tensor, bf16: bool = False)
     if num_users:
         lib = _lib()
         with torch.cuda.device(dev):
-            splits = lib.mips_num_splits(num_users, num_items, 0, _LSE, int(bf16))
+            resident, splits = _launch_plan(lib, num_users, num_items, d, 0, bf16, EPI_LSE)
             pm, ps = _partials(splits, num_users, 0, dev)
             err = lib.mips_lse_launch(
-                ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, int(bf16),
+                ue.data_ptr(), ie.data_ptr(), num_users, num_items, d, int(bf16), resident,
                 splits, pm.data_ptr(), ps.data_ptr(), m.data_ptr(), s.data_ptr(),
                 build.stream(dev),
             )
@@ -332,12 +347,12 @@ def mips_boost(user_emb: torch.Tensor, item_emb: torch.Tensor,
     if num_users:
         lib = _lib()
         with torch.cuda.device(dev):
-            splits = lib.mips_num_splits(num_users, num_items, k, _BOOST, int(bf16))
+            resident, splits = _launch_plan(lib, num_users, num_items, d, k, bf16, EPI_BOOST)
             pv, pi = _partials(splits, num_users, k, dev)
             err = lib.mips_boost_launch(
                 ue.data_ptr(), ie.data_ptr(), pop.data_ptr(), m32.data_ptr(),
                 s32.data_ptr(), float(weight), num_users, num_items, d, k, int(bf16),
-                splits, pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                resident, splits, pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                 build.stream(dev),
             )
         build.check(lib, err, "mips_boost")

@@ -139,26 +139,36 @@ def test_leaf_ptxas_reads_registers_and_refuses_spills():
 
 
 def test_topk_and_pool_mask_ptxas_rows():
-    """The serving top-k's f32 register-list kernel and the pool mask get a
-    row each; the other instantiations are reported by the build phase but
-    hold no row; a spill in a row's kernel fails the run."""
-    def info(topk_spill=0):
+    """Serving's f32 topk_kernel instantiations (the top-k and boost
+    epilogues with lists in the shared buffer, the LSE epilogue) and the pool
+    mask get a row each; the other instantiations are reported by the build
+    phase but hold no row; a spill in a row's kernel fails the run."""
+    args = "EEEvPKT_S3_iiiiiiPKffS5_S5_PfPiS6_"
+
+    def info(topk_spill=0, boost_spill=0):
         return {"leaf_agg": {"ptxas": _leaf_lines()},
                 "topk_mips": {"ptxas": _ptxas_lines((
-                    ("topk_kernelIfLb1EEEvPKT_S3_iiiiiiPfPi", 168, topk_spill),
-                    ("topk_kernelIfLb0EEEvPKT_S3_iiiiiiPfPi", 170, 0),
-                    ("topk_kernelI13__nv_bfloat16Lb1EEEvPKT_S4_iiiiiiPfPi", 166, 0),
-                    ("mips_kernelIfLi2EEEvPKT_S3_iiiiiPKffS5_S5_PfPiS6_S6_", 128, 0)))},
+                    (f"topk_kernelIfLb1ELi0{args}", 168, topk_spill),
+                    (f"topk_kernelIfLb0ELi0{args}", 170, 0),
+                    (f"topk_kernelIfLb1ELi1{args}", 172, boost_spill),
+                    (f"topk_kernelIfLb0ELi1{args}", 174, 0),
+                    (f"topk_kernelIfLb0ELi2{args}", 150, 0),
+                    ("topk_kernelI13__nv_bfloat16Lb1ELi0EEEvPKT_S4_iiiiiiPKffS6_S6_PfPiS7_",
+                     166, 0)))},
                 "pool_mask": {"ptxas": _ptxas_lines((
                     ("pool_mask_kernelEPKiS1_iiiiPf", 40, 0),))}}
 
     got = chip_smoke.kernel_ptxas(info())
-    assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "mips_topk",
-                        "pool_membership_mask"}
-    assert got["mips_topk"] == {"topk_kernelIfLb1EE": {"registers": 168, "spill_bytes": 0}}
+    assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "mips_topk", "mips_lse",
+                        "mips_boost", "pool_membership_mask"}
+    assert got["mips_topk"] == {"topk_kernelIfLb1ELi0EE": {"registers": 168, "spill_bytes": 0}}
+    assert got["mips_boost"] == {"topk_kernelIfLb1ELi1EE": {"registers": 172, "spill_bytes": 0}}
+    assert got["mips_lse"] == {"topk_kernelIfLb0ELi2EE": {"registers": 150, "spill_bytes": 0}}
     assert got["pool_membership_mask"]["pool_mask_kernel"]["registers"] == 40
-    with pytest.raises(AssertionError, match="topk_kernelIfLb1EE spills 12 bytes"):
+    with pytest.raises(AssertionError, match="topk_kernelIfLb1ELi0EE spills 12 bytes"):
         chip_smoke.kernel_ptxas(info(topk_spill=8))
+    with pytest.raises(AssertionError, match="topk_kernelIfLb1ELi1EE spills 12 bytes"):
+        chip_smoke.kernel_ptxas(info(boost_spill=8))
 
 
 def test_kernel_probe_patches_apply_to_the_sources():
@@ -172,7 +182,7 @@ def test_kernel_probe_patches_apply_to_the_sources():
     topk = open(os.path.join(csrc, "topk_mips.cu")).read()
     pool = open(os.path.join(csrc, "pool_mask.cu")).read()
     for src, edits in ((topk, kernel_probe.SCORE_ONLY), (topk, kernel_probe.TOPK_PHASES),
-                       (pool, kernel_probe.POOL_BLOCKS)):
+                       (topk, kernel_probe.EXACT_MATH), (pool, kernel_probe.POOL_BLOCKS)):
         assert kernel_probe.patch(src, edits) != src
     with pytest.raises(RuntimeError, match="no longer has one"):
         kernel_probe.patch(pool, kernel_probe.SCORE_ONLY)

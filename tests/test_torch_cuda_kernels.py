@@ -103,28 +103,50 @@ def test_mips_topk_bf16(dev, d):
     assert_topk_close(vals, idx, rvals, ridx, _scores(ue, ie, bf16=True))
 
 
-@pytest.mark.parametrize("u,i,d,k,w", [(13, 333, 16, 6, 2.5), (300, 30000, 128, 26, 1.0),
-                                       (40, 3000, 30, 10, 1.0)])
-def test_mips_topk_boosted_matches_plain(dev, u, i, d, k, w):
+@pytest.mark.parametrize("u,i,d,k,w,bf16", [
+    (13, 333, 16, 6, 2.5, False), (300, 30000, 128, 26, 1.0, False),
+    (40, 3000, 30, 10, 1.0, False),
+    # The cases of mips_topk: bf16 (at D = 33 too), a width zero-padded to
+    # 36, k above 32 (partial lists in device memory), k = max_k() (0 below),
+    # users streamed through the ring (D = 256 in f32: the LSE pass keeps
+    # them resident); catalogs of fewer than 16 items (threads with no item)
+    # and user counts that are not a multiple of 128.
+    (300, 5000, 128, 26, 1.0, True), (300, 5000, 33, 26, 1.0, True),
+    (260, 5000, 33, 26, 1.0, False), (130, 4000, 128, 100, 1.0, False),
+    (70, 2000, 32, 0, 1.0, False), (300, 5000, 256, 26, 1.0, False),
+    (130, 11, 16, 5, 1.0, False), (129, 7, 8, 7, 2.0, False),
+])
+def test_mips_topk_boosted_matches_plain(dev, u, i, d, k, w, bf16):
+    k = k or tm.max_k()
     rng = np.random.default_rng(5)
     ue, ie = _emb(rng, u, d, dev), _emb(rng, i, d, dev)
     ue = ue / ue.norm(dim=1, keepdim=True)
     ie = ie / ie.norm(dim=1, keepdim=True)
     pop = torch.tensor(rng.uniform(0, 0.05, i).astype(np.float32), device=dev)
-    m, s = tm.mips_lse(ue, ie)
-    rm, rs = tm.mips_lse_reference(ue, ie)
+    m, s = tm.mips_lse(ue, ie, bf16=bf16)
+    rm, rs = tm.mips_lse_reference(ue, ie, bf16=bf16)
     torch.testing.assert_close(m, rm, rtol=0, atol=TOL)
     torch.testing.assert_close(s, rs, rtol=TOL, atol=0)
-    vals, idx = tm.mips_boost(ue, ie, pop, rm, rs, k, weight=w)
-    rvals, ridx = tm.mips_boost_reference(ue, ie, pop, rm, rs, k, weight=w)
-    sc = _scores(ue, ie)
+    vals, idx = tm.mips_boost(ue, ie, pop, rm, rs, k, weight=w, bf16=bf16)
+    rvals, ridx = tm.mips_boost_reference(ue, ie, pop, rm, rs, k, weight=w, bf16=bf16)
+    sc = _scores(ue, ie, bf16=bf16)
     e = np.exp(sc - rm.double().cpu().numpy()[:, None])
     boosted = e / rs.double().cpu().numpy()[:, None] + w * pop.double().cpu().numpy()
     assert_topk_close(vals, idx, rvals, ridx, boosted)
     n0 = tm.mips_topk_boosted.launches
-    v2, i2 = tm.mips_topk_boosted(ue, ie, pop, k, weight=w)
+    v2, i2 = tm.mips_topk_boosted(ue, ie, pop, k, weight=w, bf16=bf16)
     assert tm.mips_topk_boosted.launches == n0 + 1
     assert_topk_close(v2, i2, rvals, ridx, boosted)
+
+
+def test_mips_topk_boosted_ties_lowest_index(dev):
+    """Identical items and zero popularity: every boosted value has the same
+    bits, so the lowest indices win, at k on both sides of 32."""
+    ue = torch.ones((130, 8), device=dev)
+    ie = torch.ones((700, 8), device=dev)
+    for k in (6, 40):
+        _, idx = tm.mips_topk_boosted(ue, ie, torch.zeros(700, device=dev), k)
+        assert (idx.cpu() == torch.arange(k)).all()
 
 
 def test_cpu_tensors_take_the_plain_version(dev):
@@ -284,11 +306,13 @@ def test_pool_membership_mask_repeats_and_negatives(dev, k):
 def test_host_plans_match_the_c_exports(dev):
     """The wrappers' pure launch plans against the kernels' own exports."""
     lib = tm._lib()
+    assert tm.max_k() == 1024
     for d in (4, 32, 36, 128, 132, 256, 1024):
         for bf16 in (False, True):
             for resident in (False, True):
-                assert lib.mips_topk_smem_bytes(d, int(bf16), int(resident)) == \
-                    tm.topk_smem_bytes(d, bf16, resident)
+                for epi in tm.EPILOGUES:
+                    assert lib.mips_topk_smem_bytes(d, int(bf16), int(resident), epi) == \
+                        tm.topk_smem_bytes(d, bf16, resident, epi)
     tile = (ctypes.c_int * 2)()
     assert pm._lib().pool_mask_tile(tile) == 0 and tuple(tile) == pm._TILE
 

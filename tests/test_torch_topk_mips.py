@@ -183,3 +183,51 @@ def test_topk_plan_fits_shared_memory():
             plan = tm.topk_plan(d, bf16)
             assert plan.smem_bytes <= tm.SMEM_LIMIT and plan.smem_bytes % 16 == 0
             assert plan.smem_bytes == tm.topk_smem_bytes(d, bf16, plan.resident_users)
+
+
+@pytest.mark.parametrize("epilogue", [tm.EPI_TOPK, tm.EPI_BOOST, tm.EPI_LSE])
+def test_layout_mirror_of_each_epilogue(epilogue):
+    """The kernel's shared-memory layout by epilogue: the LSE pass holds only
+    the ring and the users (no per-user buffers), the boost pass the top-k
+    layout and its users' m and s; every plan fits a block in 16-byte
+    sections, and the LSE pass keeps the users resident where the top-k
+    passes cannot (D = 256 in f32)."""
+    lists = 128 * 64 * 8 + 3 * 128 * 4  # buffers and counters of 128 users
+    for d in range(4, 1025, 4):
+        for bf16 in (False, True):
+            for resident in (False, True):
+                base = tm.topk_smem_bytes(d, bf16, resident, tm.EPI_LSE)
+                got = tm.topk_smem_bytes(d, bf16, resident, epilogue)
+                assert got == base + {tm.EPI_TOPK: lists, tm.EPI_BOOST: lists + 2 * 128 * 4,
+                                      tm.EPI_LSE: 0}[epilogue]
+            plan = tm.topk_plan(d, bf16, epilogue)
+            assert plan.smem_bytes <= tm.SMEM_LIMIT and plan.smem_bytes % 16 == 0
+            assert plan.smem_bytes == tm.topk_smem_bytes(d, bf16, plan.resident_users, epilogue)
+    assert tm.topk_plan(256, False, epilogue).resident_users == (epilogue == tm.EPI_LSE)
+    assert tm.topk_plan(d, True) == tm.topk_plan(d, True, tm.EPI_TOPK)
+
+
+@pytest.mark.parametrize("u,i,d,k,w", [(13, 11, 16, 5, 2.5), (9, 7, 8, 7, 1.0),
+                                       (20, 300, 16, 40, 2.0)])
+def test_boosted_plain_versions_match_pallas_small_catalog_and_wide_k(u, i, d, k, w):
+    """Catalogs of fewer than 16 items (the kernels' threads with no item)
+    and k above 32: the plain versions of both passes against JAX's two
+    Pallas kernels (interpret mode), near-ties held as chip_smoke holds
+    them; mips_lse's pair against the f64 log-sum-exp."""
+    rng = np.random.default_rng(11)
+    ue = rng.normal(size=(u, d)).astype(np.float32)
+    ie = rng.normal(size=(i, d)).astype(np.float32)
+    pop = rng.uniform(0, 0.05, i).astype(np.float32)
+    jv, ji = jmips_boosted(jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(pop), k,
+                           weight=w, tile_users=8, tile_items=64, interpret=True)
+    s64 = ue.astype(np.float64) @ ie.astype(np.float64).T
+    lse = np.log(np.exp(s64 - s64.max(axis=1, keepdims=True)).sum(axis=1)) + s64.max(axis=1)
+    m, s = tm.mips_lse_reference(torch.from_numpy(ue), torch.from_numpy(ie))
+    np.testing.assert_allclose(m.numpy(), s64.max(axis=1), rtol=0, atol=TOL)
+    np.testing.assert_allclose(m.double().numpy() + np.log(s.double().numpy()), lse,
+                               rtol=0, atol=TOL)
+    e64 = np.exp(s64 - s64.max(axis=1, keepdims=True))
+    boosted = e64 / e64.sum(axis=1, keepdims=True) + w * pop.astype(np.float64)
+    args = (torch.from_numpy(ue), torch.from_numpy(ie), torch.from_numpy(pop), k)
+    for fn in (tm.mips_topk_boosted, tm.mips_topk_boosted_reference):
+        _check_near_ties(*fn(*args, weight=w), jv, ji, boosted)
