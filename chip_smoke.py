@@ -23,7 +23,8 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    computes the same function, that call's.  The MIPS kernels at a serving shape (U=4096 users,
    I=30,000 items, D=128, k=26), a tied case, a bf16 case, D=33 (zero-padded
    to 36); ``mips_lse`` and ``mips_boost`` also at k=100 with U=4093, k =
-   ``max_k()`` and a catalog of 11 items (from a generator of their own);
+   ``max_k()``, a catalog of 11 items and k=266 (from a generator of their
+   own), ``mips_topk`` too where k > 32;
    ``leaf_mean_nn``
    forward and backward at the training step's widest leaf (P=18,432, K=8,
    F=8, H=256) in f32 and bf16, a ragged P and an all-masked row, the
@@ -405,7 +406,11 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
         *errs, (cm, cs) = check_boosted(f" {case}", cue, cie, cpop, ck, weight, cbf16)
         calls = (lambda: tm.mips_lse(cue, cie, bf16=cbf16),
                  lambda: tm.mips_boost(cue, cie, cpop, cm, cs, ck, weight=weight, bf16=cbf16))
-        for name, e, call in zip(("mips_lse", "mips_boost"), errs, calls):
+        if ck > 32:  # mips_topk's lists in device memory too
+            errs.append(check_topk(f"mips_topk {case}", *tm.mips_topk(cue, cie, ck),
+                                   *tm.mips_topk_reference(cue, cie, ck), dot_scores(cue, cie)))
+            calls += (lambda: tm.mips_topk(cue, cie, ck),)
+        for name, e, call in zip(("mips_lse", "mips_boost", "mips_topk"), errs, calls):
             say("kernel_case", name=name, case=case, shape=[cu, ci, cd, ck], max_abs_err=e,
                 ms=device_ms(call) if timed else None)
         lse_err, boost_err = max(lse_err, errs[0]), max(boost_err, errs[1])
@@ -428,13 +433,15 @@ def boosted_cases(num_users, num_items, dim, k, k_max) -> dict:
     items, dim, k, bf16): bf16; a width zero-padded to 36; k above 32 (the
     partial lists in device memory) at a user count that is not a multiple
     of 128; k = ``k_max``; a catalog of fewer than 16 items (threads with no
-    item)."""
+    item); k=266, the widest fetch serving makes (k=10 and a user with 256
+    bought items)."""
     return {"bf16": (num_users, num_items, dim, k, True),
             "D=33": (num_users, num_items, 33, k, False),
             "k=100": (num_users - 3, num_items, dim, min(100, num_items), False),
             "k=max_k": (min(num_users, 300), min(num_items, 5000), dim,
                         min(k_max, num_items, 5000), False),
-            "I=11": (min(num_users, 130), 11, dim, min(k, 5), False)}
+            "I=11": (min(num_users, 130), 11, dim, min(k, 5), False),
+            "k=266": (num_users, num_items, dim, min(266, num_items), False)}
 
 
 def check_boosted(what, ue, ie, pop, k, weight, bf16) -> tuple:

@@ -33,18 +33,20 @@
 // EPI_TOPK.  A thread compares its 64 scores with its users' current k-th
 // values and sends only those that reach them to the user's buffer in shared
 // memory (the 16 lanes of a half-warp share a user: a prefix sum of their
-// counts and one shared atomic place them).  For k <= 32 the buffer holds
-// BUF=64 entries: the user's list, then the candidates offered since.  Offers
-// only append, so a tile costs one barrier; when a buffer fills, its warp
-// sorts it (a bitonic network over 64 entries, two a lane, in registers) and
-// keeps the k best, which also raises the user's k-th value.  Every
-// candidate that reaches a k-th value needs an insert in a list kept in
-// order, one at a time a user; a buffer needs one sort for every 32 or more
-// of them.  For k > 32 a warp merges up to CAP candidates a user at a time
-// into its list in the block's row of the partial lists in device memory.  A
-// list is the first k entries of the order (value descending, index
-// ascending), that of a stable descending sort (the lowest-index tie rule of
-// _extract_topk); columns >= num_items never enter.
+// counts and one shared atomic place them).  The buffer holds BUF=64
+// entries.  Offers only append, so a tile costs one barrier; when a buffer
+// fills, its warp sorts it (a bitonic network over 64 entries, two a lane, in
+// registers).  For k <= 32 the buffer holds the user's list, then the
+// candidates offered since, and the sort keeps the k best, which also raises
+// the user's k-th value.  Every candidate that reaches a k-th value needs an
+// insert in a list kept in order, one at a time a user; a buffer needs one
+// sort for every 32 or more of them.  For k > 32 the list lives in the
+// block's row of the partial lists in device memory: the sorted buffer is
+// merged into it in one pass (each entry's new place from a count of the
+// other side's entries before it, merge_chunk) and empties.  A list is the
+// first k entries of the order (value descending, index ascending), that of
+// a stable descending sort (the lowest-index tie rule of _extract_topk);
+// columns >= num_items never enter.
 //
 // EPI_BOOST.  The same top-k on exp(score - m[u]) / s[u] + weight * pop[i],
 // m and s from pass 1.  A thread turns its 64 accumulators into those values
@@ -104,7 +106,6 @@ constexpr int THREADS = 16 * TY;   // 16 x TY threads, 8 x 8 scores each
 constexpr int NWARPS = THREADS / 32;
 constexpr int STAGES = 3;          // ring stages in flight
 constexpr int BUF = 64;            // a user's buffer: its list, then new candidates
-constexpr int CAP = 32;            // candidate slots a user between merges, k > SHARED_K
 constexpr int SHARED_K = 32;       // largest k whose lists live in the buffer
 constexpr int LDK = BK + 4;        // elements a staged row: an odd count of 4-element groups
 constexpr int MAX_K = 1024;        // the merge kernel holds 4 lists of k in shared memory
@@ -126,53 +127,84 @@ __device__ __forceinline__ bool before(float v, int i, float pv, int pi) {
   return v > pv || (v == pv && i < pi);
 }
 
-// Merge 32 candidates (one per lane; `valid` marks real ones) into a
-// running top-k (lv, li; n valid entries, n uniform across the warp), in
-// shared or device memory.  Called by a whole warp; returns the new n.
+// Merge 32 * H candidates, entry e = lane + 32h, sorted in list order
+// across the warp with the nc real ones first, into a running top-k (lv, li;
+// n entries, n uniform across the warp) in shared or device memory, keeping
+// the first k of the merged order.  List entry j moves to j plus the number
+// of candidates before it (a binary search over the candidates by shuffles),
+// candidate e to e plus the number of list entries before it (the entries
+// whose count is at most e).  List chunks move from the last one down, so no
+// entry is overwritten before it is read; the candidates land last, in the
+// slots left free.  Called by a whole warp; returns the new n.
+template <int H>
 __device__ __forceinline__ int merge_chunk(float* lv, int* li, int n, int k,
-                                           float v, int idx, bool valid, int lane) {
-  bool pass = valid;
-  if (n == k) pass = pass && before(v, idx, lv[k - 1], li[k - 1]);
-  unsigned mask = __ballot_sync(FULL, pass);
-  while (mask) {
-    const int src = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const float cv = __shfl_sync(FULL, v, src);
-    const int ci = __shfl_sync(FULL, idx, src);
-    if (n == k && !before(cv, ci, lv[k - 1], li[k - 1])) continue;
-    // Insert position: entries that come before the candidate.
-    int pos = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int p = base + lane;
-      const bool b = p < n && before(lv[p], li[p], cv, ci);
-      pos += __popc(__ballot_sync(FULL, b));
-    }
-    // Shift [pos, last) one slot right, highest chunk first.
-    const int last = min(n, k - 1);
-    for (int hi = last; hi > pos; hi -= 32) {
-      const int p = hi - 1 - lane;
-      const bool act = p >= pos;
-      float tv = 0.f;
-      int ti = 0;
-      if (act) {
-        tv = lv[p];
-        ti = li[p];
+                                           const float (&cv)[H], const int (&ci)[H], int nc,
+                                           int lane) {
+  if (nc == 0) return n;
+  if (n == k) {  // nothing enters unless the best candidate beats the k-th
+    const float bv = __shfl_sync(FULL, cv[0], 0);
+    const int bi = __shfl_sync(FULL, ci[0], 0);
+    if (!before(bv, bi, lv[k - 1], li[k - 1])) return n;
+  }
+  int ahead[H];  // list entries before candidate lane + 32h
+#pragma unroll
+  for (int h = 0; h < H; ++h) ahead[h] = 0;
+  for (int base = (n + 31) / 32 * 32 - 32; base >= 0; base -= 32) {
+    const int j = base + lane;
+    const bool in = j < n;
+    const float xv = in ? lv[j] : 0.f;
+    const int xi = in ? li[j] : 0;
+    // Candidates before entry j: the longest prefix of them that comes first.
+    int b = 0;
+#pragma unroll
+    for (int step = 32 * H; step > 0; step >>= 1) {
+      const int probe = b + step - 1;
+      const int src = probe & 31;
+      float pv = __shfl_sync(FULL, cv[0], src);
+      int pi = __shfl_sync(FULL, ci[0], src);
+#pragma unroll
+      for (int h = 1; h < H; ++h) {
+        const float hv = __shfl_sync(FULL, cv[h], src);
+        const int hi = __shfl_sync(FULL, ci[h], src);
+        if (probe >> 5 == h) {
+          pv = hv;
+          pi = hi;
+        }
       }
-      __syncwarp();
-      if (act) {
-        lv[p + 1] = tv;
-        li[p + 1] = ti;
-      }
-      __syncwarp();
+      if (probe < nc && before(pv, pi, xv, xi)) b += step;
     }
-    if (lane == 0) {
-      lv[pos] = cv;
-      li[pos] = ci;
+    if (!in) b = INT_MAX;  // before no candidate
+    // Entries of this chunk before each candidate: the lanes whose count is
+    // at most e (the counts rise along the lanes).
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int e = lane + 32 * h;
+      int c = 0;
+#pragma unroll
+      for (int step = 32; step > 0; step >>= 1) {
+        const int probe = c + step - 1;
+        const int pb = __shfl_sync(FULL, b, probe & 31);
+        if (probe < 32 && pb <= e) c += step;
+      }
+      ahead[h] += c;
+    }
+    __syncwarp();  // the chunk is read
+    if (in && j + b < k) {
+      lv[j + b] = xv;
+      li[j + b] = xi;
     }
     __syncwarp();
-    n = min(n + 1, k);
   }
-  return n;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int e = lane + 32 * h;
+    if (e < nc && e + ahead[h] < k) {
+      lv[e + ahead[h]] = cv[h];
+      li[e + ahead[h]] = ci[h];
+    }
+  }
+  __syncwarp();
+  return min(n + nc, k);
 }
 
 // The same merge for k <= 32, with the list in registers: lane p holds
@@ -363,7 +395,7 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
             const float* __restrict__ s_in, float* __restrict__ part_vals,
             int* __restrict__ part_idx, float* __restrict__ part_sums) {
   constexpr int BU = tk::BU, BI = tk::BI, BK = tk::BK, TY = tk::TY, THREADS = tk::THREADS;
-  constexpr int NWARPS = tk::NWARPS, STAGES = tk::STAGES, CAP = tk::CAP, LDK = tk::LDK;
+  constexpr int NWARPS = tk::NWARPS, STAGES = tk::STAGES, LDK = tk::LDK;
   constexpr int BUF = tk::BUF;
   extern __shared__ __align__(16) unsigned char tsmem[];
   const TkLayout L = tk_layout(D, sizeof(T), resident, EPI);
@@ -488,7 +520,6 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
         // each user's slots with one atomic (a user's count before an offer is
         // at most BUF, so a byte holds every start position too).
         const unsigned long long offer_bits = pend;
-        bool offered = false;
         if (__any_sync(FULL, pend != 0ull)) {
           unsigned long long mine = 0ull;
 #pragma unroll
@@ -513,7 +544,6 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
             }
           }
           base = __shfl_sync(FULL, base, 0, 16) + (incl - mine);  // bytewise: no carries
-          offered = mine != 0ull;
 #pragma unroll
           for (int p = 0; p < 8; ++p) {
             const int r = ty + TY * p;
@@ -521,7 +551,7 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
 #pragma unroll
             for (int q = 0; q < 8; ++q) {
               if (!((offer_bits >> (8 * p + q)) & 1ull)) continue;
-              if (pos < (SHARED_LIST ? BUF : CAP)) {  // else it stays pending
+              if (pos < BUF) {  // else it stays pending
                 buf_v[r * BUF + pos] = acc[p][q];
                 buf_i[r * BUF + pos] = i0 + tx + 16 * q;
                 pend &= ~(1ull << (8 * p + q));
@@ -530,27 +560,29 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
             }
           }
         }
-        if constexpr (SHARED_LIST) {
-          // Offers only append; a tile whose offers all found room is done.
-          if (!__syncthreads_or(pend != 0ull)) break;
-          // Some buffer is full: each warp sorts its users' fuller buffers
-          // (users warp + NWARPS * j) and cuts each back to its k best.
-          const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
-          unsigned todo = __ballot_sync(FULL, mine > BUF - 16);
-          while (todo) {
-            const int j = __ffs(todo) - 1;
-            todo &= todo - 1;
-            const int r = warp + NWARPS * j;
-            const int n = min(__shfl_sync(FULL, mine, j), BUF);
-            float v[2];
-            int id[2];
+        // Offers only append; a tile whose offers all found room is done.
+        if (!__syncthreads_or(pend != 0ull)) break;
+        // Some buffer is full: each warp sorts its users' fuller buffers
+        // (users warp + NWARPS * j).  With SHARED_LIST a buffer keeps its k
+        // best; else they merge into the user's list in device memory and the
+        // buffer empties.
+        const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
+        unsigned todo = __ballot_sync(FULL, mine > BUF - 16);
+        while (todo) {
+          const int j = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const int r = warp + NWARPS * j;
+          const int n = min(__shfl_sync(FULL, mine, j), BUF);
+          float v[2];
+          int id[2];
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int e = lane + 32 * h;
-              v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
-              id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
-            }
-            sort64(v, id, lane);
+          for (int h = 0; h < 2; ++h) {
+            const int e = lane + 32 * h;
+            v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
+            id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
+          }
+          sort64(v, id, lane);
+          if constexpr (SHARED_LIST) {
             const int kept = min(n, k);
             if (lane < kept) {
               buf_v[r * BUF + lane] = v[0];
@@ -561,35 +593,18 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
               ccnt[r] = kept;
               thr[r] = kept == k ? kth : -INFINITY;
             }
-          }
-          __syncthreads();
-        } else {
-          if (!__syncthreads_or(offered)) break;  // no candidate: the tile is done
-          // A warp merges the candidates of its users (warp + NWARPS * j, lane
-          // j reads user j's count) into their lists in device memory.
-          const int mine = lane < BU / NWARPS ? ccnt[warp + NWARPS * lane] : 0;
-          unsigned todo = __ballot_sync(FULL, mine > 0);
-          while (todo) {
-            const int j = __ffs(todo) - 1;
-            todo &= todo - 1;
-            const int r = warp + NWARPS * j;
-            const int nc = min(__shfl_sync(FULL, mine, j), CAP);
-            const bool valid = lane < nc;
-            const float cv = valid ? buf_v[r * BUF + lane] : -INFINITY;
-            const int ci = valid ? buf_i[r * BUF + lane] : -1;
+          } else {
             const size_t row = ((size_t)split * num_users + u0 + r) * k;
-            const int n = merge_chunk(part_vals + row, part_idx + row, cnt[r], k, cv, ci, valid,
-                                      lane);
+            const int kept = merge_chunk<2>(part_vals + row, part_idx + row, cnt[r], k, v, id, n,
+                                            lane);
             if (lane == 0) {
-              cnt[r] = n;
+              cnt[r] = kept;
               ccnt[r] = 0;
-              thr[r] = n == k ? part_vals[row + k - 1] : -INFINITY;
+              thr[r] = kept == k ? part_vals[row + k - 1] : -INFINITY;
             }
           }
-          // Lists, thresholds and counters are settled; offers that found a
-          // full buffer are filtered again and offered in another round.
-          if (!__syncthreads_or(pend != 0ull)) break;
         }
+        __syncthreads();
 #pragma unroll
         for (int p = 0; p < 8; ++p) {
           const float t = thr[ty + TY * p];
@@ -632,23 +647,25 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
       const int u = u0 + r;
       if (u >= num_users) continue;
       const size_t row = ((size_t)split * num_users + u) * k;
-      if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
-        const int n = min(ccnt[r], BUF);
-        float v[2];
-        int id[2];
+      const int n = min(ccnt[r], BUF);
+      float v[2];
+      int id[2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = lane + 32 * h;
-          v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
-          id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
-        }
-        sort64(v, id, lane);
+      for (int h = 0; h < 2; ++h) {
+        const int e = lane + 32 * h;
+        v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
+        id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
+      }
+      sort64(v, id, lane);
+      if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
         if (lane < k) {
           part_vals[row + lane] = lane < n ? v[0] : -INFINITY;
           part_idx[row + lane] = lane < n ? id[0] : -1;
         }
-      } else {
-        for (int p = cnt[r] + lane; p < k; p += 32) {
+      } else {  // the buffer's rest merged into the list; the tail past it empty
+        const int kept = merge_chunk<2>(part_vals + row, part_idx + row, cnt[r], k, v, id, n,
+                                        lane);
+        for (int p = kept + lane; p < k; p += 32) {
           part_vals[row + p] = -INFINITY;
           part_idx[row + p] = -1;
         }
@@ -684,8 +701,13 @@ merge_kernel(const float* __restrict__ part_vals, const int* __restrict__ part_i
       const bool in = p < k;
       const int i = in ? part_idx[row + p] : -1;
       const float v = in ? part_vals[row + p] : -INFINITY;
-      n = (k <= 32) ? merge_chunk_reg(rv, ri, n, k, v, i, i >= 0, lane)
-                    : merge_chunk(lv, li, n, k, v, i, i >= 0, lane);
+      if (k <= 32) {
+        n = merge_chunk_reg(rv, ri, n, k, v, i, i >= 0, lane);
+      } else {  // a chunk of a partial list is sorted, its real entries first
+        const float cv[1] = {v};
+        const int ci[1] = {i};
+        n = merge_chunk<1>(lv, li, n, k, cv, ci, __popc(__ballot_sync(FULL, i >= 0)), lane);
+      }
     }
   }
   if (k <= 32 && lane < k) {

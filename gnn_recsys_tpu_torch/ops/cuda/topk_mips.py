@@ -36,25 +36,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the library's exports (this
+    library, or an edited copy of its source built elsewhere)."""
+    lib.mips_max_k.argtypes = []
+    lib.mips_max_k.restype = _I
+    lib.mips_topk_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.mips_topk_smem_bytes.restype = _I
+    lib.mips_topk_splits.argtypes = [_I] * 7
+    lib.mips_topk_splits.restype = _I
+    lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+    lib.mips_topk_launch.restype = _I
+    lib.mips_lse_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+    lib.mips_lse_launch.restype = _I
+    lib.mips_boost_launch.argtypes = [
+        _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ]
+    lib.mips_boost_launch.restype = _I
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_typed", False):
-        lib.mips_max_k.argtypes = []
-        lib.mips_max_k.restype = _I
-        lib.mips_topk_smem_bytes.argtypes = [_I, _I, _I, _I]
-        lib.mips_topk_smem_bytes.restype = _I
-        lib.mips_topk_splits.argtypes = [_I] * 7
-        lib.mips_topk_splits.restype = _I
-        lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                         _P]
-        lib.mips_topk_launch.restype = _I
-        lib.mips_lse_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-        lib.mips_lse_launch.restype = _I
-        lib.mips_boost_launch.argtypes = [
-            _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-            _P,
-        ]
-        lib.mips_boost_launch.restype = _I
+        _bind(lib)
         for d in (36, 128, 256):  # the host's plan must be the kernel's
             for bf16 in (False, True):
                 for resident in (False, True):

@@ -18,10 +18,8 @@ with lists in the shared buffer (``topk_kernel<float, true, EPI_TOPK>``, k=26):
   stands on).
 * ``boosted_passes``: ``mips_lse`` and ``mips_boost`` at the serving shape
   against the same score-only copy (``topk_kernel<float, false, EPI_LSE>``
-  and ``<float, true, EPI_BOOST>``), and against a copy whose epilogues take
-  ``expf`` and the true division in place of ``__expf`` and ``__fdividef``
-  (``exact_math``), with each copy's largest difference from the plain
-  versions.
+  and ``<float, true, EPI_BOOST>``), with their largest differences from
+  the plain versions.
 * ``topk_phases``: a copy with ``clock64`` probes, cycles a warp spends in
   each phase of the kernel (waiting for a ring stage, copies and FMAs, the
   filter, the offers, barriers, sorting full buffers), the buffers sorted
@@ -31,7 +29,8 @@ with lists in the shared buffer (``topk_kernel<float, true, EPI_TOPK>``, k=26):
   life, its prologue (loads, set build) and the last block's start.
 
 The copies patch the sources' text and stop with an error where a patched
-line has changed.  Times are device times (``chip_smoke.device_ms``) or CUDA
+line has changed; the MIPS wrappers launch a copy's kernels inside
+``copy_call``.  Times are device times (``chip_smoke.device_ms``) or CUDA
 events around a call (``chip_smoke.time_ms``).
 """
 
@@ -97,15 +96,15 @@ TOPK_PHASES = [
      "    __syncthreads();  // stage s is in; every thread is done with stage s - 1\n    PT(0)\n"),
     ("    if (c != nchunks - 1) continue;\n", "    PT(1)\n    if (c != nchunks - 1) continue;\n"),
     ("      while (true) {\n        // Offer:", "      PT(2)\n      while (true) {\n        // Offer:"),
-    ("          // Offers only append; a tile whose offers all found room is done.\n"
-     "          if (!__syncthreads_or(pend != 0ull)) break;\n",
-     "          PT(3)\n          const int more = __syncthreads_or(pend != 0ull);\n          PT(4)\n"
-     "          if (!more) break;\n"),
-    ("            const int n = min(__shfl_sync(FULL, mine, j), BUF);\n",
-     "            const int n = min(__shfl_sync(FULL, mine, j), BUF);\n"
-     "            if (lane == 0) { sprof[warp][6] += 1; sprof[warp][7] += n; }\n"),
-    ("          __syncthreads();\n        } else {",
-     "          PT(5)\n          __syncthreads();\n          PT(4)\n        } else {"),
+    ("        // Offers only append; a tile whose offers all found room is done.\n"
+     "        if (!__syncthreads_or(pend != 0ull)) break;\n",
+     "        PT(3)\n        const int more = __syncthreads_or(pend != 0ull);\n        PT(4)\n"
+     "        if (!more) break;\n"),
+    ("          const int n = min(__shfl_sync(FULL, mine, j), BUF);\n",
+     "          const int n = min(__shfl_sync(FULL, mine, j), BUF);\n"
+     "          if (lane == 0) { sprof[warp][6] += 1; sprof[warp][7] += n; }\n"),
+    ("        }\n        __syncthreads();\n#pragma unroll\n",
+     "        }\n        PT(5)\n        __syncthreads();\n        PT(4)\n#pragma unroll\n"),
     ("            if (!(acc[p][q] >= t)) pend &= ~(1ull << (8 * p + q));\n        }\n      }\n",
      "            if (!(acc[p][q] >= t)) pend &= ~(1ull << (8 * p + q));\n        }\n        PT(2)\n"
      "      }\n"),
@@ -113,13 +112,6 @@ TOPK_PHASES = [
      "      for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;\n  }\n  __syncthreads();\n"
      "  if (lane == 0) { unsigned long long* o = g_probe + ((blockIdx.y * gridDim.x + blockIdx.x) * 8 + warp) * 10;\n"
      "    for (int i = 0; i < 8; ++i) o[i] = sprof[warp][i]; o[8] = gt0; o[9] = gtime(); }\n"),
-]
-# The boosted passes' epilogues with expf and the true division.
-EXACT_MATH = [
-    ("      if (16 * q < nvalid) s[p] += __expf(acc[p][q] - m[p]);",
-     "      if (16 * q < nvalid) s[p] += expf(acc[p][q] - m[p]);"),
-    ("      acc[p][q] = __fadd_rn(__fdividef(__expf(acc[p][q] - m), s), wp[q]);",
-     "      acc[p][q] = __fadd_rn(expf(acc[p][q] - m) / s, wp[q]);"),
 ]
 # Per block: start, sets initialised, sets built, end (globaltimer).
 POOL_BLOCKS = [
@@ -143,7 +135,6 @@ def build_copies(tmp: str) -> dict:
     topk = open(os.path.join(csrc, "topk_mips.cu")).read()
     pool = open(os.path.join(csrc, "pool_mask.cu")).read()
     srcs = {"topk_score_only": patch(topk, SCORE_ONLY),
-            "topk_exact_math": patch(topk, EXACT_MATH),
             "topk_phases": patch(topk, TOPK_PHASES) + export("g_probe"),
             "pool_blocks": patch(pool, POOL_BLOCKS) + export("g_probe")}
     procs = {}
@@ -172,57 +163,18 @@ def read(lib, n: int) -> np.ndarray:
     return buf.astype(np.int64)
 
 
-def topk_copy(lib, ue, ie, k, dev):
-    """The wrapper's launch, through an edited copy of the library:
-    (values, indices, splits)."""
-    lib.mips_topk_splits.argtypes = [I_] * 7
-    lib.mips_topk_launch.argtypes = [P_, P_, I_, I_, I_, I_, I_, I_, I_, P_, P_, P_, P_, P_]
-    (u, d), i = ue.shape, ie.shape[0]
-    resident = int(tm.topk_plan(d, False).resident_users)
-    splits = lib.mips_topk_splits(u, i, d, k, resident, 0, tm.EPI_TOPK)
-    pv, pi = tm._partials(splits, u, k, dev)
-    vals, idx = tm._empty_topk(u, k, dev)
-    err = lib.mips_topk_launch(ue.data_ptr(), ie.data_ptr(), u, i, d, k, 0, resident, splits,
-                               pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                               build.stream(dev))
-    if err:
-        raise RuntimeError(f"mips_topk copy: CUDA error {err}")
-    return vals, idx, splits
+def copy_call(lib, fn):
+    """``fn`` with the MIPS wrappers launching the kernels of ``lib``, an
+    edited copy of the library."""
+    tm._bind(lib)
 
-
-def boosted_copy(lib, ue, ie, pop, rm, rs, k, dev):
-    """The boosted wrappers' launches through an edited copy of the library,
-    as two calls: pass 1 -> (m, s), and pass 2 on the normaliser (rm, rs) ->
-    (values, indices)."""
-    lib.mips_topk_splits.argtypes = [I_] * 7
-    lib.mips_lse_launch.argtypes = [P_, P_, I_, I_, I_, I_, I_, I_, P_, P_, P_, P_, P_]
-    lib.mips_boost_launch.argtypes = [P_, P_, P_, P_, P_, ctypes.c_float] + [I_] * 7 + [P_] * 5
-    (u, d), i = ue.shape, ie.shape[0]
-    m, s = torch.empty(u, device=dev), torch.empty(u, device=dev)
-    vals, idx = tm._empty_topk(u, k, dev)
-
-    def lse():
-        resident = int(tm.topk_plan(d, False, tm.EPI_LSE).resident_users)
-        splits = lib.mips_topk_splits(u, i, d, 0, resident, 0, tm.EPI_LSE)
-        pm, ps = tm._partials(splits, u, 0, dev)
-        if lib.mips_lse_launch(ue.data_ptr(), ie.data_ptr(), u, i, d, 0, resident, splits,
-                               pm.data_ptr(), ps.data_ptr(), m.data_ptr(), s.data_ptr(),
-                               build.stream(dev)):
-            raise RuntimeError("mips_lse copy: launch failed")
-        return m, s
-
-    def boost():
-        resident = int(tm.topk_plan(d, False, tm.EPI_BOOST).resident_users)
-        splits = lib.mips_topk_splits(u, i, d, k, resident, 0, tm.EPI_BOOST)
-        pv, pi = tm._partials(splits, u, k, dev)
-        if lib.mips_boost_launch(ue.data_ptr(), ie.data_ptr(), pop.data_ptr(), rm.data_ptr(),
-                                 rs.data_ptr(), 1.0, u, i, d, k, 0, resident, splits,
-                                 pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                                 build.stream(dev)):
-            raise RuntimeError("mips_boost copy: launch failed")
-        return vals, idx
-
-    return lse, boost
+    def call():
+        saved, tm._lib = tm._lib, (lambda: lib)
+        try:
+            return fn()
+        finally:
+            tm._lib = saved
+    return call
 
 
 def probe_boosted(libs, dev, gen) -> None:
@@ -232,22 +184,17 @@ def probe_boosted(libs, dev, gen) -> None:
     pop = torch.rand(30_000, generator=gen, device=dev)
     rm, rs = tm.mips_lse_reference(ue, ie)
     rvals, _ = tm.mips_boost_reference(ue, ie, pop, rm, rs, k)
-    out = {"source": {"mips_lse_ms": cs.device_ms(lambda: tm.mips_lse(ue, ie)),
-                      "mips_boost_ms": cs.device_ms(lambda: tm.mips_boost(ue, ie, pop, rm, rs, k))}}
-    for name in ("topk_score_only", "topk_exact_math"):
-        lse, boost = boosted_copy(libs[name], ue, ie, pop, rm, rs, k, dev)
-        out[name] = {"mips_lse_ms": cs.device_ms(lse), "mips_boost_ms": cs.device_ms(boost)}
-        if name == "topk_exact_math":
-            m, s = lse()
-            out[name]["lse_err"] = float(((m.double() + s.double().log()) -
-                                          (rm.double() + rs.double().log())).abs().max())
-            out[name]["boost_err"] = float((boost()[0] - rvals).abs().max())
-    m, s = tm.mips_lse(ue, ie)
-    out["source"]["lse_err"] = float(((m.double() + s.double().log()) -
-                                      (rm.double() + rs.double().log())).abs().max())
-    out["source"]["boost_err"] = float((tm.mips_boost(ue, ie, pop, rm, rs, k)[0] - rvals)
-                                       .abs().max())
-    say("boosted_passes", users=4096, **out)
+    lse = lambda: tm.mips_lse(ue, ie)  # noqa: E731
+    boost = lambda: tm.mips_boost(ue, ie, pop, rm, rs, k)  # noqa: E731
+    score_only = libs["topk_score_only"]
+    m, s = lse()
+    say("boosted_passes", users=4096,
+        source={"mips_lse_ms": cs.device_ms(lse), "mips_boost_ms": cs.device_ms(boost),
+                "lse_err": float(((m.double() + s.double().log()) -
+                                  (rm.double() + rs.double().log())).abs().max()),
+                "boost_err": float((boost()[0] - rvals).abs().max())},
+        topk_score_only={"mips_lse_ms": cs.device_ms(copy_call(score_only, lse)),
+                         "mips_boost_ms": cs.device_ms(copy_call(score_only, boost))})
 
 
 def probe_topk(libs, dev, gen) -> None:
@@ -257,11 +204,12 @@ def probe_topk(libs, dev, gen) -> None:
         ue = l2_normalize(torch.randn(u, 128, generator=gen, device=dev))
         timer = cs.device_ms if u == 4096 else (lambda fn: cs.time_ms(fn, reps=3, warmup=1))
         kernel = timer(lambda: tm.mips_topk(ue, ie, k))
-        score_only = timer(lambda: topk_copy(libs["topk_score_only"], ue, ie, k, dev))
+        score_only = timer(copy_call(libs["topk_score_only"], lambda: tm.mips_topk(ue, ie, k)))
         say("topk_score_only", users=u, timer=("device_ms" if u == 4096 else "events_ms"),
             kernel_ms=kernel, score_only_ms=score_only)
         lib = libs["topk_phases"]
-        _, _, splits = topk_copy(lib, ue, ie, k, dev)
+        copy_call(lib, lambda: tm.mips_topk(ue, ie, k))()
+        _, splits = tm._launch_plan(lib, u, 30_000, 128, k, False, tm.EPI_TOPK)
         torch.cuda.synchronize()
         blocks = -(-u // 128) * splits
         pr = read(lib, blocks * 80).reshape(blocks, 8, 10)

@@ -182,7 +182,7 @@ def test_kernel_probe_patches_apply_to_the_sources():
     topk = open(os.path.join(csrc, "topk_mips.cu")).read()
     pool = open(os.path.join(csrc, "pool_mask.cu")).read()
     for src, edits in ((topk, kernel_probe.SCORE_ONLY), (topk, kernel_probe.TOPK_PHASES),
-                       (topk, kernel_probe.EXACT_MATH), (pool, kernel_probe.POOL_BLOCKS)):
+                       (pool, kernel_probe.POOL_BLOCKS)):
         assert kernel_probe.patch(src, edits) != src
     with pytest.raises(RuntimeError, match="no longer has one"):
         kernel_probe.patch(pool, kernel_probe.SCORE_ONLY)

@@ -77,12 +77,13 @@ def test_mips_topk_matches_plain(dev, u, i, d, k):
     assert_topk_close(vals, idx, rvals, ridx, _scores(ue, ie))
 
 
-def test_mips_topk_duplicates_lowest_index(dev):
+@pytest.mark.parametrize("k", [6, 100])
+def test_mips_topk_duplicates_lowest_index(dev, k):
     ue = torch.ones((4, 8), device=dev)
     ie = torch.ones((300, 8), device=dev)
-    vals, idx = tm.mips_topk(ue, ie, 6)
+    vals, idx = tm.mips_topk(ue, ie, k)
     assert (vals.cpu() == 8.0).all()
-    assert (idx.cpu() == torch.arange(6)).all()
+    assert (idx.cpu() == torch.arange(k)).all()
 
 
 def test_mips_topk_catalog_padding(dev):
@@ -115,6 +116,8 @@ def test_mips_topk_bf16(dev, d):
     (260, 5000, 33, 26, 1.0, False), (130, 4000, 128, 100, 1.0, False),
     (70, 2000, 32, 0, 1.0, False), (300, 5000, 256, 26, 1.0, False),
     (130, 11, 16, 5, 1.0, False), (129, 7, 8, 7, 2.0, False),
+    # serving's widest fetch (k=10 and 256 bought items a user)
+    (300, 30000, 128, 266, 1.0, False),
 ])
 def test_mips_topk_boosted_matches_plain(dev, u, i, d, k, w, bf16):
     k = k or tm.max_k()
@@ -144,7 +147,7 @@ def test_mips_topk_boosted_ties_lowest_index(dev):
     bits, so the lowest indices win, at k on both sides of 32."""
     ue = torch.ones((130, 8), device=dev)
     ie = torch.ones((700, 8), device=dev)
-    for k in (6, 40):
+    for k in (6, 40, 266):
         _, idx = tm.mips_topk_boosted(ue, ie, torch.zeros(700, device=dev), k)
         assert (idx.cpu() == torch.arange(k)).all()
 
