@@ -77,8 +77,28 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
 8. packed_leaf: one tree forward at fanouts (-1, -1) for 32 users and 32
    items through the packed leaf cache (``attach_leaf_features``) and
    without it.
+9. train_graph and train_graph_dedup: the same step through the trainer's
+   entry point, ``train_minibatch`` with ``MinibatchConfig(device_epoch=True)``,
+   where each step is one replay of a CUDA graph of the whole step (epochs
+   permuted and sliced on the card): three epochs on edge slices of the
+   bench graph (the 10-step loss-only pass, then 100 training steps an epoch
+   for the tree and 25 for the dedup'd forward, and 10 validation steps an
+   epoch).  Steps, edges a second, the median training replay (CUDA
+   events), peak memory, the epochs' losses (they must fall), and the launch
+   counts, which must equal each kernel's launches a step times the steps
+   run (the captures' warm-up steps included; each replay adds its captured
+   launches to the wrappers' counters).  Then ``check_steps`` (10) steps of
+   the eager body against as many replays from one state and seed: the
+   first step's draws bit for bit, losses within 1e-5, parameters within
+   the Adam tolerance after each update, the graph's captured launches equal
+   to a step's; and 5 replays under ``torch.profiler`` (device time, kernels
+   and idle share a step, and each training kernel's launches a replay from
+   the kernel records).  Phases 5 and 6 are the eager host loop of the same
+   step, timed in the same run.
 
-Then a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
+gives its launches in phase 9, ``graph_launches``), the card's name and
+power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device.
 """
@@ -92,6 +112,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -116,9 +137,13 @@ from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings
 from gnn_recsys_tpu_torch.train.minibatch import (
     EdgeStore,
     MinibatchConfig,
+    _per_etype_batch_sizes,
+    device_edge_store,
     iter_edge_batches,
+    make_epoch_fns,
     make_minibatch_loss,
     make_minibatch_step,
+    train_minibatch,
 )
 from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 
@@ -1037,12 +1062,7 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
         batches = iter_edge_batches(np.random.default_rng(0),
                                     {et: np.arange(g.num_edges(et)) for et in etypes}, batch_size)
         draws = Draws(torch.Generator(device=dev).manual_seed(0))
-        leaves = 0 if dedup else sum(leaf_branches(g, nt, model.num_conv_layers)
-                                     for nt in ("user", "item"))
-        means = block_means(g, ("user", "item"), model.num_conv_layers) if dedup else 0
-        per_step = {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
-                    "pool_membership_mask": len(etypes),
-                    "gather_mean_fwd": means, "gather_mean_bwd": means}
+        per_step = step_counts(g, model, etypes, dedup)
         counters = {"leaf_mean_nn_fwd": la.leaf_mean_nn_fwd,
                     "leaf_mean_nn_bwd": la.leaf_mean_nn_bwd,
                     "pool_membership_mask": pm.pool_membership_mask,
@@ -1153,6 +1173,226 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
         conv_model.gather_mean = gm.gather_mean
 
 
+# Kernel names of the training kernels in a profile, for the replayed step's
+# launch counts (``leaf_bwd_kernel`` leaves out the backward's reduce).
+REPLAY_KERNELS = {"leaf_mean_nn_fwd": "leaf_fwd_kernel", "leaf_mean_nn_bwd": "leaf_bwd_kernel",
+                  "pool_membership_mask": "pool_mask_kernel",
+                  "gather_mean_fwd": "gather_mean_fwd_kernel",
+                  "gather_mean_bwd": "gather_mean_bwd_kernel"}
+
+
+def step_counts(graph, model, etypes, dedup: bool) -> dict:
+    """Launches of each training kernel in one step of the bench config:
+    12 leaf-kernel branches a tree step, 8 gather-means a dedup step, one
+    pool mask an etype."""
+    leaves = 0 if dedup else sum(leaf_branches(graph, nt, model.num_conv_layers)
+                                 for nt in ("user", "item"))
+    means = block_means(graph, ("user", "item"), model.num_conv_layers) if dedup else 0
+    return {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
+            "pool_membership_mask": len(etypes), "gather_mean_fwd": means,
+            "gather_mean_bwd": means}
+
+
+def edge_slices(graph, etypes, edges: int, skip: dict = None) -> dict:
+    """Per etype, a run of edge ids (after ``skip[et]`` of them) whose
+    lengths share ``edges`` in proportion to the etypes' edge counts."""
+    total = sum(graph.num_edges(et) for et in etypes)
+    out = {}
+    for et in etypes:
+        lo = (skip or {}).get(et, 0)
+        out[et] = np.arange(lo, lo + round(edges * graph.num_edges(et) / total))
+    return out
+
+
+def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
+                      on_card=True, seed=1) -> tuple:
+    """``steps`` steps through the device epochs' eager body and as many
+    replays of their CUDA graph (on the CPU: the eager body twice), from one
+    state, permutation and seed: the first step's draws bit for bit, each
+    step's loss within ``LOSS_RTOL`` and, after each Adam update, the
+    parameters within the Adam tolerance of ``tests/test_torch_minibatch.py``
+    (2e-6 where the eager step's |g| > 1e-5, else 2 * lr), and the graph's
+    captured launches equal to ``per_step``.  Before each step after the
+    first, the graph's parameters and Adam state are set to the eager
+    route's, so that each replay is held against one eager update from the
+    same state (the dedup step's ``index_add_`` adds with atomics, and the
+    routes' last bits part over several updates).  Returns (the report, the
+    captured step or None)."""
+    etypes = tuple(eids)
+    counts = {et: len(v) for et, v in eids.items()}
+    store = device_edge_store(g, etypes, dev)
+    eids_dev = {et: torch.as_tensor(v, device=dev) for et, v in eids.items()}
+    routes = []
+    for capture in (False, on_card):
+        model = ConvModel(**kw, leaf_kernel=True)
+        init_model(model, seed=0)
+        model.to(dev)
+        state = TrainState.create(model, lr=cfg.lr)
+        if on_card:  # both routes update with the same (capturable) Adam
+            state.make_capturable()
+        perm_fn, chunk_fn = make_epoch_fns(model, cfg, etypes, True, True,
+                                           {et: True for et in etypes}, counts, capture=capture)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        routes.append({"model": model, "state": state, "chunk_fn": chunk_fn,
+                       "perms": perm_fn(eids_dev, gen), "draws": Draws(gen, record=True)})
+    eager, graph = routes
+    if not all(torch.equal(eager["perms"][et], graph["perms"][et]) for et in etypes):
+        raise AssertionError("the two routes drew different permutations")
+    pa, pb = (dict(r["model"].named_parameters()) for r in routes)
+    worst_loss = worst_gap = 0.0
+    with warnings.catch_warnings(), torch.no_grad():
+        warnings.filterwarnings("ignore", message=".*capturable=True.*")
+        for k in range(steps):
+            if k:  # the graph starts from the eager route's state
+                for n, p in pa.items():
+                    pb[n].copy_(p)
+                    sa, sb = eager["state"].tx.state[p], graph["state"].tx.state[pb[n]]
+                    for key, v in sa.items():
+                        sb[key].copy_(v)
+            with torch.enable_grad():
+                la, lb = (float(r["chunk_fn"](r["state"], g, feats, tables, store, r["perms"],
+                                              k, r["draws"], n_steps=1)[1][0]) for r in routes)
+            if k == 0:
+                first_draws = {"pool": int(eager["draws"].randints[0].numel())}
+                for kind in ("randints", "uniforms"):
+                    a, b = getattr(eager["draws"], kind), getattr(graph["draws"], kind)
+                    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+                        raise AssertionError(f"step 1's {kind} differ between the routes")
+                    first_draws[kind] = len(a)
+                for r in routes:  # the graph's lists stay its captured draws
+                    r["draws"].uniforms = r["draws"].randints = None
+            worst_loss = max(worst_loss, abs(la - lb) / abs(la))
+            if not abs(la - lb) <= LOSS_RTOL * abs(la):
+                raise AssertionError(f"step {k}: eager loss {la}, graph loss {lb}")
+            for n, p in pa.items():
+                grad = p.grad if p.grad is not None else torch.zeros_like(p)
+                tol = torch.where(grad.abs() > 1e-5, 2e-6, 2 * cfg.lr)
+                excess = float(((p - pb[n]).abs() - tol).max())
+                worst_gap = max(worst_gap, excess)
+                if not excess <= 0.0:
+                    raise AssertionError(f"step {k}: {n} differs beyond the Adam tolerance "
+                                         f"by {excess}")
+    captured = graph["chunk_fn"].captured
+    report = {"steps": steps, "first_step_draws": first_draws, "loss_rel_worst": worst_loss,
+              "param_excess_over_tolerance": worst_gap}
+    if on_card:
+        want = {n: c for n, c in per_step.items() if c}
+        if captured.launches != want:
+            raise AssertionError(f"captured launches {captured.launches}, expected {want}")
+        report["captured_launches"] = captured.launches
+    return report, captured
+
+
+def replay_profile(captured, per_step, n=5) -> dict:
+    """``n`` replays under ``torch.profiler``: the step breakdown of
+    :func:`profile_steps`, from the records of each kernel the graph ran,
+    and each training kernel's launches a replay, which must be
+    ``per_step``'s."""
+    wall_ms, kernels = profiled_kernels(captured.replay, n)
+    report = step_breakdown(wall_ms, kernels, n)
+    seen = {name: -(-sum(c for key, c, _ in kernels if pat in key) // n)
+            for name, pat in REPLAY_KERNELS.items()}
+    if seen != per_step:
+        raise AssertionError(f"the replayed step ran {seen}, expected {per_step}")
+    report["kernel_launches_per_replay"] = seen
+    return report
+
+
+def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
+                      batch_size=2048, pool=2560, fanouts=(8, 4), dedup=False, on_card=True,
+                      check_steps=10) -> dict:
+    """The bench step through the trainer's entry point with
+    ``MinibatchConfig(device_epoch=True)``: on a card, each step one replay
+    of a CUDA graph.  Three epochs of ``steps // 2`` training steps (epoch 0
+    is the 10-step loss-only pass) and ``valid_steps`` validation steps each,
+    on edge slices of the bench graph.  Reports the steps, edges a second,
+    the median training replay (CUDA events), peak memory and the epochs'
+    losses (the last training epoch's must be below the first's), and checks
+    the launch counts against the steps run (the warm-up steps of each of
+    the three captures included).  Then :func:`graph_route_check` and the
+    replay's profile (:func:`replay_profile`).  Returns the launches."""
+    from gnn_recsys_tpu_torch.train import graph_step
+
+    phase = "train_graph_dedup" if dedup else "train_graph"
+    g = data.graph
+    kw = medium_kwargs(g, hidden, out)
+    model = ConvModel(**kw, leaf_kernel=True)
+    etypes = tuple(data.train_pairs)
+    per_epoch = max(1, steps // 2)
+    train_eids = edge_slices(g, etypes, per_epoch * batch_size)
+    valid_eids = edge_slices(g, etypes, valid_steps * batch_size,
+                             skip={et: len(v) for et, v in train_eids.items()})
+    cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
+                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True,
+                          dedup=dedup, num_epochs=3, metrics_every=0, patience=100, seed=0,
+                          device_epoch=True)
+    per_step = step_counts(g, model, etypes, dedup)
+    widths, nb = _per_etype_batch_sizes({et: len(v) for et, v in train_eids.items()}, batch_size)
+    nb_valid = _per_etype_batch_sizes({et: len(v) for et, v in valid_eids.items()},
+                                      batch_size)[1]
+    warm = graph_step.WARMUP_STEPS if on_card else 0
+    train_steps = warm + 2 * nb
+    eval_steps = warm + min(10, nb) + warm + 3 * nb_valid
+    want = {name: n * (train_steps + (0 if name.endswith("_bwd") else eval_steps))
+            for name, n in per_step.items()}
+
+    counters = build.launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    replay, events = graph_step.CapturedStep.replay, []
+
+    def timed_replay(step):  # CUDA events around each replay
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        replay(step)
+        pair[1].record()
+        events.append((step.state is not None, *pair))
+
+    graph_step.CapturedStep.replay = timed_replay
+    t0 = time.perf_counter()
+    try:
+        state, hist = train_minibatch(model, g, g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                                      train_eids, valid_eids, cfg, device=dev)
+        sync(dev)
+    finally:
+        graph_step.CapturedStep.replay = replay
+    wall_s = time.perf_counter() - t0
+    launches = {name: counters[name].launches for name in per_step}
+    if on_card and launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    losses = hist["train_loss"]
+    if not (np.isfinite(losses).all() and np.isfinite(hist["valid_loss"]).all()
+            and losses[2] < losses[1]):
+        raise AssertionError(f"{phase}: the loss is not finite or does not fall: {losses}")
+    report = {"route": "cuda_graph" if on_card else "eager_body", "train_steps": 2 * nb,
+              "loss_only_steps": min(10, nb), "valid_steps": 3 * nb_valid,
+              "edges_per_step": sum(widths.values()),
+              "edges_per_s_train_epochs": hist["edges_per_s"][1:], "wall_s": wall_s,
+              "train_loss": losses, "valid_loss": hist["valid_loss"], "updates": state.step,
+              "launches": launches, "launches_expected": want, "launches_per_step": per_step}
+    train_ms = [a.elapsed_time(b) for update, a, b in events if update]
+    if on_card:
+        if len(train_ms) != 2 * nb:
+            raise AssertionError(f"{phase}: {len(train_ms)} timed replays, expected {2 * nb}")
+        report.update(step_ms_median=float(np.median(train_ms)),
+                      step_ms_min=float(np.min(train_ms)), step_ms_max=float(np.max(train_ms)),
+                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    del state, model, hist
+    gd = g.to(dev)
+    feats = {nt: gd.ndata[nt]["features"] for nt in gd.ntypes}
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    report["graph_check"], captured = graph_route_check(
+        dev, gd, feats, kw, cfg, train_eids, tables, per_step, steps=check_steps,
+        on_card=on_card)
+    if on_card:
+        report["profile"] = replay_profile(captured, per_step)
+    say(phase, **report)
+    return launches
+
+
 def phase_packed_leaf(dev, data, model, seeds=32) -> None:
     """One tree forward at fanouts (-1, -1) for ``seeds`` users and items
     through the packed leaf cache and without it (same weights): within TOL."""
@@ -1191,10 +1431,14 @@ KERNEL_GROUPS = (
 
 
 def profile_steps(run_step, n=5, top_n=8) -> dict:
-    """``n`` steps under ``torch.profiler``: host wall time, the device's
-    busy time by kernel group (ms a step), its idle share, and the
-    ``top_n`` kernels by device time."""
-    wall_ms, kernels = profiled_kernels(run_step, n)
+    """``n`` steps under ``torch.profiler``: :func:`step_breakdown`."""
+    return step_breakdown(*profiled_kernels(run_step, n), n, top_n)
+
+
+def step_breakdown(wall_ms, kernels, n, top_n=8) -> dict:
+    """Host wall time a step, the device's busy time by kernel group (ms a
+    step), its idle share, and the ``top_n`` kernels by device time, from a
+    profile of ``n`` steps."""
     if not kernels:
         raise RuntimeError("torch.profiler recorded no CUDA kernel for the training steps")
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
@@ -1238,8 +1482,14 @@ def main() -> int:
             launches[f"{name}:B{b}_K{k}_N{n}"] = calls
     rows += step_rows
     phase_packed_leaf(dev, data, model)
+    # The device epochs: each step one replay of a CUDA graph.
+    graph_launches = phase_train_graph(dev, data)
+    graph_launches.update({name: n for name, n in phase_train_graph(
+        dev, data, steps=50, dedup=True).items() if name.startswith("gather_mean")})
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] in graph_launches:
+            row["graph_launches"] = graph_launches[row["name"]]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

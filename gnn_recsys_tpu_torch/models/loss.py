@@ -58,7 +58,7 @@ def max_margin_loss(
             scores = scores * valid
             n = valid.sum() * s
         else:
-            n = torch.tensor(float(b * s), device=scores.device)
+            n = torch.full((), float(b * s), device=scores.device)  # a fill, no copy
         total = scores.sum() if total is None else total + scores.sum()
         count = n if count is None else count + n
     if total is None:

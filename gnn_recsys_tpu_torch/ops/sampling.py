@@ -247,26 +247,28 @@ def unique_capped(flat: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Ten
 
 def _slot_positions(rel: Relation, eids: torch.Tensor) -> torch.Tensor:
     """Flat padded-table positions of ``eids``; an edge dropped by the
-    fanout cap maps past the table and is filtered out here (the JAX
-    scatter's ``mode='drop'``)."""
+    fanout cap maps to ``rel.nbr.numel()``, one sink slot past the table,
+    which the scatters below write and then cut off (the JAX scatter's
+    ``mode='drop'``, without a data-dependent shape or a host sync)."""
     if rel.eid_pos is None:
         raise ValueError("relation has no eid_pos")
-    pos = rel.eid_pos[eids.reshape(-1).long()].long()
-    return pos[pos < rel.nbr.numel()]
+    return rel.eid_pos[eids.reshape(-1).long()].long().clamp(max=rel.nbr.numel())
 
 
 def exclusion_table(rel: Relation, eids: torch.Tensor) -> torch.Tensor:
     """[N_dst, K] copy of ``rel.nbr`` with the slots of ``eids`` sign-marked:
     the sampler's own row gather then carries the exclusion bit."""
     pos = _slot_positions(rel, eids)
-    marked = rel.nbr.reshape(-1).clone()
+    n = rel.nbr.numel()
+    marked = torch.cat([rel.nbr.reshape(-1), rel.nbr.new_zeros(1)])  # the sink last
     marked[pos] = marked[pos] | _SIGN_BIT
-    return marked.reshape(rel.nbr.shape)
+    return marked[:n].reshape(rel.nbr.shape)
 
 
 def exclusion_flags(rel: Relation, eids: torch.Tensor) -> torch.Tensor:
     """[N_dst*K] bool table, True at the padded-table slot of each of
     ``eids``."""
-    flags = torch.zeros(rel.nbr.numel(), dtype=torch.bool, device=rel.nbr.device)
+    n = rel.nbr.numel()
+    flags = torch.zeros(n + 1, dtype=torch.bool, device=rel.nbr.device)  # the sink last
     flags[_slot_positions(rel, eids)] = True
-    return flags
+    return flags[:n]

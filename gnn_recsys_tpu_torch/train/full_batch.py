@@ -1,8 +1,12 @@
 """Parameter init, the optimizer state, and full-graph embedding inference.
 
 Port of ``init_model``, ``TrainState`` and ``compute_embeddings``
-(``gnn_recsys_tpu/train/full_batch.py:53-167``).  The full-batch trainer
-waits for a later slice (ROADMAP.md).
+(``gnn_recsys_tpu/train/full_batch.py:53-167``).  ``TrainState`` holds
+``torch.optim.Adam`` (optax's ``adam``) and, optionally, the cosine
+schedule; the host training loop steps it eagerly, and the device-epoch
+route switches it to Adam's capturable form so that a CUDA graph replays
+the whole step, update included.  The full-batch trainer waits for a later
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +38,13 @@ class TrainState:
     optax's ``adam`` and ``torch.optim.Adam`` apply the same update,
     ``lr * m_hat / (sqrt(v_hat) + eps)`` with eps outside the square root
     (b1 0.9, b2 0.999, eps 1e-8).  Unlike flax's immutable state, this one
-    updates the model's parameters in place."""
+    updates the model's parameters in place.  An update has a device half,
+    Adam's step, and a host half (:meth:`advance`): the schedule, which
+    writes a Python float ``lr``, and the count.  A CUDA graph of the
+    training step (``train/graph_step.py``) captures the device half in
+    Adam's capturable form (:meth:`make_capturable`), its learning rate read
+    from a device tensor filled before each replay; the host half runs after
+    each replay."""
 
     model: ConvModel
     tx: torch.optim.Optimizer
@@ -57,9 +67,23 @@ class TrainState:
     def apply_gradients(self) -> None:
         """One update from the gradients in the parameters' ``.grad``."""
         self.tx.step()
+        self.advance()
+
+    def advance(self) -> None:
+        """The host half of an update: the schedule's next ``lr`` and the count."""
         if self.schedule is not None:
             self.schedule.step()
         self.step += 1
+
+    def make_capturable(self) -> None:
+        """Switch Adam to its capturable form (``capturable=True``: its
+        update counts live on the parameters' device, so a CUDA graph can
+        capture its step); the update it applies is the same."""
+        for group in self.tx.param_groups:
+            group["capturable"] = True
+        for p, st in self.tx.state.items():
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device, torch.float32)
 
 
 def compute_embeddings(

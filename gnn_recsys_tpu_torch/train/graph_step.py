@@ -1,0 +1,161 @@
+"""A training step captured once as a CUDA graph, and replayed once a step.
+
+The PyTorch counterpart of the JAX package's device epochs
+(``gnn_recsys_tpu/train/minibatch.py:363-496``, steps inside ``lax.scan``
+chunks): :func:`~gnn_recsys_tpu_torch.train.minibatch.make_epoch_fns` hands
+:class:`CapturedStep` a body that slices one batch on the card from static
+buffers (the epoch's permutation and a device step index that the body
+advances), runs the step (sampling, forward, loss and, for a training step,
+backward and Adam's update) and writes its loss into a device buffer.  The
+capture follows PyTorch's whole-network pattern:
+
+1. warm-up steps on a side stream, which build the kernels (``nvcc`` and
+   their first-launch attributes), create Adam's state and settle the
+   caching allocator; the parameters and Adam's state are put back as they
+   were afterwards, and the warm-up draws come from a scratch generator;
+2. one capture, with the step's ``torch.Generator`` registered with the
+   graph (each replay reads the generator's current seed and offset and
+   advances it, so re-seeding it between replays re-seeds the step);
+3. one ``replay()`` a step.  The gradients stay in the graph's own buffers
+   across replays (the step's ``zero_grad(set_to_none=True)`` runs once, at
+   capture); Adam runs in its capturable form, its learning rate read from
+   a device tensor that is filled from the host's schedule before each
+   replay, and the host half of the update (the schedule, the count) runs
+   after it.
+
+A replay calls no Python wrapper, so the wrappers' launch counters
+(``ops/cuda/build.py:launch_counters``) would not see the kernels it runs:
+the launches made during capture are taken off the counters and kept as
+:attr:`CapturedStep.launches`, which each replay adds back.  A failed
+capture or replay raises; nothing falls back to the host loop.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.ops.sampling import Draws
+from gnn_recsys_tpu_torch.train.full_batch import TrainState
+
+# Eager steps on a side stream before the capture.
+WARMUP_STEPS = 2
+
+
+class DeviceUpdate:
+    """The device half of :meth:`TrainState.apply_gradients`, as a captured
+    step runs it: Adam's step with each param group's learning rate read
+    from a device tensor of ``lrs`` (a Python float would be frozen into the
+    graph at its captured value)."""
+
+    def __init__(self, state: TrainState, lrs: List[torch.Tensor]):
+        self.tx, self.lrs = state.tx, lrs
+
+    def apply_gradients(self) -> None:
+        groups = self.tx.param_groups
+        held = [g["lr"] for g in groups]
+        for g, lr in zip(groups, self.lrs):
+            g["lr"] = lr
+        try:
+            self.tx.step()
+        finally:
+            for g, lr in zip(groups, held):
+                g["lr"] = lr
+
+
+def _snapshot(state: Optional[TrainState]):
+    if state is None:
+        return None
+    params = [p for g in state.tx.param_groups for p in g["params"]]
+    opt = {p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
+           for p, st in state.tx.state.items()}
+    return params, [p.detach().clone() for p in params], opt
+
+
+def _restore(state: Optional[TrainState], held) -> None:
+    """Put the parameters and Adam's state back as :func:`_snapshot` found
+    them; state that the warm-up created is zeroed (a fresh Adam's state is
+    zeros and a count of 0, so the next update is a first one)."""
+    if state is None:
+        return
+    params, values, opt = held
+    with torch.no_grad():
+        for p, v in zip(params, values):
+            p.copy_(v)
+        for p, st in state.tx.state.items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    if k in opt.get(p, {}):
+                        v.copy_(opt[p][k])
+                    else:
+                        v.zero_()
+
+
+def take_launches(counters: Dict, before: Dict[str, int]) -> Dict[str, int]:
+    """The launches that ``counters`` (name -> wrapper with ``.launches``)
+    counted since ``before``, by name where nonzero, taken off the counters:
+    a capture launches nothing, and each replay adds them back."""
+    out = {}
+    for name, fn in counters.items():
+        if fn.launches != before[name]:
+            out[name] = fn.launches - before[name]
+            fn.launches = before[name]
+    return out
+
+
+class CapturedStep:
+    """``body(update, draws)`` captured as a CUDA graph on ``draws``'s
+    generator's device.  ``body`` runs one step on static inputs: ``update``
+    is a :class:`DeviceUpdate` of ``state`` for a training step (None for a
+    loss-only step, ``state`` None), and ``draws`` the step's draw source.
+    Capturing runs :data:`WARMUP_STEPS` eager steps first (their launches
+    count: they ran)."""
+
+    def __init__(self, body: Callable, draws: Draws, state: Optional[TrainState] = None,
+                 warmup: int = WARMUP_STEPS):
+        generator = draws.generator
+        dev = generator.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
+        self.state, self.generator, self.lrs = state, generator, []
+        update = None
+        if state is not None:
+            state.make_capturable()
+            self.lrs = [torch.full((), float(g["lr"]), dtype=torch.float32, device=dev)
+                        for g in state.tx.param_groups]
+            update = DeviceUpdate(state, self.lrs)
+        counters = build.launch_counters()
+        held = _snapshot(state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), warnings.catch_warnings():
+            # Adam warns when its capturable form steps outside a capture.
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            scratch = Draws(torch.Generator(device=dev).manual_seed(0))
+            for _ in range(warmup):
+                body(update, scratch)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        _restore(state, held)
+        before = {name: fn.launches for name, fn in counters.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph):
+            body(update, draws)
+        torch.cuda.synchronize(dev)
+        self.launches = take_launches(counters, before)
+        self._counters = counters
+
+    def replay(self) -> None:
+        """One step: fill the learning rates, replay, then the host half of
+        the update and the launch counts."""
+        if self.state is not None:
+            for lr, g in zip(self.lrs, self.state.tx.param_groups):
+                lr.fill_(g["lr"])
+        self.graph.replay()
+        if self.state is not None:
+            self.state.advance()
+        for name, n in self.launches.items():
+            self._counters[name].launches += n

@@ -12,9 +12,18 @@ Semantics kept from the JAX package (and the reference loop,
 ``src/train/run.py:11-308``): epoch 0 is a loss-only pass over at most 10
 batches; a validation-loss pass per epoch over held-out edges sampled on the
 train graph; precision / recall / coverage every ``metrics_every`` epochs
-(``epoch % metrics_every == 1``); early stopping on validation loss.  The JAX
-package's ``device_epoch`` (its epochs as one device dispatch) has no
-counterpart here: the host loop runs the same per-step math either way.
+(``epoch % metrics_every == 1``); early stopping on validation loss.
+
+Two routes drive the same step (``MinibatchConfig.device_epoch``):
+
+* the device epochs (the default, as in the JAX package): each epoch's edges
+  are permuted and sliced on the device (:func:`make_epoch_fns`,
+  :func:`run_device_epoch`).  On a CUDA device each step is one replay of a
+  CUDA graph of the whole step, slicing, sampling, forward, loss, backward
+  and Adam's update (``train/graph_step.py``), and the host reads the losses
+  once an epoch; on the CPU the same body runs eagerly;
+* the host loop (``device_epoch=False``): numpy permutes and slices each
+  epoch, and every batch is copied to the device (:class:`EdgeStore`).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from gnn_recsys_tpu_torch.ops.membership import (
     pair_set_contains,
     pair_set_contains_pool,
 )
-from gnn_recsys_tpu_torch.ops.sampling import Draws
+from gnn_recsys_tpu_torch.ops.sampling import Draws, _rows
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import model_score_fn
 from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings, init_model
@@ -84,9 +93,14 @@ class MinibatchConfig:
     # The step's forward as the dedup'd block forward (each level's unique
     # nodes once) instead of the tree; embedding inference stays on the tree.
     dedup: bool = False
-    # The JAX package's one-dispatch epochs; accepted and ignored (the host
-    # loop runs the same per-step math).
+    # Epochs permuted and sliced on the device, each step one replay of a
+    # CUDA graph on a CUDA device (the JAX package's one-dispatch epochs);
+    # False: the host loop.
     device_epoch: bool = True
+    # Steps between the host's checkpoints in a device epoch (the JAX
+    # package's scan chunk).  The permutation is drawn once an epoch, so
+    # chunking does not change which batches an epoch visits.
+    epoch_chunk_steps: int = 16
     k: int = 10
     metrics_every: int = 10  # reference: epoch % 10 == 1
     patience: int = 3
@@ -248,6 +262,155 @@ class EdgeStore:
         return out
 
 
+def device_edge_store(graph: HeteroGraph, etypes, device) -> Dict:
+    """Per etype, ``(src, dst, recency)`` on ``device``, indexed by edge id
+    (int64, int64, f32; ones where the graph has no recency): what a device
+    epoch slices its batches from (the JAX package's ``_dev_store``)."""
+    out = {}
+    for et in etypes:
+        r = graph.rels[et]
+        rec = r.edata["recency"] if "recency" in r.edata else torch.ones(r.num_edges)
+        out[et] = (r.src.to(device, torch.int64), r.dst.to(device, torch.int64),
+                   rec.to(device, torch.float32))
+    return out
+
+
+def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
+                   train_etypes: Tuple[CanonicalEtype, ...], with_update: bool,
+                   with_exclusion: bool, has_reverse: Dict[CanonicalEtype, bool],
+                   counts: Dict[CanonicalEtype, int],
+                   capture: Optional[bool] = None) -> Tuple[Callable, Callable]:
+    """Device epochs (``gnn_recsys_tpu/train/minibatch.py:363-461``).
+
+    Returns ``(perm_fn, chunk_fn)``:
+
+    * ``perm_fn(eids, generator) -> perms``: each etype's candidate edge ids
+      (a device tensor) shuffled on the device, once an epoch;
+    * ``chunk_fn(state, graph, features, edge_tables, store, perms, t0,
+      draws, n_steps) -> (state, losses [n_steps])``: steps ``t0`` to
+      ``t0 + n_steps - 1`` of the epoch.  ``store`` is
+      :func:`device_edge_store`'s; step ``t`` takes, per etype, the edges
+      ``perms[et][(t * n + arange(n)) % count]`` (n its slice width, as in
+      :func:`iter_edge_batches`), and the step is
+      :func:`make_minibatch_step`'s.
+
+    ``capture`` (by default: whether ``draws`` are on a CUDA device) runs
+    each step as one replay of a CUDA graph (:class:`~gnn_recsys_tpu_torch.
+    train.graph_step.CapturedStep`), captured at the first call: later calls
+    must pass the same state, graph, features, tables and store, and draws
+    from the same generator (anything else raises).  The graph reads the
+    permutation from its own buffers, which ``perm_fn`` then fills in place.
+    Otherwise the same body runs eagerly, with any draw source (replayed
+    draws too).  ``chunk_fn.captured`` is the :class:`CapturedStep`, once
+    made.  A captured chunk takes at most an epoch's steps."""
+    step = make_minibatch_step(model, cfg, train_etypes, with_update=with_update,
+                               with_exclusion=with_exclusion, has_reverse=has_reverse)
+    per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size)
+    static: Dict = {}  # the captured route's buffers and inputs
+
+    def perm_fn(eids, generator):
+        perms = {et: eids[et][torch.randperm(eids[et].shape[0], generator=generator,
+                                             device=eids[et].device)]
+                 for et in train_etypes}
+        if static:  # straight into the graph's buffers
+            for et in train_etypes:
+                static["perms"][et].copy_(perms[et])
+            return static["perms"]
+        return perms
+
+    def batch_at(store, perms, t):
+        """Step ``t``'s batch (``t`` an int or a 0-d device tensor)."""
+        batch = {}
+        for et in train_etypes:
+            n = per_et[et]
+            pos = (t * n + torch.arange(n, device=perms[et].device)) % max(counts[et], 1)
+            eids = _rows(perms[et], pos)  # jnp.take(..., mode="clip")
+            src, dst, recency = store[et]
+            d = {"u": _rows(src, eids), "i": _rows(dst, eids), "recency": _rows(recency, eids)}
+            if with_exclusion:
+                d["eids"] = eids
+            batch[et] = d
+        return batch
+
+    def capture_step(state, graph, features, edge_tables, store, perms, draws):
+        from gnn_recsys_tpu_torch.train.graph_step import CapturedStep
+
+        dev = draws.generator.device
+        t = torch.zeros((), dtype=torch.int64, device=dev)
+        losses = torch.zeros(n_batches, dtype=torch.float32, device=dev)
+        buffers = {et: perms[et].clone() for et in train_etypes}
+
+        def body(update, step_draws):
+            _, loss = step(update, graph, features, batch_at(store, buffers, t), edge_tables,
+                           step_draws)
+            losses.index_copy_(0, (t % n_batches).reshape(1), loss.detach().reshape(1))
+            t.add_(1)
+
+        static.update(t=t, losses=losses, perms=buffers,
+                      inputs=(state, graph, features, edge_tables, store),
+                      step=CapturedStep(body, draws, state if with_update else None))
+        chunk_fn.captured = static["step"]
+
+    def chunk_fn(state, graph, features, edge_tables, store, perms, t0, draws, n_steps: int):
+        on_graph = capture
+        if on_graph is None:
+            on_graph = isinstance(draws, Draws) and draws.device.type == "cuda"
+        if not on_graph:
+            losses = []
+            for i in range(n_steps):
+                _, loss = step(state, graph, features, batch_at(store, perms, t0 + i),
+                               edge_tables, draws)
+                losses.append(loss)
+            return state, torch.stack(losses)
+        if not isinstance(draws, Draws):
+            raise ValueError("a captured step draws from a torch.Generator (Draws), "
+                             f"not {type(draws).__name__}")
+        if not static:
+            capture_step(state, graph, features, edge_tables, store, perms, draws)
+        if any(a is not b for a, b in zip(static["inputs"],
+                                          (state, graph, features, edge_tables, store))):
+            raise ValueError("a captured step replays on the inputs it was captured with")
+        if draws.generator is not static["step"].generator:
+            raise ValueError("a captured step replays with the generator it was captured with")
+        for et in train_etypes:
+            if perms[et] is not static["perms"][et]:
+                static["perms"][et].copy_(perms[et])
+        if n_steps > n_batches:
+            raise ValueError(f"a captured chunk takes at most the epoch's {n_batches} steps, "
+                             f"not {n_steps}")
+        static["t"].fill_(t0)
+        for _ in range(n_steps):
+            static["step"].replay()
+        # Step t wrote its loss at t % n_batches.
+        pos = torch.arange(t0, t0 + n_steps, device=static["t"].device) % n_batches
+        return state, static["losses"][pos]
+
+    chunk_fn.captured = None
+    return perm_fn, chunk_fn
+
+
+def run_device_epoch(perm_fn: Callable, chunk_fn: Callable, state, graph, features,
+                     edge_tables, store, eids, generator: torch.Generator, seed: int,
+                     n_batches: int, chunk_steps: int):
+    """One epoch in ``ceil(n_batches / chunk_steps)`` chunks
+    (``gnn_recsys_tpu/train/minibatch.py:464-496``): ``generator`` is seeded
+    ``seed``, draws the epoch's permutation once, then every step's numbers,
+    so the chunks together visit the batches of one unchunked epoch.
+    Returns (state, the device losses [n_batches])."""
+    generator.manual_seed(seed)
+    perms = perm_fn(eids, generator)
+    draws = Draws(generator)
+    chunk = max(1, min(chunk_steps, n_batches))
+    losses, t = [], 0
+    while t < n_batches:
+        n = min(chunk, n_batches - t)
+        state, ls = chunk_fn(state, graph, features, edge_tables, store, perms, t, draws,
+                             n_steps=n)
+        losses.append(ls)
+        t += n
+    return state, torch.cat(losses)
+
+
 def compute_embeddings_minibatch(model: ConvModel, graph: HeteroGraph,
                                  features: Dict[str, torch.Tensor], node_batch_size: int = 128,
                                  fanouts: Optional[Tuple[int, ...]] = None,
@@ -339,15 +502,6 @@ def train_minibatch(
     valid_etypes = tuple(valid_eids) if valid_eids else ()
     has_reverse = {et: _reverse(et) in train_graph.rels for et in train_etypes}
 
-    def step_fn(etypes, with_update, with_exclusion):
-        return make_minibatch_step(model, cfg, etypes, with_update=with_update,
-                                   with_exclusion=with_exclusion, has_reverse=has_reverse)
-
-    train_step = step_fn(train_etypes, True, cfg.exclude_batch_edges)
-    smoke_step = step_fn(train_etypes, False, cfg.exclude_batch_edges)
-    valid_step = step_fn(valid_etypes, False, False)
-    train_store = EdgeStore(train_graph, train_etypes)
-    valid_store = EdgeStore(full_graph, valid_etypes)
     num_users = full_graph.num_nodes("user")
     edge_tables = {
         et: build_padded_pair_set(full_graph.rels[et].src.cpu().numpy(),
@@ -358,37 +512,88 @@ def train_minibatch(
     graph = train_graph.to(dev)
     feats = {nt: x.to(dev) for nt, x in features.items()}
 
-    def draws_for(tag: int, epoch: int) -> Draws:
-        return Draws(torch.Generator(device=dev).manual_seed(_epoch_seed(cfg.seed, tag, epoch)))
+    if cfg.device_epoch:
+        def epoch_pass(etypes, eids, with_update, with_exclusion, store_graph) -> Dict:
+            counts = {et: len(eids[et]) for et in etypes}
+            per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size)
+            return {"fns": make_epoch_fns(model, cfg, etypes, with_update, with_exclusion,
+                                          has_reverse, counts),
+                    "store": device_edge_store(store_graph, etypes, dev),
+                    "eids": {et: torch.as_tensor(eids[et], dtype=torch.int64, device=dev)
+                             for et in etypes},
+                    "generator": torch.Generator(device=dev),
+                    "width": sum(per_et.values()), "batches": n_batches}
+
+        def run_pass(p, tag, epoch, n_batches):
+            """One pass of ``n_batches`` steps: its device losses and edges."""
+            _, losses = run_device_epoch(*p["fns"], state, graph, feats, edge_tables, p["store"],
+                                         p["eids"], p["generator"],
+                                         _epoch_seed(cfg.seed, tag, epoch), n_batches,
+                                         cfg.epoch_chunk_steps)
+            return losses, n_batches * p["width"]
+
+        train_pass = epoch_pass(train_etypes, train_eids, True, cfg.exclude_batch_edges,
+                                train_graph)
+        smoke_pass = epoch_pass(train_etypes, train_eids, False, cfg.exclude_batch_edges,
+                                train_graph)
+        if valid_eids:
+            # Held-out pairs from the full graph, sampled over the train graph.
+            valid_pass = epoch_pass(valid_etypes, valid_eids, False, False, full_graph)
+    else:
+        def step_fn(etypes, with_update, with_exclusion):
+            return make_minibatch_step(model, cfg, etypes, with_update=with_update,
+                                       with_exclusion=with_exclusion, has_reverse=has_reverse)
+
+        train_step = step_fn(train_etypes, True, cfg.exclude_batch_edges)
+        smoke_step = step_fn(train_etypes, False, cfg.exclude_batch_edges)
+        valid_step = step_fn(valid_etypes, False, False)
+        train_store = EdgeStore(train_graph, train_etypes)
+        valid_store = EdgeStore(full_graph, valid_etypes)
+
+        def draws_for(tag: int, epoch: int) -> Draws:
+            return Draws(torch.Generator(device=dev).manual_seed(
+                _epoch_seed(cfg.seed, tag, epoch)))
 
     history = {"train_loss": [], "valid_loss": [], "recall": [], "precision": [],
                "coverage": [], "subtrain_recall": [], "epoch_time": [], "edges_per_s": []}
     best_val, best_epoch = np.inf, 0
     for epoch in range(start_epoch, cfg.num_epochs):
         t0 = time.perf_counter()
-        host_rng = np.random.default_rng((cfg.seed, epoch))
-        draws = draws_for(0, epoch)
-        losses, epoch_edges = [], 0
-        for bi, batch_np in enumerate(iter_edge_batches(host_rng, train_eids,
-                                                        cfg.edge_batch_size)):
-            if epoch == 0 and bi >= 10:
-                break  # epoch-0 loss-only pass (run.py:136-142)
-            step = smoke_step if epoch == 0 else train_step
-            _, loss = step(state, graph, feats, train_store.batch(batch_np, True, dev),
-                           edge_tables, draws)
-            losses.append(loss)
-            epoch_edges += sum(len(v) for v in batch_np.values())
-        history["train_loss"].append(float(torch.stack(losses).mean()))
+        if cfg.device_epoch:
+            if epoch == 0:  # the loss-only pass (run.py:136-142)
+                losses, epoch_edges = run_pass(smoke_pass, 0, epoch,
+                                               min(10, smoke_pass["batches"]))
+            else:
+                losses, epoch_edges = run_pass(train_pass, 0, epoch, train_pass["batches"])
+        else:
+            host_rng = np.random.default_rng((cfg.seed, epoch))
+            draws = draws_for(0, epoch)
+            losses, epoch_edges = [], 0
+            for bi, batch_np in enumerate(iter_edge_batches(host_rng, train_eids,
+                                                            cfg.edge_batch_size)):
+                if epoch == 0 and bi >= 10:
+                    break  # epoch-0 loss-only pass (run.py:136-142)
+                step = smoke_step if epoch == 0 else train_step
+                _, loss = step(state, graph, feats, train_store.batch(batch_np, True, dev),
+                               edge_tables, draws)
+                losses.append(loss)
+                epoch_edges += sum(len(v) for v in batch_np.values())
+            losses = torch.stack(losses)
+        history["train_loss"].append(float(losses.mean()))  # the host's one read
         elapsed = time.perf_counter() - t0
         history["edges_per_s"].append(epoch_edges / max(elapsed, 1e-9))
 
         val_loss = None
         if valid_eids:
-            draws = draws_for(1, epoch)
-            vlosses = [valid_step(state, graph, feats, valid_store.batch(b, False, dev),
-                                  edge_tables, draws)[1]
-                       for b in iter_edge_batches(host_rng, valid_eids, cfg.edge_batch_size)]
-            val_loss = float(torch.stack(vlosses).mean())
+            if cfg.device_epoch:
+                vlosses = run_pass(valid_pass, 1, epoch, valid_pass["batches"])[0]
+            else:
+                draws = draws_for(1, epoch)
+                vlosses = torch.stack([
+                    valid_step(state, graph, feats, valid_store.batch(b, False, dev),
+                               edge_tables, draws)[1]
+                    for b in iter_edge_batches(host_rng, valid_eids, cfg.edge_batch_size)])
+            val_loss = float(vlosses.mean())
             history["valid_loss"].append(val_loss)
         history["epoch_time"].append(time.perf_counter() - t0)
 

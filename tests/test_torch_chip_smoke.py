@@ -4,6 +4,7 @@ timings and no launches to count)."""
 
 import pytest
 import torch
+from test_torch_minibatch import one_torch_thread  # noqa: F401 (autouse)
 
 import chip_smoke
 
@@ -60,6 +61,17 @@ def test_train_dedup_and_packed_leaf_rehearsal(data):
     assert [r["name"].split(":")[0] for r in rows] == ["gather_mean_fwd", "gather_mean_bwd"] * 4
     assert all(r["max_abs_err"] <= 1e-6 and r["bound_ms"] > 0 for r in rows)
     chip_smoke.phase_packed_leaf(torch.device("cpu"), data, model, seeds=8)
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_train_graph_rehearsal(data, dedup):
+    """Phase 9 through the trainer's device epochs, on the CPU the eager
+    body: the loss falls, and the eager-against-graph check (here the eager
+    body twice) agrees bit for bit."""
+    launches = chip_smoke.phase_train_graph(torch.device("cpu"), data, hidden=32, out=16,
+                                            steps=8, valid_steps=2, batch_size=128, pool=48,
+                                            dedup=dedup, on_card=False, check_steps=3)
+    assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
 
 
 def test_per_call_ms_survives_lost_records():

@@ -256,6 +256,37 @@ def test_train_minibatch_runs_the_kernels_on_the_card(dev):
     assert pm.pool_membership_mask.launches > n_pool
 
 
+@pytest.mark.parametrize("dedup", [False, True])
+def test_device_epochs_replay_the_eager_body(dev, dedup):
+    """The device epochs' CUDA graph at a small size: 4 replays against 4
+    eager steps from one state and seed (``chip_smoke.graph_route_check``:
+    the first step's draws bit for bit, losses, parameters after Adam,
+    the captured launches a step), and one of fewer batches an epoch than
+    warm-up steps."""
+    import chip_smoke
+
+    from gnn_recsys_tpu_torch.models.conv_model import ConvModel
+    from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
+    from gnn_recsys_tpu_torch.train.minibatch import MinibatchConfig
+
+    data = chip_smoke.bench_data(num_users=400, num_items=150)
+    g = data.graph.to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    kw = chip_smoke.medium_kwargs(g, 32, 16)
+    etypes = tuple(data.train_pairs)
+    cfg = MinibatchConfig(edge_batch_size=128, fanouts=(8, 4), neg_mode="dense_pool",
+                          neg_pool_size=96, pool_mask_kernel=True, dedup=dedup)
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    per_step = chip_smoke.step_counts(g, ConvModel(**kw), etypes, dedup)
+    for edges in (512, 128):  # 4 batches an epoch, then 1
+        eids = chip_smoke.edge_slices(g, etypes, edges)
+        report, captured = chip_smoke.graph_route_check(dev, g, feats, kw, cfg, eids, tables,
+                                                        per_step, steps=4)
+        assert report["first_step_draws"]["pool"] == 96
+        assert captured.launches == {n: c for n, c in per_step.items() if c}
+
+
 @pytest.mark.parametrize("b,k,p", [(1024, 32, 2560), (1000, 24, 2500), (3, 128, 7),
                                    (1000, 24, 2557), (1001, 32, 2560), (50, 1, 300),
                                    (17, 128, 4099)])

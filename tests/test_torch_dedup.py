@@ -23,6 +23,7 @@ from test_torch_minibatch import (
     REPR_TOL,
     _batch,
     _record_draws,
+    one_torch_thread,  # noqa: F401 (autouse)
 )
 
 from gnn_recsys_tpu.models.conv_model import ConvModel as JConvModel

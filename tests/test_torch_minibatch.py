@@ -35,6 +35,17 @@ from gnn_recsys_tpu_torch.train import minibatch as tmb
 from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings
 from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the module's torch ops on one intra-op thread: the tensors are
+    tiny, and the suite runs in several worker processes, where torch's
+    thread pools, one a worker, wait on each other for every small op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPR_TOL = 1e-5
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6

@@ -1,11 +1,13 @@
-"""Exact resume of the port's host training loop (the port of
-``tests/test_minibatch.py:235-290``): 4 straight epochs equal 2 epochs, then
-``save_train_state`` / ``load_train_state``, then 2 more, because every
-epoch's draws and batch order are a function of (seed, epoch)."""
+"""Exact resume of the port's training loop, through the device epochs and
+through the host loop (the port of ``tests/test_minibatch.py:235-290``): 4
+straight epochs equal 2 epochs, then ``save_train_state`` /
+``load_train_state``, then 2 more, because every epoch's draws and batch
+order are a function of (seed, epoch)."""
 
 import numpy as np
 import pytest
 import torch
+from test_torch_minibatch import one_torch_thread  # noqa: F401 (autouse)
 
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.train.checkpoint import load_train_state, save_train_state
@@ -29,8 +31,9 @@ def _model(g, agg):
                      n_layers=3, aggregator_type=agg)
 
 
+@pytest.mark.parametrize("device_epoch", [True, False])
 @pytest.mark.parametrize("agg,dedup", [("mean", False), ("mean_nn", True)])
-def test_resume_from_checkpoint_is_exact(tmp_path, agg, dedup):
+def test_resume_from_checkpoint_is_exact(tmp_path, agg, dedup, device_epoch):
     g, feats = _world()
     train_eids = {et: np.arange(g.num_edges(et)) for et in (ET_BUYS, ET_CLICKS)}
 
@@ -38,7 +41,7 @@ def test_resume_from_checkpoint_is_exact(tmp_path, agg, dedup):
         return MinibatchConfig(edge_batch_size=96, fanouts=(4, 4), neg_sample_size=5,
                                neg_mode="shared_pool", neg_pool_size=32, lr=3e-3,
                                num_epochs=num_epochs, metrics_every=0, patience=100, seed=3,
-                               dedup=dedup)
+                               dedup=dedup, device_epoch=device_epoch, epoch_chunk_steps=2)
 
     def train(num_epochs, **kw):
         model = kw.pop("model", None) or _model(g, agg)
