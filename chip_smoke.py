@@ -13,9 +13,10 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
 2. build: ``nvcc`` of ``gnn_recsys_tpu_torch/csrc/*.cu`` for sm_90a (one
    process a source, all at once), with the compiler's register /
    shared-memory / spill summary; the instantiations the main path runs
-   (``NO_SPILL``: the leaf kernels' f32 F = 8; ``topk_kernel``'s f32 top-k
-   and boost epilogues with lists in the shared buffer and its LSE epilogue;
-   the pool mask) must not spill.
+   (``NO_SPILL``: the leaf kernels' f32 and bf16 F = 8; the gather-mean
+   kernels' f32 and bf16 16-byte paths at K = 8 and 4; ``topk_kernel``'s f32
+   top-k and boost epilogues with lists in the shared buffer and its LSE
+   epilogue; the pool mask) must not spill.
 3. kernels: each kernel against its plain version; its time (``ms``: the
    device time of its kernels under ``torch.profiler``; ``events_ms``: CUDA
    events around back-to-back calls, host overhead included) beside the
@@ -27,10 +28,10 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    own), ``mips_topk`` too where k > 32;
    ``leaf_mean_nn``
    forward and backward at the training step's widest leaf (P=18,432, K=8,
-   F=8, H=256) in f32 and bf16, a ragged P and an all-masked row, the
-   backward's main kernel and its reduce timed apart (the backward may differ
-   beyond ``GRAD_REL`` only by the terms whose pre-activation lies within
-   rounding of 0, ``leaf_bwd_slack``);
+   F=8, H=256) in f32 and bf16 (rows ``leaf_mean_nn_*:bf16``), a ragged P
+   and an all-masked row, the backward's main kernel and its reduce timed
+   apart (the backward may differ beyond ``GRAD_REL`` only by the terms
+   whose pre-activation lies within rounding of 0, ``leaf_bwd_slack``);
    ``pool_membership_mask`` at [1024, 32, 2560] with -1 padding, ragged
    B and P, P = 2557, K = 128, and repeated ids with negative pool
    entries, bit for bit; ``gather_mean`` forward and backward on uniform random ids at
@@ -39,7 +40,9 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    slots; the backward against both plain versions (the walk of the same
    transpose, and ``index_add_``) and against a second call (same bits),
    and also timed with the wrapper's own sort (``without_plan_ms``); the
-   forward again on ids inside the table's first 4 MB (``l2_resident_ms``).
+   forward again on ids inside the table's first 4 MB (``l2_resident_ms``);
+   then both in bf16 (rows ``gather_mean_*:bf16``, within ``BF16_RTOL`` of
+   the largest entry, the backward's bits twice the same).
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -73,7 +76,9 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    masked share and the valid slots per source row with and without the
    padding rows; per shape the checks and times of phase 3 (one row each in
    the kernels line, with its launches in the main path) and the forward
-   again on ids inside the table's first 4 MB (``l2_resident_ms``).
+   again on ids inside the table's first 4 MB (``l2_resident_ms``); then
+   the same in bf16 (the table and cotangent rounded to bf16; rows
+   ``gather_mean_*:bf16:<shape>``, whose launches are phase 10's).
 8. packed_leaf: one tree forward at fanouts (-1, -1) for 32 users and 32
    items through the packed leaf cache (``attach_leaf_features``) and
    without it.
@@ -95,6 +100,15 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    and idle share a step, and each training kernel's launches a replay from
    the kernel records).  Phases 5 and 6 are the eager host loop of the same
    step, timed in the same run.
+10. train_graph_bf16 and train_graph_dedup_bf16: phase 9 with the bench
+   config as ``bench.py:219-231`` defines it, ``ConvModel(dtype=bfloat16)``:
+   the same report, each templated training kernel's launches a replay in
+   its bf16 instantiation, the eager-against-graph check at the bf16
+   tolerances of ``tests/test_torch_bf16.py`` (losses within 1e-2,
+   gradients within 5e-2 of each parameter's largest entry, parameters
+   within 2 * lr: the dedup step's ``index_add_`` adds bf16 cotangents with
+   atomics), and recall@10 after training, which must beat the random
+   weights' of phase 4.
 
 Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
 gives its launches in phase 9, ``graph_launches``), the card's name and
@@ -157,6 +171,10 @@ TOL = 1e-5  # f32 sums in another order than the plain version's product
 # another order than the plain versions' (each kernel's own order is fixed).
 GRAD_REL = 1e-5
 BF16_RTOL = 2.0**-7  # one bf16 ulp: both sides round the same f32 sums
+# A bf16 step, eager against replayed (the CPU tests' bf16 tolerances,
+# tests/test_torch_bf16.py): the loss, and each gradient relative to its
+# parameter's largest entry.
+BF16_LOSS_RTOL, BF16_GRAD_REL = 1e-2, 5e-2
 # One step, kernel route against plain route: the CPU tests' tolerances
 # (tests/test_torch_minibatch.py).
 LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-5, 1e-4, 1e-6
@@ -299,13 +317,31 @@ def phase_device() -> str:
     return kind
 
 
+BF16 = "13__nv_bfloat16"  # a template argument __nv_bfloat16, mangled
+
+
+def _gather_pieces(direction: str, elem: str, vec: int) -> tuple:
+    """The gather-mean instantiations of the dedup step: K = 8 and 4 on the
+    16-byte path (``vec`` elements a load)."""
+    return tuple(f"gather_mean_{direction}_kernelI{elem}Li{vec}ELi{k}EE" for k in (8, 4))
+
+
 # The instantiations each row's main path runs, by a piece of their mangled
-# names: the leaf kernels' f32 F = 8 ones (the tree step's), topk_kernel's f32
-# ones that serving runs (mips_topk and mips_boost with lists of k <= 32 in
-# the shared buffer, the LSE epilogue), the pool mask.  None may spill.
+# names: the leaf kernels' F = 8 ones (the tree step's), in f32 and bf16; the
+# gather-mean kernels' 16-byte paths at K = 8 and 4 (the dedup step's), in
+# f32 and bf16; topk_kernel's f32 ones that serving runs (mips_topk and
+# mips_boost with lists of k <= 32 in the shared buffer, the LSE epilogue),
+# the pool mask.  None may spill.
 NO_SPILL = {
     "leaf_mean_nn_fwd": ("leaf_agg", ("leaf_fwd_kernelIfLi8EE",)),
+    "leaf_mean_nn_fwd:bf16": ("leaf_agg", (f"leaf_fwd_kernelI{BF16}Li8EE",)),
     "leaf_mean_nn_bwd": ("leaf_agg", ("leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel")),
+    "leaf_mean_nn_bwd:bf16": ("leaf_agg", (f"leaf_bwd_kernelI{BF16}Li8EE",
+                                            "leaf_bwd_reduce_kernel")),
+    "gather_mean_fwd": ("gather_mean", _gather_pieces("fwd", "f", 4)),
+    "gather_mean_fwd:bf16": ("gather_mean", _gather_pieces("fwd", BF16, 8)),
+    "gather_mean_bwd": ("gather_mean", _gather_pieces("bwd", "f", 4)),
+    "gather_mean_bwd:bf16": ("gather_mean", _gather_pieces("bwd", BF16, 8)),
     "mips_topk": ("topk_mips", ("topk_kernelIfLb1ELi0EE",)),
     "mips_lse": ("topk_mips", ("topk_kernelIfLb0ELi2EE",)),
     "mips_boost": ("topk_mips", ("topk_kernelIfLb1ELi1EE",)),
@@ -502,9 +538,30 @@ def leaf_case(dev, gen, k, p, f, h, dtype=torch.float32):
     return x.to(dtype), ms, w.to(dtype), b.to(dtype), g.to(dtype)
 
 
+def check_leaf_bwd(what, x, ms, w, b, g) -> float:
+    """The backward kernel's (dW, db) against its plain version, beyond
+    ``GRAD_REL`` only by ``leaf_bwd_slack``'s terms, and against a second
+    call (same bits); returns the largest difference."""
+    dw, db = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+    err = 0.0
+    for got, want, slack in zip((dw, db), la.leaf_mean_nn_bwd_reference(x, ms, w, b, g),
+                                leaf_bwd_slack(x, ms, w, b, g)):
+        diff = (got - want).abs()
+        err = max(err, float(diff.max()))
+        excess = float((diff.double() - slack).max())
+        if not excess <= GRAD_REL * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"{what}: differs by {float(diff.max())}, "
+                                 f"{excess} beyond its near-zero pre-activations' terms")
+    dw2, db2 = la.leaf_mean_nn_bwd(x, ms, w, b, g)
+    if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+        raise AssertionError(f"{what}: two runs differ")
+    return err
+
+
 def leaf_rows(dev, gen, record, k, p, f, h) -> None:
     """``leaf_mean_nn`` forward and backward against their plain versions:
-    f32 at the shape given, bf16 (forward) and a ragged P."""
+    f32 at the shape given and a ragged P, then bf16 (the tree step's dtype
+    at the bench config)."""
     errs, grad_errs = [], []
     for pp in (p, p - 5 if p > 5 else p):
         x, ms, w, b, g = leaf_case(dev, gen, k, pp, f, h)
@@ -513,18 +570,7 @@ def leaf_rows(dev, gen, record, k, p, f, h) -> None:
         if not errs[-1] <= TOL or not (out[pp // 2] == 0).all():
             raise AssertionError(f"leaf_mean_nn_fwd P={pp}: differs by {errs[-1]} "
                                  f"or the all-masked row is not 0")
-        dw, db = la.leaf_mean_nn_bwd(x, ms, w, b, g)
-        for got, want, slack in zip((dw, db), la.leaf_mean_nn_bwd_reference(x, ms, w, b, g),
-                                    leaf_bwd_slack(x, ms, w, b, g)):
-            diff = (got - want).abs()
-            grad_errs.append(float(diff.max()))
-            excess = float((diff.double() - slack).max())
-            if not excess <= GRAD_REL * max(1.0, float(want.abs().max())):
-                raise AssertionError(f"leaf_mean_nn_bwd P={pp}: differs by {grad_errs[-1]}, "
-                                     f"{excess} beyond its near-zero pre-activations' terms")
-        dw2, db2 = la.leaf_mean_nn_bwd(x, ms, w, b, g)
-        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
-            raise AssertionError("leaf_mean_nn_bwd: two runs differ")
+        grad_errs.append(check_leaf_bwd(f"leaf_mean_nn_bwd P={pp}", x, ms, w, b, g))
     xb, msb, wb, bb, _ = leaf_case(dev, gen, k, p, f, h, torch.bfloat16)
     outb = la.leaf_mean_nn_fwd(xb, msb, wb, bb).float()
     refb = la.leaf_mean_nn_reference(xb, msb, wb, bb).float()
@@ -553,6 +599,37 @@ def leaf_rows(dev, gen, record, k, p, f, h) -> None:
             raise RuntimeError(f"leaf_mean_nn_bwd: the profiler missed a kernel: {split}")
         row.update(split)
         say("kernel_split", name="leaf_mean_nn_bwd", **split)
+    leaf_bf16_rows(dev, record, k, p, f, h)
+
+
+def leaf_bf16_rows(dev, record, k, p, f, h) -> None:
+    """Both leaf kernels in bf16 (x, W, b and the cotangent bf16, the mask
+    f32), from a generator of their own so that the cases before and after
+    keep their inputs: at the shape given and a ragged P, the forward within
+    ``BF16_RTOL`` of its plain version and the backward as in f32 (the
+    kernel widens bf16 to f32 before any arithmetic); then their rows.  The
+    operations are f32 ones (on the CUDA cores), the bytes bf16 but for the
+    f32 mask, dW and db."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    errs, grad_errs = [], []
+    for pp in (p, p - 5 if p > 5 else p):
+        x, ms, w, b, g = leaf_case(dev, gen, k, pp, f, h, torch.bfloat16)
+        out = la.leaf_mean_nn_fwd(x, ms, w, b).float()
+        ref = la.leaf_mean_nn_reference(x, ms, w, b).float()
+        errs.append(float((out - ref).abs().max()))
+        if not ((out - ref).abs() <= BF16_RTOL * ref.abs() + 1e-6).all() or out[pp // 2].any():
+            raise AssertionError(f"leaf_mean_nn_fwd bf16 P={pp}: beyond one bf16 ulp "
+                                 f"or the all-masked row is not 0")
+        grad_errs.append(check_leaf_bwd(f"leaf_mean_nn_bwd bf16 P={pp}", x, ms, w, b, g))
+    x, ms, w, b, g = leaf_case(dev, gen, k, p, f, h, torch.bfloat16)
+    io = 2.0 * (k * p * f + f * h + h) + 4.0 * p * k  # x, w, b; the f32 mask
+    record("leaf_mean_nn_fwd:bf16", LEAF, 78, max(errs), lambda: la.leaf_mean_nn_fwd(x, ms, w, b),
+           lambda: la.leaf_mean_nn_reference(x, ms, w, b), None,
+           float(k * p * h * (2 * f + 4)), io + 2.0 * p * h)
+    record("leaf_mean_nn_bwd:bf16", LEAF, 94, max(grad_errs),
+           lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
+           lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
+           float(k * p * h * (4 * f + 4)), io + 2.0 * p * h + 4.0 * (f * h + h))
 
 
 def leaf_bwd_slack(x, ms, w, b, g) -> tuple:
@@ -562,7 +639,9 @@ def leaf_bwd_slack(x, ms, w, b, g) -> tuple:
     summation order and the plain version's.  z is taken in f64; a term is
     near zero where |z| <= (F + 1) * 2**-23 * (sum_f |x w| + |b|), twice the
     worst-case rounding of an f32 dot of F + 1 terms.  Only these terms may
-    add to the difference beyond ``GRAD_REL``."""
+    add to the difference beyond ``GRAD_REL``.  The window is f32's for bf16
+    inputs too: both sides widen them to f32 before any arithmetic, so z is
+    an f32 dot of exact values either way."""
     x64, w64, b64 = x.double(), w.double(), b.double()
     z = torch.einsum("kpf,fh->kph", x64, w64) + b64
     scale = torch.einsum("kpf,fh->kph", x64.abs(), w64.abs()) + b64.abs()
@@ -605,17 +684,32 @@ def pool_rows(dev, gen, record, b, k, p) -> None:
            compares, 4.0 * (b * k + p + b * p))
 
 
-def gather_case(dev, gen, b, k, n, d):
+def gather_case(dev, gen, b, k, n, d, dtype=torch.float32):
     """Random gather-mean inputs: h [N, D], int32 ids [B, K] with -1 and >= N
     among the valid slots (both clipped), a bool mask with an all-masked row,
-    and a cotangent [B, D]."""
+    and a cotangent [B, D]; h and the cotangent in ``dtype``."""
     h = torch.randn(n, d, generator=gen, device=dev)
     nbr = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
     mask = torch.rand(b, k, generator=gen, device=dev) < 0.8
     mask[b // 2] = False
     nbr[0, 0], nbr[-1, -1] = -1, n + 3
     mask[0, 0] = mask[-1, -1] = True
-    return h, nbr, mask, torch.randn(b, d, generator=gen, device=dev)
+    return h.to(dtype), nbr, mask, torch.randn(b, d, generator=gen, device=dev).to(dtype)
+
+
+def check_gather_fwd(what, h, nbr, mask) -> float:
+    """The forward kernel against its plain version, relative to the largest
+    entry (``TOL``: f32 sums in another order; in bf16 ``BF16_RTOL``, both
+    round the same f32 sums), with the all-masked rows 0; returns the
+    difference."""
+    out, want = gm.gather_mean_fwd(h, nbr, mask), gm.gather_mean_reference(h, nbr, mask)
+    err = float((out.float() - want.float()).abs().max())
+    tol = BF16_RTOL if h.dtype == torch.bfloat16 else TOL
+    if not err <= tol * max(1.0, float(want.float().abs().max())):
+        raise AssertionError(f"{what}: differs by {err}")
+    if out[~mask.any(dim=1)].any():
+        raise AssertionError(f"{what}: an all-masked row is not 0")
+    return err
 
 
 def gather_rows(dev, gen, record, b, k, n, d) -> None:
@@ -626,11 +720,7 @@ def gather_rows(dev, gen, record, b, k, n, d) -> None:
     errs, grad_errs = [], []
     for bb in (b, b - 7 if b > 7 else b):
         h, nbr, mask, g = gather_case(dev, gen, bb, k, n, d)
-        out, want = gm.gather_mean_fwd(h, nbr, mask), gm.gather_mean_reference(h, nbr, mask)
-        errs.append(float((out - want).abs().max()))
-        if not errs[-1] <= TOL * max(1.0, float(want.abs().max())) or not (out[bb // 2] == 0).all():
-            raise AssertionError(f"gather_mean_fwd B={bb}: differs by {errs[-1]} "
-                                 f"or the all-masked row is not 0")
+        errs.append(check_gather_fwd(f"gather_mean_fwd B={bb}", h, nbr, mask))
         tr = gm.slot_transpose(nbr, mask, n)
         grad_errs.append(check_gather_bwd(f"gather_mean_bwd B={bb}", gm.gather_mean_bwd(
             g, nbr, mask, n), g, nbr, mask, n, tr))
@@ -651,27 +741,54 @@ def gather_rows(dev, gen, record, b, k, n, d) -> None:
     if row["ms"] is not None:
         # A caller without a plan: the wrapper's own sort of the ids, then the kernel.
         row["without_plan_ms"] = device_ms(lambda: gm.gather_mean_bwd(g, nbr, mask, n))
+    gather_bf16_rows(dev, record, b, k, n, d)
 
 
-def gather_costs(b, k, n, d, nbr, mask) -> tuple:
+def gather_bf16_rows(dev, record, b, k, n, d) -> None:
+    """Both gather-mean kernels in bf16 (the dedup step's dtype at the bench
+    config), from a generator of their own: at the shape given and a ragged
+    B, each within ``BF16_RTOL`` of the largest entry of its plain versions
+    and the backward's bits twice the same; then their rows, with
+    ``embedding_bag`` in bf16 as the yardstick."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    errs, grad_errs = [], []
+    for bb in (b, b - 7 if b > 7 else b):
+        h, nbr, mask, g = gather_case(dev, gen, bb, k, n, d, torch.bfloat16)
+        errs.append(check_gather_fwd(f"gather_mean_fwd bf16 B={bb}", h, nbr, mask))
+        grad_errs.append(check_gather_bwd(f"gather_mean_bwd bf16 B={bb}", gm.gather_mean_bwd(
+            g, nbr, mask, n), g, nbr, mask, n, gm.slot_transpose(nbr, mask, n)))
+    h, nbr, mask, g = gather_case(dev, gen, b, k, n, d, torch.bfloat16)
+    tr = gm.slot_transpose(nbr, mask, n)
+    bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
+    fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, 2)
+    note = "bf16, uniform random ids (no step has them); launches: every shape of the bf16 dedup step"
+    record("gather_mean_fwd:bf16", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
+           lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost, shape=note)
+    record("gather_mean_bwd:bf16", GATHER, 49, max(grad_errs),
+           lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
+           lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost, shape=note)
+
+
+def gather_costs(b, k, n, d, nbr, mask, elem=4) -> tuple:
     """((flops, bytes) of the forward, (flops, bytes) of the backward) of a
-    [B, K] gather into an [N, D] table: each input read once and each output
-    written once.  The forward reads the table rows its valid slots name (at
-    uniform ids all N; at the step's, fewer), the int32 ids, the bool mask,
-    and writes out; the backward reads dout, the ids and the mask and writes
-    every row of dh."""
+    [B, K] gather into an [N, D] table of ``elem``-byte elements: each input
+    read once and each output written once.  The forward reads the table
+    rows its valid slots name (at uniform ids all N; at the step's, fewer),
+    the int32 ids, the bool mask, and writes out; the backward reads dout,
+    the ids and the mask and writes every row of dh."""
     ids = nbr[mask].long().clamp(0, n - 1)
     valid, named = float(ids.numel()), float(torch.unique(ids).numel())
     io = 4.0 * b * k + b * k
-    return ((valid * d + b * d, io + 4.0 * (named * d + b * d)),
-            (2.0 * valid * d + b * d, io + 4.0 * (b * d + n * d)))
+    return ((valid * d + b * d, io + elem * (named * d + b * d)),
+            (2.0 * valid * d + b * d, io + elem * (b * d + n * d)))
 
 
 def embedding_bag_calls(h, nbr, mask, g) -> tuple:
     """The one-call yardstick of each gather-mean kernel: ``embedding_bag``
-    (sum, per-slot weights m / max(count, 1)) and its autograd backward."""
+    (sum, per-slot weights m / max(count, 1), in ``h``'s dtype) and its
+    autograd backward."""
     m = mask.float()
-    weights = m / m.sum(dim=1, keepdim=True).clamp(min=1.0)
+    weights = (m / m.sum(dim=1, keepdim=True).clamp(min=1.0)).to(h.dtype)
     clipped = nbr.long().clamp(0, h.shape[0] - 1)
     h_req = h.clone().requires_grad_()
     bag = torch.nn.functional.embedding_bag(clipped, h_req, mode="sum",
@@ -739,14 +856,15 @@ def l2_resident_fwd_ms(h, nbr, mask) -> float:
 
 def check_gather_bwd(what, dh, g, nbr, mask, n, transpose) -> float:
     """The backward kernel's ``dh`` against both plain versions (the walk of
-    the same transpose, and ``index_add_`` over every slot) and against a
-    second call, which must give the same bits; returns the largest
-    difference."""
+    the same transpose, and ``index_add_`` over every slot; ``GRAD_REL`` of
+    the largest entry in f32, ``BF16_RTOL`` in bf16) and against a second
+    call, which must give the same bits; returns the largest difference."""
     err = 0.0
+    rel = BF16_RTOL if dh.dtype == torch.bfloat16 else GRAD_REL
     for want in (gm.gather_mean_bwd_plain(g, mask, n, transpose),
                  gm.gather_mean_bwd_reference(g, nbr, mask, n)):
-        err = max(err, float((dh - want).abs().max()))
-        if not err <= GRAD_REL * max(1.0, float(want.abs().max())):
+        err = max(err, float((dh.float() - want.float()).abs().max()))
+        if not err <= rel * max(1.0, float(want.float().abs().max())):
             raise AssertionError(f"{what}: differs by {err}")
     if not torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, transpose)):
         raise AssertionError(f"{what}: two calls differ")
@@ -772,27 +890,29 @@ def phase_gather_steps(dev, tap, timed=True) -> list:
         if call["shape"] in seen:
             continue
         seen.add(call["shape"])
-        out, want = gm.gather_mean_fwd(h, nbr, mask), gm.gather_mean_reference(h, nbr, mask)
-        err = float((out - want).abs().max())
-        if not err <= TOL * max(1.0, float(want.abs().max())):
-            raise AssertionError(f"gather_mean_fwd at {call['shape']}: differs by {err}")
-        grad_err = check_gather_bwd(f"gather_mean_bwd at {call['shape']}",
-                                    gm.gather_mean_bwd(g, nbr, mask, n, tr), g, nbr, mask, n, tr)
-        bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
-        fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask)
         label = f"B{b}_K{k}_N{n}"
-        fwd = kernel_row(rows, timed, f"gather_mean_fwd:{label}", GATHER, 49, err,
-                         lambda: gm.gather_mean_fwd(h, nbr, mask),
-                         lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost,
-                         shape=stats)
-        kernel_row(rows, timed, f"gather_mean_bwd:{label}", GATHER, 49, grad_err,
-                   lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
-                   lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost,
-                   shape=stats)
-        if timed:
-            fwd["l2_resident_ms"] = l2_resident_fwd_ms(h, nbr, mask)
-            say("gather_l2_probe", name=fwd["name"], ms=fwd["ms"],
-                l2_resident_ms=fwd["l2_resident_ms"])
+        # f32 as the step ran, then the same plan with the table and the
+        # cotangent rounded to bf16 (the bf16 step's gathers have this plan).
+        for tag, hh, gg in (("", h, g), ("bf16:", h.bfloat16(), g.bfloat16())):
+            what = f"at {call['shape']}" + (" bf16" if tag else "")
+            err = check_gather_fwd(f"gather_mean_fwd {what}", hh, nbr, mask)
+            grad_err = check_gather_bwd(f"gather_mean_bwd {what}",
+                                        gm.gather_mean_bwd(gg, nbr, mask, n, tr), gg, nbr, mask,
+                                        n, tr)
+            bag, bag_bwd = embedding_bag_calls(hh, nbr, mask, gg)
+            fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, hh.element_size())
+            fwd = kernel_row(rows, timed, f"gather_mean_fwd:{tag}{label}", GATHER, 49, err,
+                             lambda hh=hh: gm.gather_mean_fwd(hh, nbr, mask),
+                             lambda hh=hh: gm.gather_mean_reference(hh, nbr, mask), bag,
+                             *fwd_cost, shape=stats)
+            kernel_row(rows, timed, f"gather_mean_bwd:{tag}{label}", GATHER, 49, grad_err,
+                       lambda gg=gg: gm.gather_mean_bwd(gg, nbr, mask, n, tr),
+                       lambda gg=gg: gm.gather_mean_bwd_plain(gg, mask, n, tr), bag_bwd,
+                       *bwd_cost, shape=stats)
+            if timed and not tag:
+                fwd["l2_resident_ms"] = l2_resident_fwd_ms(h, nbr, mask)
+                say("gather_l2_probe", name=fwd["name"], ms=fwd["ms"],
+                    l2_resident_ms=fwd["l2_resident_ms"])
     return rows
 
 
@@ -1216,8 +1336,13 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
     first, the graph's parameters and Adam state are set to the eager
     route's, so that each replay is held against one eager update from the
     same state (the dedup step's ``index_add_`` adds with atomics, and the
-    routes' last bits part over several updates).  Returns (the report, the
-    captured step or None)."""
+    routes' last bits part over several updates).  A bf16 model
+    (``kw["dtype"]``) is held to the bf16 tolerances of the CPU tests: the
+    loss within ``BF16_LOSS_RTOL``, each gradient within ``BF16_GRAD_REL`` of
+    its parameter's largest entry, and the parameters within 2 * lr (the
+    atomics' order moves a bf16 gradient entry by an ulp, and Adam turns a
+    gradient's relative change into up to about lr).  Returns (the report,
+    the captured step or None)."""
     etypes = tuple(eids)
     counts = {et: len(v) for et, v in eids.items()}
     store = device_edge_store(g, etypes, dev)
@@ -1239,7 +1364,9 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
     if not all(torch.equal(eager["perms"][et], graph["perms"][et]) for et in etypes):
         raise AssertionError("the two routes drew different permutations")
     pa, pb = (dict(r["model"].named_parameters()) for r in routes)
-    worst_loss = worst_gap = 0.0
+    bf16 = kw.get("dtype") == torch.bfloat16
+    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
+    worst_loss = worst_gap = worst_grad = 0.0
     with warnings.catch_warnings(), torch.no_grad():
         warnings.filterwarnings("ignore", message=".*capturable=True.*")
         for k in range(steps):
@@ -1262,11 +1389,20 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
                 for r in routes:  # the graph's lists stay its captured draws
                     r["draws"].uniforms = r["draws"].randints = None
             worst_loss = max(worst_loss, abs(la - lb) / abs(la))
-            if not abs(la - lb) <= LOSS_RTOL * abs(la):
+            if not abs(la - lb) <= loss_rtol * abs(la):
                 raise AssertionError(f"step {k}: eager loss {la}, graph loss {lb}")
             for n, p in pa.items():
                 grad = p.grad if p.grad is not None else torch.zeros_like(p)
-                tol = torch.where(grad.abs() > 1e-5, 2e-6, 2 * cfg.lr)
+                if bf16:
+                    other = pb[n].grad if pb[n].grad is not None else torch.zeros_like(p)
+                    rel = float((grad - other).abs().max()) / max(float(grad.abs().max()), 1e-30)
+                    worst_grad = max(worst_grad, rel)
+                    if not rel <= BF16_GRAD_REL:
+                        raise AssertionError(f"step {k}: {n}'s gradients differ by {rel} of "
+                                             f"its largest entry")
+                    tol = torch.full_like(p, 2 * cfg.lr)
+                else:
+                    tol = torch.where(grad.abs() > 1e-5, 2e-6, 2 * cfg.lr)
                 excess = float(((p - pb[n]).abs() - tol).max())
                 worst_gap = max(worst_gap, excess)
                 if not excess <= 0.0:
@@ -1275,6 +1411,8 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
     captured = graph["chunk_fn"].captured
     report = {"steps": steps, "first_step_draws": first_draws, "loss_rel_worst": worst_loss,
               "param_excess_over_tolerance": worst_gap}
+    if bf16:
+        report["grad_rel_worst"] = worst_grad
     if on_card:
         want = {n: c for n, c in per_step.items() if c}
         if captured.launches != want:
@@ -1283,24 +1421,36 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
     return report, captured
 
 
-def replay_profile(captured, per_step, n=5) -> dict:
+def replay_profile(captured, per_step, n=5, bf16=False) -> dict:
     """``n`` replays under ``torch.profiler``: the step breakdown of
     :func:`profile_steps`, from the records of each kernel the graph ran,
     and each training kernel's launches a replay, which must be
-    ``per_step``'s."""
+    ``per_step``'s; with ``bf16``, every launch of a kernel templated on the
+    element type (the leaf and gather-mean kernels) must be its bf16
+    instantiation."""
     wall_ms, kernels = profiled_kernels(captured.replay, n)
     report = step_breakdown(wall_ms, kernels, n)
-    seen = {name: -(-sum(c for key, c, _ in kernels if pat in key) // n)
-            for name, pat in REPLAY_KERNELS.items()}
+
+    def launches(extra=""):
+        return {name: -(-sum(c for key, c, _ in kernels if pat in key and extra in key) // n)
+                for name, pat in REPLAY_KERNELS.items()}
+
+    seen = launches()
     if seen != per_step:
         raise AssertionError(f"the replayed step ran {seen}, expected {per_step}")
     report["kernel_launches_per_replay"] = seen
+    if bf16:
+        in_bf16 = launches("__nv_bfloat16")  # the profiler gives demangled names
+        templated = {name: c for name, c in per_step.items() if name != "pool_membership_mask"}
+        if any(in_bf16[name] != c for name, c in templated.items()):
+            raise AssertionError(f"the bf16 step's bf16 launches {in_bf16}, expected {templated}")
+        report["bf16_kernel_launches_per_replay"] = {name: in_bf16[name] for name in templated}
     return report
 
 
 def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
                       batch_size=2048, pool=2560, fanouts=(8, 4), dedup=False, on_card=True,
-                      check_steps=10) -> dict:
+                      check_steps=10, dtype=None, random_recall=None, k=10) -> dict:
     """The bench step through the trainer's entry point with
     ``MinibatchConfig(device_epoch=True)``: on a card, each step one replay
     of a CUDA graph.  Three epochs of ``steps // 2`` training steps (epoch 0
@@ -1310,12 +1460,16 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
     losses (the last training epoch's must be below the first's), and checks
     the launch counts against the steps run (the warm-up steps of each of
     the three captures included).  Then :func:`graph_route_check` and the
-    replay's profile (:func:`replay_profile`).  Returns the launches."""
+    replay's profile (:func:`replay_profile`).  ``dtype``: the model's
+    computation dtype (bf16: the bench config of ``bench.py:219-231``); with
+    ``random_recall``, the trained model's recall@``k`` must beat it.
+    Returns the launches."""
     from gnn_recsys_tpu_torch.train import graph_step
 
-    phase = "train_graph_dedup" if dedup else "train_graph"
+    phase = ("train_graph_dedup" if dedup else "train_graph") + (
+        "_bf16" if dtype == torch.bfloat16 else "")
     g = data.graph
-    kw = medium_kwargs(g, hidden, out)
+    kw = dict(medium_kwargs(g, hidden, out), dtype=dtype)
     model = ConvModel(**kw, leaf_kernel=True)
     etypes = tuple(data.train_pairs)
     per_epoch = max(1, steps // 2)
@@ -1379,6 +1533,16 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
         report.update(step_ms_median=float(np.median(train_ms)),
                       step_ms_min=float(np.min(train_ms)), step_ms_max=float(np.max(train_ms)),
                       max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    if random_recall is not None:  # the trained model's quality against the random weights'
+        h = compute_embeddings(model, g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                               device=dev)
+        metrics = get_metrics_at_k(h["user"], h["item"], data.test_ground_truth,
+                                   data.train_pairs[BUYS], k, device=dev)
+        report.update(embedding_dtype=str(h["user"].dtype), precision_recall_coverage=metrics,
+                      random_weights_recall=random_recall)
+        if not metrics[1] > random_recall:
+            raise AssertionError(f"{phase}: trained recall@{k} {metrics[1]} <= random "
+                                 f"weights' {random_recall}")
     del state, model, hist
     gd = g.to(dev)
     feats = {nt: gd.ndata[nt]["features"] for nt in gd.ntypes}
@@ -1388,7 +1552,7 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
         dev, gd, feats, kw, cfg, train_eids, tables, per_step, steps=check_steps,
         on_card=on_card)
     if on_card:
-        report["profile"] = replay_profile(captured, per_step)
+        report["profile"] = replay_profile(captured, per_step, bf16=dtype == torch.bfloat16)
     say(phase, **report)
     return launches
 
@@ -1423,7 +1587,7 @@ KERNEL_GROUPS = (
     ("gather_mean_bwd", ("gather_mean_bwd",)),
     ("leaf_mean_nn", ("leaf_fwd", "leaf_bwd")),
     ("pool_membership_mask", ("pool_mask",)),
-    ("matmul", ("gemm", "gemv", "cutlass", "sm90_", "splitK")),
+    ("matmul", ("gemm", "gemv", "cutlass", "sm90_", "splitK", "nvjet")),
     ("gather / scatter / index", ("index", "gather", "scatter", "Indexing")),
     ("reductions", ("reduce", "Reduce")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise", "unrolled")),
@@ -1486,6 +1650,19 @@ def main() -> int:
     graph_launches = phase_train_graph(dev, data)
     graph_launches.update({name: n for name, n in phase_train_graph(
         dev, data, steps=50, dedup=True).items() if name.startswith("gather_mean")})
+    # The bench config as bench.py defines it: bf16 compute.  Its kernels'
+    # bf16 rows take their launches from these two phases, the gather-mean's
+    # shape rows in proportion to the dedup step's calls of each shape.
+    bf16 = phase_train_graph(dev, data, dtype=torch.bfloat16, random_recall=random_recall)
+    bf16.update({name: n for name, n in phase_train_graph(
+        dev, data, steps=50, dedup=True, dtype=torch.bfloat16,
+        random_recall=random_recall).items() if name.startswith("gather_mean")})
+    total_calls = sum(tap.calls_by_shape.values())
+    for name, n in bf16.items():
+        launches[f"{name}:bf16"] = n
+        if name.startswith("gather_mean"):
+            for (b, k, n_rows, _), calls in tap.calls_by_shape.items():
+                launches[f"{name}:bf16:B{b}_K{k}_N{n_rows}"] = n * calls // total_calls
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:

@@ -6,10 +6,16 @@
 //
 //   out[b] = sum_k m[b,k] * h[clip(nbr[b,k])] / max(sum_k m[b,k], 1)
 //
-// h [N, D] f32 is a source table, nbr [B, K] int32 row ids (clipped into
-// [0, N-1]), m [B, K] uint8 the validity mask; a row with no valid slot gives
-// zeros.  The dedup'd block forward runs it on every mean of its bottom-up
-// pass (the table is transform_src of the unique nodes of the level below).
+// h [N, D] f32 or bf16 is a source table, nbr [B, K] int32 row ids (clipped
+// into [0, N-1]), m [B, K] uint8 the validity mask; a row with no valid slot
+// gives zeros.  The dedup'd block forward runs it on every mean of its
+// bottom-up pass (the table is transform_src of the unique nodes of the level
+// below), in the model's computation dtype.  Both element types sum in f32.
+// In bf16 the forward rounds each sum to bf16 and then divides by the count,
+// as the TPU kernel's bf16 sum and division do, and the backward rounds each
+// row of dh once; the plain versions do the same.  Each kernel is a template
+// on the element type T and on the elements VEC of one load: 16 bytes (4 f32
+// or 8 bf16) where D and the pointers allow, else one.
 //
 // The TPU kernel has no backward: JAX differentiates that path through XLA's
 // transpose of the gather, a scatter-add.  Training needs the gradient with
@@ -21,8 +27,9 @@
 // What bounds them.  Both move bytes and do almost no arithmetic (one add or
 // one multiply-add a gathered element).  Counting each input once and each
 // output once, the forward at the training step's widest call (B=38,912,
-// K=8, N=30,000, D=256) moves about 72 MB, 0.022 ms at 3.35 TB/s; reading
-// every valid slot's row from device memory would be about 319 MB.  A table
+// K=8, N=30,000, D=256) moves about 72 MB in f32 and half that in bf16,
+// 0.022 ms (0.011 ms) at 3.35 TB/s; reading every valid slot's row from
+// device memory would be about 319 MB in f32.  A table
 // that fits in the 50 MB L2 serves its repeated rows from L2, so the time
 // lies between the two readings and the L2's rate sets it; a larger table
 // (the step's 100,000-row one, 102 MB) reads from device memory.  The
@@ -33,7 +40,8 @@
 //
 // Forward.  One warp a destination row.  Lane j < K holds slot j's clipped id
 // (or -1 where masked), loaded once; the count is one ballot.  The lanes span
-// D in 16-byte float4 columns (D=256: two a lane).  K = 4 and 8 (the step's)
+// D in 16-byte columns (D=256: two float4 a lane in f32, one load of 8 bf16
+// a lane in bf16), each widened to f32 as it is added.  K = 4 and 8 (the step's)
 // are compiled for that K, with the slots unrolled; any other K walks its
 // slots 8 at a time.  Every slot's loads are unconditional (a masked slot
 // reads row 0 and is zeroed by a select), so no branch orders them and
@@ -66,6 +74,7 @@
 // flight is what shortens it.  Fixed order, no atomics: two runs give the
 // same bits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,36 +82,106 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;  // rows per block (one warp each)
-constexpr int CH = 2;     // vector columns a lane holds per pass over the slots
 constexpr int G = 8;      // forward, any K: slots whose loads issue together
 constexpr int U = 2;      // backward: valid slots whose cotangent rows load together
 constexpr int BWD_BLOCKS = 6;  // backward blocks resident an SM (at most 42 registers)
 
+using bf16 = __nv_bfloat16;
+
+// One load of a table or cotangent row: VEC elements of T (16 bytes on the
+// vector path: 4 f32 or 8 bf16; one element on the scalar path), and its
+// f32 view.  Sums are f32; a bf16 result is rounded once, to nearest even.
+template <typename T, int VEC>
+struct Pack;
+template <>
+struct Pack<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[4]) {
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  }
+  static __device__ __forceinline__ Raw narrow(const float (&f)[4]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+template <>
+struct Pack<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw zero() { return 0.f; }
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[1]) { f[0] = r; }
+  static __device__ __forceinline__ Raw narrow(const float (&f)[1]) { return f[0]; }
+};
+template <>
+struct Pack<bf16, 8> {
+  using Raw = uint4;  // 4 words of 2 bf16, the lower address in the low half
+  static __device__ __forceinline__ Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[8]) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its f32
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ Raw narrow(const float (&f)[8]) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 two = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const unsigned*>(&two);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <>
+struct Pack<bf16, 1> {
+  using Raw = bf16;
+  static __device__ __forceinline__ Raw zero() { return __float2bfloat16_rn(0.f); }
+  static __device__ __forceinline__ void widen(const Raw& r, float (&f)[1]) {
+    f[0] = __bfloat162float(r);
+  }
+  static __device__ __forceinline__ Raw narrow(const float (&f)[1]) {
+    return __float2bfloat16_rn(f[0]);
+  }
+};
+
+// acc += widen(r); fma_scaled: acc += widen(r) * s, one fused multiply-add.
+template <typename T, int VEC>
+__device__ __forceinline__ void add(float (&acc)[VEC], const typename Pack<T, VEC>::Raw& r) {
+  float f[VEC];
+  Pack<T, VEC>::widen(r, f);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] += f[e];
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void fma_scaled(float (&acc)[VEC], const typename Pack<T, VEC>::Raw& r,
+                                           float s) {
+  float f[VEC];
+  Pack<T, VEC>::widen(r, f);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = fmaf(f[e], s, acc[e]);
+}
+
+// The mean of one column from its f32 sum, before the output's rounding:
+// f32 multiplies by 1 / max(count, 1); bf16 rounds the sum to bf16 and
+// divides, as the TPU kernel's bf16 sum and division do
+// (ops/pallas/gather_mean.py:68-70).
+template <typename T>
+__device__ __forceinline__ float mean_of(float sum, float count, float inv);
+template <>
+__device__ __forceinline__ float mean_of<float>(float sum, float, float inv) {
+  return sum * inv;
+}
+template <>
+__device__ __forceinline__ float mean_of<bf16>(float sum, float count, float) {
+  return __bfloat162float(__float2bfloat16_rn(sum)) / count;
+}
+
+// Loads a lane holds per pass over the slots: a warp's pass spans 256
+// elements on the vector path (f32: 2 float4 a lane; bf16: one 8-element
+// load a lane), 64 on the scalar path.
 template <int VEC>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = float4;
-  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  static __device__ __forceinline__ void add(T& a, const T& b) {
-    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
-  }
-  static __device__ __forceinline__ void fma(T& a, const T& b, float s) {
-    a.x = fmaf(b.x, s, a.x); a.y = fmaf(b.y, s, a.y);
-    a.z = fmaf(b.z, s, a.z); a.w = fmaf(b.w, s, a.w);
-  }
-  static __device__ __forceinline__ T scale(const T& a, float s) {
-    return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-  }
-};
-template <>
-struct Vec<1> {
-  using T = float;
-  static __device__ __forceinline__ T zero() { return 0.f; }
-  static __device__ __forceinline__ void add(T& a, const T& b) { a += b; }
-  static __device__ __forceinline__ void fma(T& a, const T& b, float s) { a = fmaf(b, s, a); }
-  static __device__ __forceinline__ T scale(const T& a, float s) { return a * s; }
-};
+__host__ __device__ constexpr int chunks() { return VEC == 8 ? 1 : 2; }
 
 // Slot base+lane of the row at `row`: its clipped id, or -1 where masked or past K.
 __device__ __forceinline__ int slot_id(const int* __restrict__ nbr,
@@ -113,13 +192,16 @@ __device__ __forceinline__ int slot_id(const int* __restrict__ nbr,
   return min(max(nbr[row + k], 0), N - 1);
 }
 
-// KS: the K compiled for (4 or 8), or 0 for any K.
-template <int VEC, int KS>
+// T: the element type (f32 or bf16); VEC: elements a load; KS: the K
+// compiled for (4 or 8), or 0 for any K.
+template <typename T, int VEC, int KS>
 __global__ void __launch_bounds__(WARPS * 32)
-gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
+gather_mean_fwd_kernel(const T* __restrict__ h, const int* __restrict__ nbr,
                        const uint8_t* __restrict__ mask, int N, int B, int K_, int D,
-                       float* __restrict__ out) {
-  using V = typename Vec<VEC>::T;
+                       T* __restrict__ out) {
+  using P = Pack<T, VEC>;
+  using V = typename P::Raw;
+  constexpr int CH = chunks<VEC>();
   constexpr int GS = KS ? KS : G;  // slots a group; 32 % GS == 0
   const int K = KS ? KS : K_;
   const int lane = threadIdx.x & 31;
@@ -130,14 +212,12 @@ gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
   int count = __popc(__ballot_sync(FULL, first >= 0));
   for (int base = 32; base < K; base += 32)
     count += __popc(__ballot_sync(FULL, slot_id(nbr, mask, row, K, base, lane, N) >= 0));
-  const float inv = 1.f / fmaxf((float)count, 1.f);
+  const float cnt = fmaxf((float)count, 1.f), inv = 1.f / cnt;
   const int dv = D / VEC;
   const V* hv = reinterpret_cast<const V*>(h);
   V* ov = reinterpret_cast<V*>(out) + (size_t)b * dv;
   for (int c0 = 0; c0 < dv; c0 += 32 * CH) {
-    V acc[CH];
-#pragma unroll
-    for (int j = 0; j < CH; ++j) acc[j] = Vec<VEC>::zero();
+    float acc[CH][VEC] = {};
     for (int base = 0; base < K; base += 32) {
       const int mine = base == 0 ? first : slot_id(nbr, mask, row, K, base, lane, N);
       const int n = min(32, K - base);
@@ -153,20 +233,25 @@ gather_mean_fwd_kernel(const float* __restrict__ h, const int* __restrict__ nbr,
             const int c = c0 + lane + 32 * j;
             // Unconditional (a masked slot reads row 0), then zeroed: no branch.
             const V x = __ldg(hv + (size_t)max(id[i], 0) * dv + min(c, dv - 1));
-            v[i][j] = (id[i] >= 0 && c < dv) ? x : Vec<VEC>::zero();
+            v[i][j] = (id[i] >= 0 && c < dv) ? x : P::zero();
           }
         }
 #pragma unroll
         for (int i = 0; i < GS; ++i) {
 #pragma unroll
-          for (int j = 0; j < CH; ++j) Vec<VEC>::add(acc[j], v[i][j]);
+          for (int j = 0; j < CH; ++j) add<T, VEC>(acc[j], v[i][j]);
         }
       }
     }
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
       const int c = c0 + lane + 32 * j;
-      if (c < dv) ov[c] = Vec<VEC>::scale(acc[j], inv);
+      if (c < dv) {
+        float f[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) f[e] = mean_of<T>(acc[j][e], cnt, inv);
+        ov[c] = P::narrow(f);
+      }
     }
   }
 }
@@ -226,13 +311,15 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int l
   return lo + __popc(__ballot_sync(FULL, idx < hi && __ldg(a + idx) < key));
 }
 
-template <int VEC, int KS>
+template <typename T, int VEC, int KS>
 __global__ void __launch_bounds__(WARPS * 32, BWD_BLOCKS)
-gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict__ mask,
+gather_mean_bwd_kernel(const T* __restrict__ dout, const uint8_t* __restrict__ mask,
                        const int* __restrict__ order, const int* __restrict__ start,
                        const int* __restrict__ rows_dev, int off, int N, int B, int K_, int D,
-                       float* __restrict__ dh) {
-  using V = typename Vec<VEC>::T;
+                       T* __restrict__ dh) {
+  using P = Pack<T, VEC>;
+  using V = typename P::Raw;
+  constexpr int CH = chunks<VEC>();
   const int K = KS ? KS : K_;
   const int lane = threadIdx.x & 31;
   const int u = blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -249,9 +336,7 @@ gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict
   const V* gv = reinterpret_cast<const V*>(dout);
   V* dv_row = reinterpret_cast<V*>(dh) + (size_t)u * dv;
   for (int c0 = 0; c0 < dv; c0 += 32 * CH) {
-    V acc[CH];
-#pragma unroll
-    for (int j = 0; j < CH; ++j) acc[j] = Vec<VEC>::zero();
+    float acc[CH][VEC] = {};
     for (int j0 = lo; j0 < hi; j0 += 32) {
       // This lane's entry: its cotangent row b and 1 / count_b, if valid.
       const int e = j0 + lane;
@@ -290,7 +375,7 @@ gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict
 #pragma unroll
           for (int j = 0; j < CH; ++j) {
             const int c = c0 + lane + 32 * j;
-            v[i][j] = Vec<VEC>::zero();
+            v[i][j] = P::zero();
             if (src[i] >= 0 && c < dv) v[i][j] = __ldg(gv + (size_t)rb[i] * dv + c);
           }
         }
@@ -298,34 +383,42 @@ gather_mean_bwd_kernel(const float* __restrict__ dout, const uint8_t* __restrict
         for (int i = 0; i < U; ++i) {
           if (src[i] < 0) break;  // the same for the whole warp
 #pragma unroll
-          for (int j = 0; j < CH; ++j) Vec<VEC>::fma(acc[j], v[i][j], rs[i]);
+          for (int j = 0; j < CH; ++j) fma_scaled<T, VEC>(acc[j], v[i][j], rs[i]);
         }
       }
     }
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
       const int c = c0 + lane + 32 * j;
-      if (c < dv) dv_row[c] = acc[j];
+      if (c < dv) dv_row[c] = P::narrow(acc[j]);
     }
   }
 }
 
-template <int VEC_, int KS_>
+template <typename T_, int VEC_, int KS_>
 struct Cfg {
+  using T = T_;
   static constexpr int VEC = VEC_, KS = KS_;
 };
 
-// Calls f(Cfg<VEC, KS>{}) for the float4 or scalar path and K = 8, 4 or any.
+// Calls f(Cfg<T, VEC, KS>{}) for K = 8, 4 or any.
+template <typename T, int VEC, typename F>
+void dispatch_k(int K, F&& f) {
+  if (K == 8) f(Cfg<T, VEC, 8>{});
+  else if (K == 4) f(Cfg<T, VEC, 4>{});
+  else f(Cfg<T, VEC, 0>{});
+}
+
+// Calls f(Cfg<T, VEC, KS>{}) for f32 or bf16, the 16-byte or scalar path,
+// and K = 8, 4 or any.
 template <typename F>
-void dispatch(int vec4, int K, F&& f) {
-  if (vec4) {
-    if (K == 8) f(Cfg<4, 8>{});
-    else if (K == 4) f(Cfg<4, 4>{});
-    else f(Cfg<4, 0>{});
+void dispatch(int bf16_, int vec, int K, F&& f) {
+  if (bf16_) {
+    if (vec) dispatch_k<bf16, 8>(K, f);
+    else dispatch_k<bf16, 1>(K, f);
   } else {
-    if (K == 8) f(Cfg<1, 8>{});
-    else if (K == 4) f(Cfg<1, 4>{});
-    else f(Cfg<1, 0>{});
+    if (vec) dispatch_k<float, 4>(K, f);
+    else dispatch_k<float, 1>(K, f);
   }
 }
 
@@ -337,18 +430,19 @@ const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// vec4: D % 4 == 0 and every pointer 16-byte aligned (the wrapper decides).
+// vec: D a multiple of a 16-byte load's elements and every pointer 16-byte
+// aligned (the wrapper decides); bf16: h and out are bf16, else f32.
 int gather_mean_fwd_launch(const void* h, const void* nbr, const void* mask, int N, int B,
-                           int K, int D, int vec4, void* out, void* stream) {
+                           int K, int D, int vec, int bf16_, void* out, void* stream) {
   const dim3 grid((B + WARPS - 1) / WARPS);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* hp = static_cast<const float*>(h);
   const auto* ip = static_cast<const int*>(nbr);
   const auto* mp = static_cast<const uint8_t*>(mask);
-  auto* op = static_cast<float*>(out);
-  dispatch(vec4, K, [&](auto cfg) {
+  dispatch(bf16_, vec, K, [&](auto cfg) {
     using C = decltype(cfg);
-    gather_mean_fwd_kernel<C::VEC, C::KS><<<grid, WARPS * 32, 0, s>>>(hp, ip, mp, N, B, K, D, op);
+    using T = typename C::T;
+    gather_mean_fwd_kernel<T, C::VEC, C::KS><<<grid, WARPS * 32, 0, s>>>(
+        static_cast<const T*>(h), ip, mp, N, B, K, D, static_cast<T*>(out));
   });
   return (int)cudaGetLastError();
 }
@@ -356,22 +450,22 @@ int gather_mean_fwd_launch(const void* h, const void* nbr, const void* mask, int
 // dh [N, D] from dout [B, D], the mask [B, K] and the transpose: order [L]
 // and start [N + 1] int32, the gather's first entry `off`, and `rows` (an
 // int32 on the device, or null for B): the entries walked are
-// [off, off + rows*K).  Every row of dh is written.
+// [off, off + rows*K).  Every row of dh is written.  bf16: dout and dh are
+// bf16, else f32.
 int gather_mean_bwd_launch(const void* dout, const void* mask, const void* order,
                            const void* start, const void* rows, int off, int N, int B, int K,
-                           int D, int vec4, void* dh, void* stream) {
+                           int D, int vec, int bf16_, void* dh, void* stream) {
   const dim3 grid((N + WARPS - 1) / WARPS);
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* gp = static_cast<const float*>(dout);
   const auto* mp = static_cast<const uint8_t*>(mask);
   const auto* op = static_cast<const int*>(order);
   const auto* sp = static_cast<const int*>(start);
   const auto* rp = static_cast<const int*>(rows);
-  auto* dp = static_cast<float*>(dh);
-  dispatch(vec4, K, [&](auto cfg) {
+  dispatch(bf16_, vec, K, [&](auto cfg) {
     using C = decltype(cfg);
-    gather_mean_bwd_kernel<C::VEC, C::KS><<<grid, WARPS * 32, 0, s>>>(gp, mp, op, sp, rp, off,
-                                                                      N, B, K, D, dp);
+    using T = typename C::T;
+    gather_mean_bwd_kernel<T, C::VEC, C::KS><<<grid, WARPS * 32, 0, s>>>(
+        static_cast<const T*>(dout), mp, op, sp, rp, off, N, B, K, D, static_cast<T*>(dh));
   });
   return (int)cudaGetLastError();
 }

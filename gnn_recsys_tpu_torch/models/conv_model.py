@@ -32,6 +32,7 @@ from gnn_recsys_tpu_torch.models.layers import (
     AGGREGATOR_TYPES,
     ConvLayer,
     NodeEmbedding,
+    dense,
     l2_normalize,
 )
 from gnn_recsys_tpu_torch.ops.cuda.gather_mean import SlotTranspose, gather_mean
@@ -75,8 +76,15 @@ class ConvModel(nn.Module):
     ``dims`` is the reference's ``dim_dict`` as (name, dim) pairs: one entry
     per node type (its feature width) plus ``hidden`` and ``out``.  Weights
     are drawn from ``generator`` (a fresh ``torch.Generator`` seeded 0 when
-    None) with the JAX package's init rules.  The port computes in f32
-    (bf16 compute: ROADMAP.md).
+    None) with the JAX package's init rules.
+
+    ``dtype`` is the computation dtype (the JAX package's ``conv_model.py:103-106``): None
+    computes in f32; ``torch.bfloat16`` runs every Linear, the message
+    reductions, the row norms and the cross-etype reduction in bf16 (flax's
+    ``Dense(dtype=...)`` semantics, :func:`~gnn_recsys_tpu_torch.models.
+    layers.dense`), while the parameters (and so Adam's state) stay f32 and
+    the scores leave the model as f32.  The full-graph mean sums in f32
+    (``ops/message.py``).
 
     ``leaf_kernel`` runs the folded ``*_nn`` mean leaf of the sampled tree
     through the fused :func:`~gnn_recsys_tpu_torch.ops.cuda.leaf_agg.leaf_mean_nn`
@@ -98,6 +106,7 @@ class ConvModel(nn.Module):
         remat_levels: bool = False,
         leaf_kernel: bool = False,
         leaf_block: int = 512,
+        dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -111,6 +120,9 @@ class ConvModel(nn.Module):
             raise NotImplementedError("pred='nn' (the MLP head) is not ported yet (ROADMAP.md)")
         if remat_levels:
             raise NotImplementedError("remat_levels is not ported yet (ROADMAP.md)")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"computation dtype {dtype} is neither None, f32 nor bf16")
+        self.dtype = dtype
         self.leaf_kernel = leaf_kernel
         self.leaf_block = leaf_block
         self._leaf_weights: Optional[Dict] = None  # set during a sampled_repr walk
@@ -128,7 +140,7 @@ class ConvModel(nn.Module):
         self.embed: Dict[str, NodeEmbedding] = {}
         if embedding_layer:
             for nt in self.ntypes:
-                self.embed[nt] = NodeEmbedding(dim[nt], dim["hidden"])
+                self.embed[nt] = NodeEmbedding(dim[nt], dim["hidden"], dtype=dtype)
                 self.add_module(f"{nt}_embed", self.embed[nt])
 
         def conv_dict(idx: int, in_dims: Dict[str, int], out_feats: int):
@@ -137,7 +149,7 @@ class ConvModel(nn.Module):
                 layer[_etype_key(et)] = ConvLayer(
                     in_neigh_feats=in_dims[et[0]], in_self_feats=in_dims[et[2]],
                     out_feats=out_feats, aggregator_type=aggregator_type,
-                    dropout=dropout, norm=norm,
+                    dropout=dropout, norm=norm, dtype=dtype,
                 )
                 self.add_module(f"layer{idx}_{_etype_key(et)}", layer[_etype_key(et)])
             return layer
@@ -312,7 +324,8 @@ class ConvModel(nn.Module):
         probe = torch.cat([torch.zeros((1, d_raw), dtype=dtype, device=dev),
                            torch.eye(d_raw, dtype=dtype, device=dev)])
         eb = self.embed[src_ntype](probe)
-        w2 = layer.fc_preagg(torch.eye(eb.shape[-1], dtype=eb.dtype, device=dev))  # [H, H]
+        w2 = dense(layer.fc_preagg, torch.eye(eb.shape[-1], dtype=eb.dtype, device=dev),
+                   layer.dtype)  # [H, H]
         out = ((eb[1:] - eb[0]) @ w2, eb[0] @ w2)
         if cache is not None:
             cache[key] = out
@@ -396,7 +409,8 @@ class ConvModel(nn.Module):
             # The fused leaf: gather k-major, then one kernel computes the
             # masked mean of relu(x @ W_eff + b_eff) without the [P, K, H]
             # per-message activations (``conv_model.py:718-759``).
-            w_eff, b_eff = self._composed_leaf_weights(layer, src_t, fdim, torch.float32)
+            w_eff, b_eff = self._composed_leaf_weights(layer, src_t, fdim,
+                                                       self.dtype or torch.float32)
             kf = nbr.shape[-1]
             pkids = nbr.reshape(-1, kf)  # [P, K] parent-major ids
             p0 = pkids.shape[0]

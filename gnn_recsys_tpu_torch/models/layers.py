@@ -12,6 +12,13 @@ ReLU and norm) surround a reduction that the model runs.
 
 Linear weights are ``[out, in]`` (PyTorch's layout); ``models/convert.py``
 maps them to and from flax's ``[in, out]`` kernels.
+
+``dtype`` is flax's computation dtype (``nn.Dense(dtype=...)``): None keeps
+the inputs' dtype (f32), ``torch.bfloat16`` casts each Linear's input,
+weight and bias to bf16 (:func:`dense`), so its output and every
+elementwise op after it (ReLU, the row norm) are bf16, while the parameters
+stay f32.  This is not ``torch.autocast``, which keeps norms and sums in f32
+where the JAX package runs them in bf16.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 AGGREGATOR_TYPES = (
@@ -52,19 +60,41 @@ def lecun_normal_(weight: torch.Tensor,
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``lin(x)`` with flax ``Dense(dtype=dtype)`` semantics
+    (``gnn_recsys_tpu/models/layers.py:118-123``): with a dtype, the input,
+    weight and bias are cast to it, and the product is rounded to it before
+    the bias is added, as flax adds it; None is ``lin(x)``."""
+    if dtype is None:
+        return lin(x)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def row_norm(x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of each row, keepdim (``jnp.linalg.norm(x, ord=2,
+    axis=-1, keepdims=True)``).  In bf16 as JAX takes it: the squares
+    rounded to bf16, summed in f32 and rounded, then the root; torch's
+    ``vector_norm`` would widen the whole computation."""
+    if x.dtype == torch.bfloat16:
+        return torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    return torch.linalg.vector_norm(x, ord=2, dim=-1, keepdim=True)
+
+
 class NodeEmbedding(nn.Module):
     """Linear projection of raw node features (reference src/model.py:10-24)."""
 
-    def __init__(self, in_feats: int, out_feats: int):
+    def __init__(self, in_feats: int, out_feats: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.proj_feats = nn.Linear(in_feats, out_feats)
+        self.dtype = dtype
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.proj_feats.weight, generator)
         nn.init.zeros_(self.proj_feats.bias)
 
     def forward(self, node_feats: torch.Tensor) -> torch.Tensor:
-        return self.proj_feats(node_feats)
+        return dense(self.proj_feats, node_feats, self.dtype)
 
 
 class ConvLayer(nn.Module):
@@ -78,6 +108,7 @@ class ConvLayer(nn.Module):
         aggregator_type: str = "mean",
         dropout: float = 0.0,
         norm: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if aggregator_type not in AGGREGATOR_TYPES:
@@ -88,6 +119,7 @@ class ConvLayer(nn.Module):
             )
         self.aggregator_type = aggregator_type
         self.norm = norm
+        self.dtype = dtype  # the computation dtype (None: the inputs')
         self.dropout = nn.Dropout(dropout)
         self.fc_self = nn.Linear(in_self_feats, out_feats, bias=False)
         self.fc_neigh = nn.Linear(in_neigh_feats, out_feats, bias=False)
@@ -112,21 +144,22 @@ class ConvLayer(nn.Module):
         """Dropout + optional ReLU(pre-MLP), applied on source-node states."""
         h = self.dropout(h_neigh)
         if self.aggregator_type in _PREAGG:
-            h = torch.relu(self.fc_preagg(h))
+            h = torch.relu(dense(self.fc_preagg, h, self.dtype))
         return h
 
     def combine(self, h_self: torch.Tensor, h_neigh_agg: torch.Tensor) -> torch.Tensor:
         """Self/neighbour towers, ReLU, optional L2 row norm whose zero rows
-        stay zero (reference src/model.py:226-235)."""
-        z = torch.relu(self.fc_self(self.dropout(h_self)) + self.fc_neigh(h_neigh_agg))
+        stay zero (reference src/model.py:226-235); in the computation dtype."""
+        z = torch.relu(dense(self.fc_self, self.dropout(h_self), self.dtype)
+                       + dense(self.fc_neigh, h_neigh_agg, self.dtype))
         if self.norm:
-            z_norm = torch.linalg.vector_norm(z, ord=2, dim=-1, keepdim=True)
+            z_norm = row_norm(z)
             z = z / torch.where(z_norm == 0.0, torch.ones_like(z_norm), z_norm)
         return z
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """torch ``F.normalize(p=2, dim=-1)`` semantics: the norm is clamped at
-    ``eps`` (not zero-guarded as in :meth:`ConvLayer.combine`)."""
-    norm = torch.linalg.vector_norm(x, ord=2, dim=-1, keepdim=True)
-    return x / norm.clamp(min=eps)
+    ``eps`` (not zero-guarded as in :meth:`ConvLayer.combine`); bf16 rows
+    stay bf16 (:func:`row_norm`)."""
+    return x / row_norm(x).clamp(min=eps)

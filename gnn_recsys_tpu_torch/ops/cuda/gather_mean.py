@@ -6,6 +6,11 @@ the ``csc_gather_mean`` contract without edge weights:
     out[b] = sum_k m[b, k] * h[clip(nbr[b, k])] / max(sum_k m[b, k], 1)
 
 with ids clipped into ``[0, N-1]`` and zeros for a row with no valid slot.
+The table is f32 or bf16 (the model's computation dtype); the sums are f32
+in the kernels and in their plain versions alike.  In bf16 the forward
+rounds each sum to bf16 and then divides by the count, as the TPU kernel's
+bf16 ``jnp.sum`` and division do; the backward rounds each row of ``dh``
+once.
 :func:`gather_mean` is a ``torch.autograd.Function`` whose forward and
 backward are the kernels of ``gnn_recsys_tpu_torch/csrc/gather_mean.cu``; the
 gradient flows to ``h`` only.  Both kernels move bytes, and are held by how
@@ -39,9 +44,9 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_typed", False):
-        lib.gather_mean_fwd_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
-        lib.gather_mean_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                               _P]
+        lib.gather_mean_fwd_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+        lib.gather_mean_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                               _P, _P]
         for fn in (lib.gather_mean_fwd_launch, lib.gather_mean_bwd_launch):
             fn.restype = _I
         lib._typed = True
@@ -74,24 +79,34 @@ def _clipped(nbr: torch.Tensor, n: int) -> torch.Tensor:
     return nbr.long().clamp(0, max(n - 1, 0))
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the sums are taken in: f32 for bf16 (and f32) tables."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def gather_mean_reference(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Plain version of the forward (``ops/message.py``'s gather and masked
-    mean): [B, D]; differentiable by autograd."""
-    msgs = h[_clipped(nbr, h.shape[0])]  # [B, K, D]
-    m = mask.to(h.dtype)
-    return (msgs * m[..., None]).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)[:, None]
+    mean): [B, D] in ``h``'s dtype, summed in f32; a bf16 sum is rounded to
+    bf16 before the division, as the TPU kernel's is.  Differentiable by
+    autograd."""
+    acc = _acc(h.dtype)
+    msgs = h[_clipped(nbr, h.shape[0])].to(acc)  # [B, K, D]
+    m = mask.to(acc)
+    total = (msgs * m[..., None]).sum(dim=1).to(h.dtype).to(acc)
+    return (total / m.sum(dim=1).clamp(min=1.0)[:, None]).to(h.dtype)
 
 
 def gather_mean_bwd_reference(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                               n: int) -> torch.Tensor:
-    """Independent plain version of the backward: dh [n, D], the scatter-add
-    (``index_add_``) of ``dout[b] * m[b, k] / max(count_b, 1)`` into the rows
-    ``clip(nbr)``."""
-    m = mask.to(dout.dtype)
+    """Independent plain version of the backward: dh [n, D] in ``dout``'s
+    dtype, the scatter-add (``index_add_``, in f32) of ``dout[b] * m[b, k] /
+    max(count_b, 1)`` into the rows ``clip(nbr)``."""
+    acc = _acc(dout.dtype)
+    m = mask.to(acc)
     w = m / m.sum(dim=1, keepdim=True).clamp(min=1.0)  # [B, K]
-    contrib = (w[..., None] * dout[:, None, :]).reshape(-1, dout.shape[1])
-    dh = dout.new_zeros((n, dout.shape[1]))
-    return dh.index_add_(0, _clipped(nbr, n).reshape(-1), contrib)
+    contrib = (w[..., None] * dout.to(acc)[:, None, :]).reshape(-1, dout.shape[1])
+    dh = torch.zeros((n, dout.shape[1]), dtype=acc, device=dout.device)
+    return dh.index_add_(0, _clipped(nbr, n).reshape(-1), contrib).to(dout.dtype)
 
 
 def slot_transpose(nbr: torch.Tensor, mask: torch.Tensor, n: int) -> SlotTranspose:
@@ -110,7 +125,8 @@ def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
     transpose.  Entry e of ``order`` belongs to the dh row u with
     ``start[u] <= e < start[u+1]``; inside the walked range, where its slot
     is valid, it brings ``dout[b] / max(count_b, 1)``, and ``index_add_``
-    adds the entries in order (ascending slot within a row)."""
+    adds the entries in order (ascending slot within a row), in f32; dh is
+    in ``dout``'s dtype."""
     b, k = mask.shape
     order, start, off, rows = transpose
     limit = b if rows is None else rows.long().clamp(0, b)
@@ -118,12 +134,14 @@ def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
     walked = (p >= 0) & (p < limit * k)
     p = torch.where(walked, p, 0)
     take = walked & mask.reshape(-1)[p]
-    count = mask.to(dout.dtype).sum(dim=1).clamp(min=1.0)
-    contrib = torch.where(take[:, None], (dout * (1.0 / count)[:, None])[p // k], 0.0)
+    acc = _acc(dout.dtype)
+    count = mask.to(acc).sum(dim=1).clamp(min=1.0)
+    contrib = torch.where(take[:, None], (dout.to(acc) * (1.0 / count)[:, None])[p // k], 0.0)
     entries = torch.arange(order.numel(), dtype=start.dtype, device=start.device)
     # Entries past start[n] (masked slots of slot_transpose) bring zeros.
     row = (torch.searchsorted(start, entries, right=True) - 1).clamp(0, n - 1)
-    return dout.new_zeros((n, dout.shape[1])).index_add_(0, row, contrib)
+    dh = torch.zeros((n, dout.shape[1]), dtype=acc, device=dout.device)
+    return dh.index_add_(0, row, contrib).to(dout.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -133,8 +151,8 @@ def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
 def _checked(x: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, what: str):
     """The kernels' view of (table or cotangent, ids, mask); raises on what
     they do not take."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"{what} must be f32 (bf16 is a later slice), got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} must be f32 or bf16, got {x.dtype}")
     if x.dim() != 2 or nbr.dim() != 2 or tuple(mask.shape) != tuple(nbr.shape):
         raise ValueError(f"{what} must be [*, D], nbr and mask [B, K]; got {tuple(x.shape)}, "
                          f"{tuple(nbr.shape)}, {tuple(mask.shape)}")
@@ -162,13 +180,17 @@ def _checked_transpose(t: SlotTranspose, n: int, b: int, k: int,
     return SlotTranspose(order.contiguous(), start.contiguous(), off, rows)
 
 
-def _vec4(*tensors: torch.Tensor) -> int:
-    """Whether the float4 path applies: D % 4 == 0 and 16-byte alignment."""
-    return int(tensors[0].shape[1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+def _vec(*tensors: torch.Tensor) -> int:
+    """Whether the 16-byte path applies (4 f32 or 8 bf16 a load): D a
+    multiple of a load's elements and every pointer 16-byte aligned."""
+    per_load = 16 // tensors[0].element_size()
+    return int(tensors[0].shape[1] % per_load == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def gather_mean_fwd(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Forward: h [N, D] f32, nbr [B, K] int32/int64, mask [B, K] bool -> [B, D]."""
+    """Forward: h [N, D] f32 or bf16, nbr [B, K] int32/int64, mask [B, K]
+    bool -> [B, D] in ``h``'s dtype."""
     if build.on_cpu(h, nbr, mask):
         return gather_mean_reference(h, nbr, mask)
     h_, ids, m = _checked(h, nbr, mask, "h")
@@ -176,12 +198,13 @@ def gather_mean_fwd(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor) -> t
     if n == 0 and b * k:
         raise ValueError("h has no rows to gather from")
     dev = h_.device
-    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, d), dtype=h_.dtype, device=dev)
     if b and d:
         lib = _lib()
         with torch.cuda.device(dev):
             err = lib.gather_mean_fwd_launch(h_.data_ptr(), ids.data_ptr(), m.data_ptr(),
-                                             n, b, k, d, _vec4(h_, out), out.data_ptr(),
+                                             n, b, k, d, _vec(h_, out),
+                                             int(h_.dtype == torch.bfloat16), out.data_ptr(),
                                              build.stream(dev))
         build.check(lib, err, "gather_mean_fwd")
         gather_mean_fwd.launches += 1
@@ -193,8 +216,9 @@ gather_mean_fwd.launches = 0
 
 def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n: int,
                     transpose: Optional[SlotTranspose] = None) -> torch.Tensor:
-    """Backward: dh [n, D] f32 for the cotangent ``dout`` [B, D], walking
-    ``transpose`` (built from ``nbr`` and ``mask`` when None)."""
+    """Backward: dh [n, D] for the cotangent ``dout`` [B, D] (f32 or bf16;
+    dh in its dtype), walking ``transpose`` (built from ``nbr`` and ``mask``
+    when None)."""
     if transpose is None:
         transpose = slot_transpose(nbr, mask, n)
     if build.on_cpu(dout, nbr, mask, transpose.order, transpose.start):
@@ -205,14 +229,14 @@ def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n
         raise ValueError(f"dout has {b} rows, nbr {ids.shape[0]}")
     dev = g.device
     order, start, off, rows = _checked_transpose(transpose, n, b, k, dev)
-    dh = torch.empty((n, d), dtype=torch.float32, device=dev)  # the kernel writes every row
+    dh = torch.empty((n, d), dtype=g.dtype, device=dev)  # the kernel writes every row
     if n and d:
         lib = _lib()
         with torch.cuda.device(dev):
             err = lib.gather_mean_bwd_launch(
                 g.data_ptr(), m.data_ptr(), order.data_ptr(), start.data_ptr(),
-                None if rows is None else rows.data_ptr(), off, n, b, k, d, _vec4(g, dh),
-                dh.data_ptr(), build.stream(dev))
+                None if rows is None else rows.data_ptr(), off, n, b, k, d, _vec(g, dh),
+                int(g.dtype == torch.bfloat16), dh.data_ptr(), build.stream(dev))
         build.check(lib, err, "gather_mean_bwd")
         gather_mean_bwd.launches += 1
     return dh
@@ -240,10 +264,10 @@ def gather_mean(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor,
                 transpose: Optional[SlotTranspose] = None) -> torch.Tensor:
     """``out[b] = sum_k mask[b,k] h[clip(nbr[b,k])] / max(sum_k mask[b,k], 1)``.
 
-    h: [N, D] f32; nbr: [B, K] int32 or int64 (any value where the mask is
-    False); mask: [B, K] bool; ``transpose``: the gather's slots grouped by
-    table row (:class:`SlotTranspose`), or None to have the backward sort
-    them.  Returns [B, D].  CPU tensors take the plain versions, CUDA
+    h: [N, D] f32 or bf16; nbr: [B, K] int32 or int64 (any value where the
+    mask is False); mask: [B, K] bool; ``transpose``: the gather's slots
+    grouped by table row (:class:`SlotTranspose`), or None to have the
+    backward sort them.  Returns [B, D] in ``h``'s dtype (sums in f32).  CPU tensors take the plain versions, CUDA
     tensors the kernels, forward and backward, through the same
     ``autograd.Function``."""
     # Converted once here, so that neither kernel's wrapper copies them again.

@@ -12,6 +12,12 @@ layouts, same semantics:
 DGL semantics: ``mean`` divides by the number of incoming messages and a
 zero-degree destination gets zeros; ``max`` over no messages gives zeros;
 edge-weighted variants scale each message by a scalar edge value first.
+
+bf16 tables give bf16 results.  The means sum in f32 and round once: the
+JAX package's ``coo_segment_mean`` sums its messages and its count with a
+bf16 ``segment_sum``, whose count stops at 256 (256 + 1 rounds back to 256
+in bf16), so a node with more than 256 in-edges gets a wrong mean there
+(ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
@@ -43,11 +49,13 @@ def coo_segment_mean(
     """
     msgs = _messages(h_src, src, edge_weight)
     dst = dst.long()
-    total = h_src.new_zeros((num_dst, h_src.shape[1])).index_add_(0, dst, msgs)
-    count = h_src.new_zeros(num_dst).index_add_(
-        0, dst, h_src.new_ones(dst.shape[0])
+    acc = torch.promote_types(h_src.dtype, torch.float32)  # f32 sums for bf16
+    total = torch.zeros((num_dst, h_src.shape[1]), dtype=acc, device=h_src.device)
+    total.index_add_(0, dst, msgs.to(acc))
+    count = torch.zeros(num_dst, dtype=acc, device=h_src.device).index_add_(
+        0, dst, torch.ones(dst.shape[0], dtype=acc, device=h_src.device)
     )
-    return total / count.clamp(min=1.0)[:, None]
+    return (total / count.clamp(min=1.0)[:, None]).to(h_src.dtype)
 
 
 def coo_segment_max(

@@ -10,6 +10,11 @@ import chip_smoke
 
 KERNELS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
            "pool_membership_mask", "gather_mean_fwd", "gather_mean_bwd"]
+# The kernels line's rows of the kernel phase: each kernel, and the leaf and
+# gather-mean kernels again in bf16.
+ROWS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
+        "leaf_mean_nn_fwd:bf16", "leaf_mean_nn_bwd:bf16", "pool_membership_mask",
+        "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16", "gather_mean_bwd:bf16"]
 NO_YARDSTICK = ["leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "pool_membership_mask"]
 
 
@@ -22,13 +27,13 @@ def test_kernel_phase_rehearsal():
     rows = chip_smoke.phase_kernels(torch.device("cpu"), num_users=40, num_items=300,
                                     dim=16, k=6, leaf=(4, 37, 5, 16), pool=(40, 8, 70),
                                     gather=(41, 5, 30, 12), timed=False)
-    assert [r["name"] for r in rows] == KERNELS
+    assert [r["name"] for r in rows] == ROWS
     for row in rows:
         assert row["max_abs_err"] == 0.0
         assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
         assert row["source"].startswith("gnn_recsys_tpu_torch/csrc/")
         assert row["replaces"].startswith("gnn_recsys_tpu/ops/pallas/")
-        assert ("library" in row) == (row["name"] in NO_YARDSTICK)
+        assert ("library" in row) == (row["name"].split(":")[0] in NO_YARDSTICK)
     # At the serving shape the ranking is bound by f32 operations.
     ms, by = chip_smoke.bound(2.0 * 4096 * 30_000 * 128, 4.0 * (4096 + 30_000) * 128)
     assert by == "operations" and abs(ms - 0.4695) < 1e-3
@@ -58,7 +63,10 @@ def test_train_dedup_and_packed_leaf_rehearsal(data):
     assert all(c["transpose"].rows is not None for c in tap.captured)
     assert chip_smoke.conv_model.gather_mean is chip_smoke.gm.gather_mean
     rows = chip_smoke.phase_gather_steps(torch.device("cpu"), tap, timed=False)
-    assert [r["name"].split(":")[0] for r in rows] == ["gather_mean_fwd", "gather_mean_bwd"] * 4
+    # Each of the 4 shapes in f32, then in bf16.
+    names = [r["name"].rsplit(":", 1)[0] for r in rows]
+    assert names == ["gather_mean_fwd", "gather_mean_bwd",
+                     "gather_mean_fwd:bf16", "gather_mean_bwd:bf16"] * 4
     assert all(r["max_abs_err"] <= 1e-6 and r["bound_ms"] > 0 for r in rows)
     chip_smoke.phase_packed_leaf(torch.device("cpu"), data, model, seeds=8)
 
@@ -71,6 +79,18 @@ def test_train_graph_rehearsal(data, dedup):
     launches = chip_smoke.phase_train_graph(torch.device("cpu"), data, hidden=32, out=16,
                                             steps=8, valid_steps=2, batch_size=128, pool=48,
                                             dedup=dedup, on_card=False, check_steps=3)
+    assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_train_graph_bf16_rehearsal(data, dedup):
+    """Phase 10: phase 9 with ``ConvModel(dtype=bfloat16)``; the eager
+    body's two runs agree within the bf16 tolerances, and the trained bf16
+    model's embeddings (bf16) go through the recall check."""
+    launches = chip_smoke.phase_train_graph(torch.device("cpu"), data, hidden=32, out=16,
+                                            steps=8, valid_steps=2, batch_size=128, pool=48,
+                                            dedup=dedup, on_card=False, check_steps=3,
+                                            dtype=torch.bfloat16, random_recall=0.0)
     assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
 
 
@@ -134,20 +154,52 @@ def _leaf_lines(fwd_spill=0):
     return _ptxas_lines((("leaf_fwd_kernelIfLi8EEEvPKT_", 128, fwd_spill),
                          ("leaf_fwd_kernelIfLi16EEEvPKT_", 154, 0),
                          ("leaf_bwd_kernelIfLi8EEEvPKT_", 162, 0),
+                         ("leaf_fwd_kernelI13__nv_bfloat16Li8EEEvPKT_", 127, 0),
+                         ("leaf_bwd_kernelI13__nv_bfloat16Li8EEEvPKT_", 148, 0),
                          ("leaf_bwd_reduce_kernelEPKfS1_", 26, 0)))
+
+
+def _gather_lines(bf16_spill=0):
+    """The gather-mean instantiations: f32 and bf16, 16-byte and scalar
+    paths, K = 8, 4 and any."""
+    names = []
+    for direction, regs in (("fwd", 38), ("bwd", 40)):
+        for elem, vec in (("f", 4), ("f", 1), ("13__nv_bfloat16", 8), ("13__nv_bfloat16", 1)):
+            for k in (8, 4, 0):
+                spill = bf16_spill if (elem, vec, k) == ("13__nv_bfloat16", 8, 8) else 0
+                names.append((f"gather_mean_{direction}_kernelI{elem}Li{vec}ELi{k}EEEvPKT_",
+                              regs, spill))
+    return _ptxas_lines(names)
 
 
 def test_leaf_ptxas_reads_registers_and_refuses_spills():
     summary = chip_smoke.build.ptxas_summary(_leaf_lines())
-    assert len(summary) == 4
-    assert {v["registers"] for v in summary.values()} == {128, 154, 162, 26}
+    assert len(summary) == 6
+    assert {v["registers"] for v in summary.values()} == {128, 154, 162, 127, 148, 26}
     leaf = {name: v for name, v in chip_smoke.NO_SPILL.items() if v[0] == "leaf_agg"}
     got = chip_smoke.kernel_ptxas({"leaf_agg": {"ptxas": _leaf_lines()}}, leaf)
     assert got["leaf_mean_nn_fwd"] == {"leaf_fwd_kernelIfLi8EE": {"registers": 128,
                                                                  "spill_bytes": 0}}
     assert set(got["leaf_mean_nn_bwd"]) == {"leaf_bwd_kernelIfLi8EE", "leaf_bwd_reduce_kernel"}
+    assert got["leaf_mean_nn_fwd:bf16"] == {
+        "leaf_fwd_kernelI13__nv_bfloat16Li8EE": {"registers": 127, "spill_bytes": 0}}
     with pytest.raises(AssertionError, match="spills 12 bytes"):
         chip_smoke.kernel_ptxas({"leaf_agg": {"ptxas": _leaf_lines(fwd_spill=8)}}, leaf)
+
+
+def test_gather_ptxas_rows_hold_the_dedup_steps_instantiations():
+    """The gather-mean rows name the 16-byte paths at K = 8 and 4, f32 in
+    one row and bf16 in the other; a spill in the bf16 K = 8 forward fails
+    the run."""
+    rows = {name: v for name, v in chip_smoke.NO_SPILL.items() if v[0] == "gather_mean"}
+    got = chip_smoke.kernel_ptxas({"gather_mean": {"ptxas": _gather_lines()}}, rows)
+    assert set(got["gather_mean_fwd"]) == {"gather_mean_fwd_kernelIfLi4ELi8EE",
+                                           "gather_mean_fwd_kernelIfLi4ELi4EE"}
+    assert set(got["gather_mean_bwd:bf16"]) == {
+        "gather_mean_bwd_kernelI13__nv_bfloat16Li8ELi8EE",
+        "gather_mean_bwd_kernelI13__nv_bfloat16Li8ELi4EE"}
+    with pytest.raises(AssertionError, match="nv_bfloat16Li8ELi8EE spills 12 bytes"):
+        chip_smoke.kernel_ptxas({"gather_mean": {"ptxas": _gather_lines(bf16_spill=8)}}, rows)
 
 
 def test_topk_and_pool_mask_ptxas_rows():
@@ -158,7 +210,7 @@ def test_topk_and_pool_mask_ptxas_rows():
     args = "EEEvPKT_S3_iiiiiiPKffS5_S5_PfPiS6_"
 
     def info(topk_spill=0, boost_spill=0):
-        return {"leaf_agg": {"ptxas": _leaf_lines()},
+        return {"leaf_agg": {"ptxas": _leaf_lines()}, "gather_mean": {"ptxas": _gather_lines()},
                 "topk_mips": {"ptxas": _ptxas_lines((
                     (f"topk_kernelIfLb1ELi0{args}", 168, topk_spill),
                     (f"topk_kernelIfLb0ELi0{args}", 170, 0),
@@ -171,7 +223,9 @@ def test_topk_and_pool_mask_ptxas_rows():
                     ("pool_mask_kernelEPKiS1_iiiiPf", 40, 0),))}}
 
     got = chip_smoke.kernel_ptxas(info())
-    assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "mips_topk", "mips_lse",
+    assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "leaf_mean_nn_fwd:bf16",
+                        "leaf_mean_nn_bwd:bf16", "gather_mean_fwd", "gather_mean_bwd",
+                        "gather_mean_fwd:bf16", "gather_mean_bwd:bf16", "mips_topk", "mips_lse",
                         "mips_boost", "pool_membership_mask"}
     assert got["mips_topk"] == {"topk_kernelIfLb1ELi0EE": {"registers": 168, "spill_bytes": 0}}
     assert got["mips_boost"] == {"topk_kernelIfLb1ELi1EE": {"registers": 172, "spill_bytes": 0}}

@@ -287,6 +287,34 @@ def test_device_epochs_replay_the_eager_body(dev, dedup):
         assert captured.launches == {n: c for n, c in per_step.items() if c}
 
 
+@pytest.mark.parametrize("dedup", [False, True])
+def test_bf16_device_epochs_replay_the_eager_body(dev, dedup):
+    """The same with ``ConvModel(dtype=bfloat16)``: the bf16 leaf or
+    gather-mean kernels inside the graph, held at the bf16 tolerances
+    (``chip_smoke.graph_route_check``)."""
+    import chip_smoke
+
+    from gnn_recsys_tpu_torch.models.conv_model import ConvModel
+    from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
+    from gnn_recsys_tpu_torch.train.minibatch import MinibatchConfig
+
+    data = chip_smoke.bench_data(num_users=400, num_items=150)
+    g = data.graph.to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    kw = dict(chip_smoke.medium_kwargs(g, 32, 16), dtype=torch.bfloat16)
+    etypes = tuple(data.train_pairs)
+    cfg = MinibatchConfig(edge_batch_size=128, fanouts=(8, 4), neg_mode="dense_pool",
+                          neg_pool_size=96, pool_mask_kernel=True, dedup=dedup)
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    per_step = chip_smoke.step_counts(g, ConvModel(**kw), etypes, dedup)
+    eids = chip_smoke.edge_slices(g, etypes, 512)
+    report, captured = chip_smoke.graph_route_check(dev, g, feats, kw, cfg, eids, tables,
+                                                    per_step, steps=4)
+    assert report["grad_rel_worst"] <= chip_smoke.BF16_GRAD_REL
+    assert captured.launches == {n: c for n, c in per_step.items() if c}
+
+
 @pytest.mark.parametrize("b,k,p", [(1024, 32, 2560), (1000, 24, 2500), (3, 128, 7),
                                    (1000, 24, 2557), (1001, 32, 2560), (50, 1, 300),
                                    (17, 128, 4099)])
@@ -398,6 +426,37 @@ def test_gather_mean_matches_plain(dev, b, k, n, d):
     assert torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, tr))
 
 
+@pytest.mark.parametrize("b,k,n,d", [(38912, 8, 30000, 256), (20992, 8, 100000, 256),
+                                     (2048, 4, 20992, 256), (4608, 4, 38912, 256),
+                                     (13, 8, 50, 16), (7, 40, 20, 33), (1001, 8, 3000, 36),
+                                     (333, 4, 7, 256)])
+def test_gather_mean_bf16_matches_plain(dev, b, k, n, d):
+    """The bf16 instantiations (table, cotangent, out and dh bf16; sums f32)
+    at the dedup step's four shapes, K = 40, and widths that are not a
+    multiple of 8 (the scalar path): within one bf16 ulp of the largest
+    entry of the plain versions, which round the same f32 sums (summed in
+    another order), and the backward's bits twice the same."""
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    h, nbr, mask, g = _gather_case(dev, b, k, n, d)
+    h, g = h.bfloat16(), g.bfloat16()
+    n_fwd, n_bwd = gm.gather_mean_fwd.launches, gm.gather_mean_bwd.launches
+    out = gm.gather_mean_fwd(h, nbr, mask)
+    tr = gm.slot_transpose(nbr, mask, n)
+    dh = gm.gather_mean_bwd(g, nbr, mask, n, tr)
+    torch.cuda.synchronize()
+    assert (gm.gather_mean_fwd.launches, gm.gather_mean_bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    assert out.dtype == dh.dtype == torch.bfloat16 and (out[b // 2] == 0).all()
+    for got, wants in ((out, [gm.gather_mean_reference(h, nbr, mask)]),
+                       (dh, [gm.gather_mean_bwd_reference(g, nbr, mask, n),
+                             gm.gather_mean_bwd_plain(g, mask, n, tr)])):
+        for want in wants:
+            assert want.dtype == torch.bfloat16
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= BF16_RTOL * max(1.0, float(want.float().abs().max()))
+    assert torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, tr))
+
+
 def test_gather_mean_bwd_hot_row_and_masked_rows(dev):
     """Every valid slot on one source row (a run of about 1,150 entries, 36
     chunks of 32) and rows with no valid slot: the hot row sums its slots in
@@ -456,7 +515,7 @@ def test_gather_mean_autograd_and_refusals(dev):
     (gm.gather_mean_reference(hr, nbr, mask) * g).sum().backward()
     torch.testing.assert_close(hk.grad, hr.grad, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
-        gm.gather_mean_fwd(h.bfloat16(), nbr, mask)
+        gm.gather_mean_fwd(h.half(), nbr, mask)
     with pytest.raises(ValueError):
         gm.gather_mean_fwd(h, nbr.cpu(), mask)
 
