@@ -171,10 +171,14 @@ TOL = 1e-5  # f32 sums in another order than the plain version's product
 # another order than the plain versions' (each kernel's own order is fixed).
 GRAD_REL = 1e-5
 BF16_RTOL = 2.0**-7  # one bf16 ulp: both sides round the same f32 sums
-# A bf16 step, eager against replayed (the CPU tests' bf16 tolerances,
-# tests/test_torch_bf16.py): the loss, and each gradient relative to its
-# parameter's largest entry.
-BF16_LOSS_RTOL, BF16_GRAD_REL = 1e-2, 5e-2
+# A bf16 step, eager against replayed from one state: the same code, whose
+# only gap is the dedup step's backward adding with atomics.  Each gradient
+# within BF16_ROUTE_GRAD_REL of its parameter's largest entry: four times the
+# largest gap measured on the H100 (0.0075, one bf16 ulp of an entry near the
+# largest; PERF.md).  Where |g| exceeds ABOVE_GAP times its parameter's gap,
+# the update within UPDATE_REL * lr: a gradient entry moved by d moves Adam's
+# update by at most about 2.3 * d / |g| of lr over the first 10 steps.
+BF16_ROUTE_GRAD_REL, ABOVE_GAP, UPDATE_REL = 3e-2, 20.0, 0.25
 # One step, kernel route against plain route: the CPU tests' tolerances
 # (tests/test_torch_minibatch.py).
 LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-5, 1e-4, 1e-6
@@ -559,77 +563,52 @@ def check_leaf_bwd(what, x, ms, w, b, g) -> float:
 
 
 def leaf_rows(dev, gen, record, k, p, f, h) -> None:
-    """``leaf_mean_nn`` forward and backward against their plain versions:
-    f32 at the shape given and a ragged P, then bf16 (the tree step's dtype
-    at the bench config)."""
-    errs, grad_errs = [], []
-    for pp in (p, p - 5 if p > 5 else p):
-        x, ms, w, b, g = leaf_case(dev, gen, k, pp, f, h)
-        out = la.leaf_mean_nn_fwd(x, ms, w, b)
-        errs.append(float((out - la.leaf_mean_nn_reference(x, ms, w, b)).abs().max()))
-        if not errs[-1] <= TOL or not (out[pp // 2] == 0).all():
-            raise AssertionError(f"leaf_mean_nn_fwd P={pp}: differs by {errs[-1]} "
-                                 f"or the all-masked row is not 0")
-        grad_errs.append(check_leaf_bwd(f"leaf_mean_nn_bwd P={pp}", x, ms, w, b, g))
-    xb, msb, wb, bb, _ = leaf_case(dev, gen, k, p, f, h, torch.bfloat16)
-    outb = la.leaf_mean_nn_fwd(xb, msb, wb, bb).float()
-    refb = la.leaf_mean_nn_reference(xb, msb, wb, bb).float()
-    if not ((outb - refb).abs() <= BF16_RTOL * refb.abs() + 1e-6).all():
-        raise AssertionError("leaf_mean_nn_fwd bf16: beyond one bf16 ulp")
-    say("kernel_bf16", name="leaf_mean_nn_fwd", max_abs_err=float((outb - refb).abs().max()))
+    """``leaf_mean_nn`` forward and backward against their plain versions,
+    in f32 (inputs from ``gen``) and then in bf16 (x, W, b and the cotangent
+    bf16, the mask f32: the tree step's dtypes at the bench config; inputs
+    from a generator of their own, so that the cases after keep theirs): at
+    the shape given and a ragged P, the forward within ``TOL`` (in bf16
+    ``BF16_RTOL`` of each entry) with the all-masked row 0, the backward as
+    :func:`check_leaf_bwd` holds it (the kernel widens bf16 to f32 before any
+    arithmetic); then each dtype's rows.  The operations are f32 ones (on the
+    CUDA cores); in bf16 the bytes are bf16 but for the f32 mask, dW and db."""
+    for dtype, dgen, tag in ((torch.float32, gen, ""), (
+            torch.bfloat16, torch.Generator(device=dev).manual_seed(16), ":bf16")):
+        errs, grad_errs = [], []
+        for pp in (p, p - 5 if p > 5 else p):
+            x, ms, w, b, g = leaf_case(dev, dgen, k, pp, f, h, dtype)
+            out = la.leaf_mean_nn_fwd(x, ms, w, b).float()
+            ref = la.leaf_mean_nn_reference(x, ms, w, b).float()
+            diff = (out - ref).abs()
+            errs.append(float(diff.max()))
+            if not (diff <= (BF16_RTOL * ref.abs() + 1e-6 if tag else TOL)).all() or out[
+                    pp // 2].any():
+                raise AssertionError(f"leaf_mean_nn_fwd{tag} P={pp}: differs by {errs[-1]} "
+                                     f"or the all-masked row is not 0")
+            grad_errs.append(check_leaf_bwd(f"leaf_mean_nn_bwd{tag} P={pp}", x, ms, w, b, g))
 
-    x, ms, w, b, g = leaf_case(dev, gen, k, p, f, h)
-    io = 4.0 * (k * p * f + p * k + f * h + h)  # x, the mask, w, b
-    record("leaf_mean_nn_fwd", LEAF, 78, max(errs),
-           lambda: la.leaf_mean_nn_fwd(x, ms, w, b),
-           lambda: la.leaf_mean_nn_reference(x, ms, w, b), None,
-           float(k * p * h * (2 * f + 4)), io + 4.0 * p * h)
-    row = record("leaf_mean_nn_bwd", LEAF, 94, max(grad_errs),
-                 lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
-                 lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
-                 float(k * p * h * (4 * f + 4)), io + 4.0 * (p * h + f * h + h))
-    if row["ms"] is not None:
-        # The backward's two kernels apart: device ms a call of each.
-        reps = 20
-        _, kernels = profiled_kernels(lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g), reps)
-        split = {part: per_call_ms([k for k in kernels if pat in k[0]], reps)
-                 for part, pat in (("main_ms", "leaf_bwd_kernel"),
-                                   ("reduce_ms", "leaf_bwd_reduce_kernel"))}
-        if not all(split.values()):
-            raise RuntimeError(f"leaf_mean_nn_bwd: the profiler missed a kernel: {split}")
-        row.update(split)
-        say("kernel_split", name="leaf_mean_nn_bwd", **split)
-    leaf_bf16_rows(dev, record, k, p, f, h)
-
-
-def leaf_bf16_rows(dev, record, k, p, f, h) -> None:
-    """Both leaf kernels in bf16 (x, W, b and the cotangent bf16, the mask
-    f32), from a generator of their own so that the cases before and after
-    keep their inputs: at the shape given and a ragged P, the forward within
-    ``BF16_RTOL`` of its plain version and the backward as in f32 (the
-    kernel widens bf16 to f32 before any arithmetic); then their rows.  The
-    operations are f32 ones (on the CUDA cores), the bytes bf16 but for the
-    f32 mask, dW and db."""
-    gen = torch.Generator(device=dev).manual_seed(16)
-    errs, grad_errs = [], []
-    for pp in (p, p - 5 if p > 5 else p):
-        x, ms, w, b, g = leaf_case(dev, gen, k, pp, f, h, torch.bfloat16)
-        out = la.leaf_mean_nn_fwd(x, ms, w, b).float()
-        ref = la.leaf_mean_nn_reference(x, ms, w, b).float()
-        errs.append(float((out - ref).abs().max()))
-        if not ((out - ref).abs() <= BF16_RTOL * ref.abs() + 1e-6).all() or out[pp // 2].any():
-            raise AssertionError(f"leaf_mean_nn_fwd bf16 P={pp}: beyond one bf16 ulp "
-                                 f"or the all-masked row is not 0")
-        grad_errs.append(check_leaf_bwd(f"leaf_mean_nn_bwd bf16 P={pp}", x, ms, w, b, g))
-    x, ms, w, b, g = leaf_case(dev, gen, k, p, f, h, torch.bfloat16)
-    io = 2.0 * (k * p * f + f * h + h) + 4.0 * p * k  # x, w, b; the f32 mask
-    record("leaf_mean_nn_fwd:bf16", LEAF, 78, max(errs), lambda: la.leaf_mean_nn_fwd(x, ms, w, b),
-           lambda: la.leaf_mean_nn_reference(x, ms, w, b), None,
-           float(k * p * h * (2 * f + 4)), io + 2.0 * p * h)
-    record("leaf_mean_nn_bwd:bf16", LEAF, 94, max(grad_errs),
-           lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
-           lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
-           float(k * p * h * (4 * f + 4)), io + 2.0 * p * h + 4.0 * (f * h + h))
+        x, ms, w, b, g = leaf_case(dev, dgen, k, p, f, h, dtype)
+        e = x.element_size()
+        io = e * (k * p * f + f * h + h) + 4.0 * p * k  # x, w, b; the f32 mask
+        record(f"leaf_mean_nn_fwd{tag}", LEAF, 78, max(errs),
+               lambda: la.leaf_mean_nn_fwd(x, ms, w, b),
+               lambda: la.leaf_mean_nn_reference(x, ms, w, b), None,
+               float(k * p * h * (2 * f + 4)), io + e * p * h)
+        row = record(f"leaf_mean_nn_bwd{tag}", LEAF, 94, max(grad_errs),
+                     lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g),
+                     lambda: la.leaf_mean_nn_bwd_reference(x, ms, w, b, g), None,
+                     float(k * p * h * (4 * f + 4)), io + e * p * h + 4.0 * (f * h + h))
+        if not tag and row["ms"] is not None:
+            # The backward's two kernels apart: device ms a call of each.
+            reps = 20
+            _, kernels = profiled_kernels(lambda: la.leaf_mean_nn_bwd(x, ms, w, b, g), reps)
+            split = {part: per_call_ms([k for k in kernels if pat in k[0]], reps)
+                     for part, pat in (("main_ms", "leaf_bwd_kernel"),
+                                       ("reduce_ms", "leaf_bwd_reduce_kernel"))}
+            if not all(split.values()):
+                raise RuntimeError(f"leaf_mean_nn_bwd: the profiler missed a kernel: {split}")
+            row.update(split)
+            say("kernel_split", name="leaf_mean_nn_bwd", **split)
 
 
 def leaf_bwd_slack(x, ms, w, b, g) -> tuple:
@@ -713,60 +692,42 @@ def check_gather_fwd(what, h, nbr, mask) -> float:
 
 
 def gather_rows(dev, gen, record, b, k, n, d) -> None:
-    """``gather_mean`` forward and backward against their plain versions at
-    the shape given and a ragged B; the one-call yardstick is
-    ``embedding_bag`` (sum, per-slot weights m / max(count, 1)), forward and
-    its autograd backward."""
-    errs, grad_errs = [], []
-    for bb in (b, b - 7 if b > 7 else b):
-        h, nbr, mask, g = gather_case(dev, gen, bb, k, n, d)
-        errs.append(check_gather_fwd(f"gather_mean_fwd B={bb}", h, nbr, mask))
+    """``gather_mean`` forward and backward against their plain versions,
+    in f32 (inputs from ``gen``) and then in bf16 (the dedup step's dtype at
+    the bench config; inputs from a generator of their own), at the shape
+    given and a ragged B; then each dtype's rows.  The one-call yardstick is
+    ``embedding_bag`` in the table's dtype (sum, per-slot weights m /
+    max(count, 1)), forward and its autograd backward."""
+    for dtype, dgen, tag in ((torch.float32, gen, ""), (
+            torch.bfloat16, torch.Generator(device=dev).manual_seed(17), ":bf16")):
+        errs, grad_errs = [], []
+        for bb in (b, b - 7 if b > 7 else b):
+            h, nbr, mask, g = gather_case(dev, dgen, bb, k, n, d, dtype)
+            errs.append(check_gather_fwd(f"gather_mean_fwd{tag} B={bb}", h, nbr, mask))
+            tr = gm.slot_transpose(nbr, mask, n)
+            grad_errs.append(check_gather_bwd(f"gather_mean_bwd{tag} B={bb}", gm.gather_mean_bwd(
+                g, nbr, mask, n), g, nbr, mask, n, tr))
+
+        h, nbr, mask, g = gather_case(dev, dgen, b, k, n, d, dtype)
         tr = gm.slot_transpose(nbr, mask, n)
-        grad_errs.append(check_gather_bwd(f"gather_mean_bwd B={bb}", gm.gather_mean_bwd(
-            g, nbr, mask, n), g, nbr, mask, n, tr))
-
-    h, nbr, mask, g = gather_case(dev, gen, b, k, n, d)
-    tr = gm.slot_transpose(nbr, mask, n)
-    bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
-    fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask)
-    note = "uniform random ids (no step has them); launches: every shape of the dedup step"
-    fwd = record("gather_mean_fwd", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
-                 lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost, shape=note)
-    if fwd["ms"] is not None:
-        fwd["l2_resident_ms"] = l2_resident_fwd_ms(h, nbr, mask)
-    row = record("gather_mean_bwd", GATHER, 49, max(grad_errs),
-                 lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
-                 lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost,
-                 shape=note)
-    if row["ms"] is not None:
-        # A caller without a plan: the wrapper's own sort of the ids, then the kernel.
-        row["without_plan_ms"] = device_ms(lambda: gm.gather_mean_bwd(g, nbr, mask, n))
-    gather_bf16_rows(dev, record, b, k, n, d)
-
-
-def gather_bf16_rows(dev, record, b, k, n, d) -> None:
-    """Both gather-mean kernels in bf16 (the dedup step's dtype at the bench
-    config), from a generator of their own: at the shape given and a ragged
-    B, each within ``BF16_RTOL`` of the largest entry of its plain versions
-    and the backward's bits twice the same; then their rows, with
-    ``embedding_bag`` in bf16 as the yardstick."""
-    gen = torch.Generator(device=dev).manual_seed(17)
-    errs, grad_errs = [], []
-    for bb in (b, b - 7 if b > 7 else b):
-        h, nbr, mask, g = gather_case(dev, gen, bb, k, n, d, torch.bfloat16)
-        errs.append(check_gather_fwd(f"gather_mean_fwd bf16 B={bb}", h, nbr, mask))
-        grad_errs.append(check_gather_bwd(f"gather_mean_bwd bf16 B={bb}", gm.gather_mean_bwd(
-            g, nbr, mask, n), g, nbr, mask, n, gm.slot_transpose(nbr, mask, n)))
-    h, nbr, mask, g = gather_case(dev, gen, b, k, n, d, torch.bfloat16)
-    tr = gm.slot_transpose(nbr, mask, n)
-    bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
-    fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, 2)
-    note = "bf16, uniform random ids (no step has them); launches: every shape of the bf16 dedup step"
-    record("gather_mean_fwd:bf16", GATHER, 49, max(errs), lambda: gm.gather_mean_fwd(h, nbr, mask),
-           lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost, shape=note)
-    record("gather_mean_bwd:bf16", GATHER, 49, max(grad_errs),
-           lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
-           lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost, shape=note)
+        bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
+        fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, h.element_size())
+        dt = "bf16 " if tag else ""
+        note = (f"{dt}uniform random ids (no step has them); launches: every shape of the "
+                f"{dt}dedup step")
+        fwd = record(f"gather_mean_fwd{tag}", GATHER, 49, max(errs),
+                     lambda: gm.gather_mean_fwd(h, nbr, mask),
+                     lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost,
+                     shape=note)
+        if not tag and fwd["ms"] is not None:
+            fwd["l2_resident_ms"] = l2_resident_fwd_ms(h, nbr, mask)
+        row = record(f"gather_mean_bwd{tag}", GATHER, 49, max(grad_errs),
+                     lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
+                     lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost,
+                     shape=note)
+        if not tag and row["ms"] is not None:
+            # A caller without a plan: the wrapper's own sort of the ids, then the kernel.
+            row["without_plan_ms"] = device_ms(lambda: gm.gather_mean_bwd(g, nbr, mask, n))
 
 
 def gather_costs(b, k, n, d, nbr, mask, elem=4) -> tuple:
@@ -804,23 +765,44 @@ def plain_gather_mean(h, nbr, mask, transpose=None):
     return gm.gather_mean_reference(h, nbr, mask)
 
 
+GATHER_KERNELS = ("gather_mean_fwd", "gather_mean_bwd")
+
+
 class GatherTap:
-    """Stands in for the block forward's ``gather_mean`` (``conv_model``):
-    counts the calls by shape (B, K, N, D) while ``counting``, and keeps
-    each call's inputs, transpose and cotangent while ``capturing``.  ``fn``
-    is the function it calls (the kernels' wrapper, or the plain route)."""
+    """Stands in for the block forward's ``gather_mean`` (``conv_model``).
+    While ``counting``, it counts the calls by shape (B, K, N, D) in
+    ``calls_by_shape`` and each kernel's launches by shape in
+    ``launches[name]``: a forward where the forward wrapper's count moved, a
+    backward where the call's CUDA output took its cotangent (the wrapper
+    launches on it).  Launches made while a CUDA graph captures go to
+    ``in_graph`` instead, which :meth:`take_graph` hands to the captured
+    step, and each replay adds them back (:meth:`replayed`), the rule of
+    ``train/graph_step.py``.  While ``capturing``, it keeps each call's
+    inputs, transpose and cotangent.  ``fn`` is the function it calls (the
+    kernels' wrapper, or the plain route)."""
 
     def __init__(self):
         self.fn = gm.gather_mean
         self.calls_by_shape = collections.Counter()
+        self.launches = {name: collections.Counter() for name in GATHER_KERNELS}
+        self.in_graph = {name: collections.Counter() for name in GATHER_KERNELS}
         self.captured = []
         self.counting = self.capturing = False
 
     def __call__(self, h, nbr, mask, transpose=None):
         shape = (nbr.shape[0], nbr.shape[1], h.shape[0], h.shape[1])
+        before = gm.gather_mean_fwd.launches
+        out = self.fn(h, nbr, mask, transpose)
         if self.counting:
             self.calls_by_shape[shape] += 1
-        out = self.fn(h, nbr, mask, transpose)
+            # A backward runs in the capture of its forward, or outside both.
+            into = self.in_graph if h.is_cuda and torch.cuda.is_current_stream_capturing() \
+                else self.launches
+            into["gather_mean_fwd"][shape] += gm.gather_mean_fwd.launches - before
+            if out.requires_grad and out.is_cuda:
+                def backward_launched(_, into=into):
+                    into["gather_mean_bwd"][shape] += 1
+                out.register_hook(backward_launched)
         if self.capturing:
             call = {"shape": shape, "h": h.detach(), "nbr": nbr, "mask": mask,
                     "transpose": transpose}
@@ -828,6 +810,24 @@ class GatherTap:
             if out.requires_grad:
                 out.register_hook(lambda g, call=call: call.update(dout=g.detach()))
         return out
+
+    def take_graph(self) -> dict:
+        """The launches counted during the last capture, taken off."""
+        out = self.in_graph
+        self.in_graph = {name: collections.Counter() for name in GATHER_KERNELS}
+        return out
+
+    def replayed(self, graph_launches: dict) -> None:
+        for name, by_shape in graph_launches.items():
+            self.launches[name].update(by_shape)
+
+    def check_totals(self, launches: dict, what: str) -> None:
+        """Each kernel's launches by shape must add up to its wrapper's
+        count ``launches[name]``."""
+        sums = {name: sum(self.launches[name].values()) for name in GATHER_KERNELS}
+        if any(sums[name] != launches[name] for name in GATHER_KERNELS):
+            raise AssertionError(f"{what}: gather-mean launches by shape add up to {sums}, "
+                                 f"the wrappers counted {launches}")
 
 
 def slot_stats(nbr, mask, n, rows) -> dict:
@@ -1212,6 +1212,7 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
         launches = {name: fn.launches for name, fn in counters.items()}
         if dedup:
             tap.counting = False
+            tap.check_totals(launches, phase)
             calls = sum(tap.calls_by_shape.values())
             if on_card and not calls == launches["gather_mean_fwd"] == launches["gather_mean_bwd"]:
                 raise AssertionError(f"{calls} gather-mean calls against {launches} launches")
@@ -1337,12 +1338,14 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
     route's, so that each replay is held against one eager update from the
     same state (the dedup step's ``index_add_`` adds with atomics, and the
     routes' last bits part over several updates).  A bf16 model
-    (``kw["dtype"]``) is held to the bf16 tolerances of the CPU tests: the
-    loss within ``BF16_LOSS_RTOL``, each gradient within ``BF16_GRAD_REL`` of
-    its parameter's largest entry, and the parameters within 2 * lr (the
-    atomics' order moves a bf16 gradient entry by an ulp, and Adam turns a
-    gradient's relative change into up to about lr).  Returns (the report,
-    the captured step or None)."""
+    (``kw["dtype"]``) has the loss within ``LOSS_RTOL`` too (its forward has
+    no atomics), each gradient within ``BF16_ROUTE_GRAD_REL`` of its
+    parameter's largest entry, and the parameters within ``UPDATE_REL * lr``
+    where the eager step's |g| exceeds ``ABOVE_GAP`` times the parameter's
+    largest gradient gap, else within 2 * lr (the atomics' order moves a
+    bf16 gradient entry by an ulp, and Adam turns a small gradient's
+    relative change into up to about lr).  Returns (the report, the captured
+    step or None)."""
     etypes = tuple(eids)
     counts = {et: len(v) for et, v in eids.items()}
     store = device_edge_store(g, etypes, dev)
@@ -1365,8 +1368,8 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
         raise AssertionError("the two routes drew different permutations")
     pa, pb = (dict(r["model"].named_parameters()) for r in routes)
     bf16 = kw.get("dtype") == torch.bfloat16
-    loss_rtol = BF16_LOSS_RTOL if bf16 else LOSS_RTOL
-    worst_loss = worst_gap = worst_grad = 0.0
+    worst_loss = worst_gap = worst_grad = worst_update = 0.0
+    tight = 0
     with warnings.catch_warnings(), torch.no_grad():
         warnings.filterwarnings("ignore", message=".*capturable=True.*")
         for k in range(steps):
@@ -1389,18 +1392,24 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
                 for r in routes:  # the graph's lists stay its captured draws
                     r["draws"].uniforms = r["draws"].randints = None
             worst_loss = max(worst_loss, abs(la - lb) / abs(la))
-            if not abs(la - lb) <= loss_rtol * abs(la):
+            if not abs(la - lb) <= LOSS_RTOL * abs(la):
                 raise AssertionError(f"step {k}: eager loss {la}, graph loss {lb}")
             for n, p in pa.items():
                 grad = p.grad if p.grad is not None else torch.zeros_like(p)
                 if bf16:
                     other = pb[n].grad if pb[n].grad is not None else torch.zeros_like(p)
-                    rel = float((grad - other).abs().max()) / max(float(grad.abs().max()), 1e-30)
+                    gap = float((grad - other).abs().max())
+                    rel = gap / max(float(grad.abs().max()), 1e-30)
                     worst_grad = max(worst_grad, rel)
-                    if not rel <= BF16_GRAD_REL:
+                    if not rel <= BF16_ROUTE_GRAD_REL:
                         raise AssertionError(f"step {k}: {n}'s gradients differ by {rel} of "
                                              f"its largest entry")
-                    tol = torch.full_like(p, 2 * cfg.lr)
+                    above = grad.abs() > ABOVE_GAP * gap
+                    tight += int(above.sum())
+                    if above.any():
+                        worst_update = max(worst_update,
+                                           float((p - pb[n])[above].abs().max()) / cfg.lr)
+                    tol = torch.where(above, UPDATE_REL * cfg.lr, 2 * cfg.lr)
                 else:
                     tol = torch.where(grad.abs() > 1e-5, 2e-6, 2 * cfg.lr)
                 excess = float(((p - pb[n]).abs() - tol).max())
@@ -1412,7 +1421,8 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
     report = {"steps": steps, "first_step_draws": first_draws, "loss_rel_worst": worst_loss,
               "param_excess_over_tolerance": worst_gap}
     if bf16:
-        report["grad_rel_worst"] = worst_grad
+        report.update(grad_rel_worst=worst_grad, update_gap_over_lr_above_gap=worst_update,
+                      entries_above_gap=tight)
     if on_card:
         want = {n: c for n, c in per_step.items() if c}
         if captured.launches != want:
@@ -1450,7 +1460,7 @@ def replay_profile(captured, per_step, n=5, bf16=False) -> dict:
 
 def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
                       batch_size=2048, pool=2560, fanouts=(8, 4), dedup=False, on_card=True,
-                      check_steps=10, dtype=None, random_recall=None, k=10) -> dict:
+                      check_steps=10, dtype=None, random_recall=None, k=10, tap=None) -> dict:
     """The bench step through the trainer's entry point with
     ``MinibatchConfig(device_epoch=True)``: on a card, each step one replay
     of a CUDA graph.  Three epochs of ``steps // 2`` training steps (epoch 0
@@ -1462,8 +1472,10 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
     the three captures included).  Then :func:`graph_route_check` and the
     replay's profile (:func:`replay_profile`).  ``dtype``: the model's
     computation dtype (bf16: the bench config of ``bench.py:219-231``); with
-    ``random_recall``, the trained model's recall@``k`` must beat it.
-    Returns the launches."""
+    ``random_recall``, the trained model's recall@``k`` must beat it.  With
+    a :class:`GatherTap` ``tap`` (a dedup run), the trainer's gather-mean
+    calls go through it, which counts their launches by shape, captured ones
+    once a replay.  Returns the launches."""
     from gnn_recsys_tpu_torch.train import graph_step
 
     phase = ("train_graph_dedup" if dedup else "train_graph") + (
@@ -1495,7 +1507,11 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
         fn.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    replay, events = graph_step.CapturedStep.replay, []
+    init, replay, events = graph_step.CapturedStep.__init__, graph_step.CapturedStep.replay, []
+
+    def counted_init(step, *args, **kwargs):  # the tap's launches of the capture
+        init(step, *args, **kwargs)
+        step.tap_launches = tap.take_graph() if tap else {}
 
     def timed_replay(step):  # CUDA events around each replay
         pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -1503,19 +1519,30 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
         replay(step)
         pair[1].record()
         events.append((step.state is not None, *pair))
+        if tap:
+            tap.replayed(step.tap_launches)
 
+    graph_step.CapturedStep.__init__ = counted_init
     graph_step.CapturedStep.replay = timed_replay
+    if tap:
+        conv_model.gather_mean, tap.counting = tap, True
     t0 = time.perf_counter()
     try:
         state, hist = train_minibatch(model, g, g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
                                       train_eids, valid_eids, cfg, device=dev)
         sync(dev)
     finally:
+        graph_step.CapturedStep.__init__ = init
         graph_step.CapturedStep.replay = replay
+        conv_model.gather_mean = gm.gather_mean
+        if tap:
+            tap.counting = False
     wall_s = time.perf_counter() - t0
     launches = {name: counters[name].launches for name in per_step}
     if on_card and launches != want:
         raise AssertionError(f"{phase}: launches {launches}, expected {want}")
+    if tap:
+        tap.check_totals(launches, phase)
     losses = hist["train_loss"]
     if not (np.isfinite(losses).all() and np.isfinite(hist["valid_loss"]).all()
             and losses[2] < losses[1]):
@@ -1526,6 +1553,10 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
               "edges_per_s_train_epochs": hist["edges_per_s"][1:], "wall_s": wall_s,
               "train_loss": losses, "valid_loss": hist["valid_loss"], "updates": state.step,
               "launches": launches, "launches_expected": want, "launches_per_step": per_step}
+    if tap:
+        report["gather_launches_by_shape"] = {
+            name: {"B{}_K{}_N{}_D{}".format(*shape): c for shape, c in by_shape.items()}
+            for name, by_shape in tap.launches.items()}
     train_ms = [a.elapsed_time(b) for update, a, b in events if update]
     if on_card:
         if len(train_ms) != 2 * nb:
@@ -1638,31 +1669,30 @@ def main() -> int:
     # gather-mean kernels on the dedup'd step's, by shape too.
     tap = GatherTap()
     dedup_launches, model = phase_train(dev, data, steps=50, tap=tap)
-    for name in ("gather_mean_fwd", "gather_mean_bwd"):
+    for name in GATHER_KERNELS:
         launches[name] = dedup_launches[name]
     step_rows = phase_gather_steps(dev, tap)
-    for (b, k, n, _), calls in tap.calls_by_shape.items():
-        for name in ("gather_mean_fwd", "gather_mean_bwd"):
-            launches[f"{name}:B{b}_K{k}_N{n}"] = calls
     rows += step_rows
     phase_packed_leaf(dev, data, model)
-    # The device epochs: each step one replay of a CUDA graph.
-    graph_launches = phase_train_graph(dev, data)
-    graph_launches.update({name: n for name, n in phase_train_graph(
-        dev, data, steps=50, dedup=True).items() if name.startswith("gather_mean")})
-    # The bench config as bench.py defines it: bf16 compute.  Its kernels'
-    # bf16 rows take their launches from these two phases, the gather-mean's
-    # shape rows in proportion to the dedup step's calls of each shape.
-    bf16 = phase_train_graph(dev, data, dtype=torch.bfloat16, random_recall=random_recall)
-    bf16.update({name: n for name, n in phase_train_graph(
-        dev, data, steps=50, dedup=True, dtype=torch.bfloat16,
-        random_recall=random_recall).items() if name.startswith("gather_mean")})
-    total_calls = sum(tap.calls_by_shape.values())
-    for name, n in bf16.items():
-        launches[f"{name}:bf16"] = n
-        if name.startswith("gather_mean"):
-            for (b, k, n_rows, _), calls in tap.calls_by_shape.items():
-                launches[f"{name}:bf16:B{b}_K{k}_N{n_rows}"] = n * calls // total_calls
+    # The device epochs: each step one replay of a CUDA graph.  Then the
+    # bench config as bench.py defines it: bf16 compute.  The gather-mean
+    # launches by shape are each dedup run's own (0 at a shape it never ran).
+    labels = {shape: "B{}_K{}_N{}".format(*shape) for shape in tap.calls_by_shape}
+    for name in GATHER_KERNELS:
+        launches.update({f"{name}:{label}": tap.launches[name][shape]
+                         for shape, label in labels.items()})
+    graph_launches = {}  # f32 in the device epochs; the bf16 runs are the bf16 rows' main path
+    for dtype, tag, into in ((None, "", graph_launches), (torch.bfloat16, ":bf16", launches)):
+        recall = random_recall if dtype else None
+        tree = phase_train_graph(dev, data, dtype=dtype, random_recall=recall)
+        run_tap = GatherTap()
+        dedup = phase_train_graph(dev, data, steps=50, dedup=True, dtype=dtype, tap=run_tap,
+                                  random_recall=recall)
+        for name, n in tree.items():
+            into[name + tag] = dedup[name] if name in GATHER_KERNELS else n
+        for name in GATHER_KERNELS:
+            into.update({f"{name}{tag}:{label}": run_tap.launches[name][shape]
+                         for shape, label in labels.items()})
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:

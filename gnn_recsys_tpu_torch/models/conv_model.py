@@ -79,7 +79,7 @@ class ConvModel(nn.Module):
     None) with the JAX package's init rules.
 
     ``dtype`` is the computation dtype (the JAX package's ``conv_model.py:103-106``): None
-    computes in f32; ``torch.bfloat16`` runs every Linear, the message
+    (or ``torch.float32``, stored as None) computes in f32; ``torch.bfloat16`` runs every Linear, the message
     reductions, the row norms and the cross-etype reduction in bf16 (flax's
     ``Dense(dtype=...)`` semantics, :func:`~gnn_recsys_tpu_torch.models.
     layers.dense`), while the parameters (and so Adam's state) stay f32 and
@@ -122,6 +122,7 @@ class ConvModel(nn.Module):
             raise NotImplementedError("remat_levels is not ported yet (ROADMAP.md)")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"computation dtype {dtype} is neither None, f32 nor bf16")
+        dtype = None if dtype == torch.float32 else dtype  # one f32 path: nn.Linear's
         self.dtype = dtype
         self.leaf_kernel = leaf_kernel
         self.leaf_block = leaf_block

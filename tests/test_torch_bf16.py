@@ -18,7 +18,9 @@ Tolerances, each with its reason:
   result.  Measured on these inputs: e = 0 against g = 0.0168 (tree, leaf
   kernel), 0.0286 (tree), 0.0174 (dedup) and 0.0323 (``pool_nn_edge``
   embeddings); e = 2**-8 against g = 0.0777 for the ``mean_nn`` embeddings
-  (one f32 segment sum taken in another order rounds the other way);
+  (one f32 segment sum taken in another order rounds the other way), held
+  against JAX with its full-graph mean summing in f32 as the port's does:
+  JAX as it is sums in bf16 and gives e = 0.0693 against g = 0.0718;
 * the loss of a bf16 step within ``LOSS_RTOL`` relative (scores leave the
   model as f32; the loss is f32);
 * each parameter's gradient within ``GRAD_REL`` of its largest entry: the
@@ -219,11 +221,18 @@ def _f32_segment_mean(h_src, src, dst, num_dst, edge_weight=None):
     return (total / jnp.maximum(count, 1.0)[:, None]).astype(h_src.dtype)
 
 
-@pytest.mark.parametrize("agg,hetero", [("mean_nn", "sum"), ("pool_nn_edge", "max")])
-def test_compute_embeddings_match_jax_bf16(monkeypatch, agg, hetero):
-    """The full-graph pass gives bf16 embeddings, as JAX's does.  JAX's
-    full-graph mean sums in bf16 (``test_coo_segment_mean_bf16_sums_in_f32``):
-    its reference here sums in f32 as the port does, the rest is JAX's."""
+@pytest.mark.parametrize("agg,hetero,full_graph_mean",
+                         [("mean_nn", "sum", True), ("pool_nn_edge", "max", False)])
+def test_compute_embeddings_match_jax_bf16(monkeypatch, agg, hetero, full_graph_mean):
+    """The full-graph pass gives bf16 embeddings, as JAX's does, held first
+    against JAX as it is.  The ``pool_nn_edge`` pass takes no full-graph
+    mean and matches it (e = 0 against g = 0.0323).  The ``mean_nn`` pass
+    goes through JAX's ``coo_segment_mean``, which sums in bf16
+    (``test_coo_segment_mean_bf16_sums_in_f32``): against it, e = 0.0693 and
+    g = 0.0718, beyond ``E_OVER_G`` even at these in-degrees (at most about
+    30), and the test asserts that it is.  So the ``mean_nn`` reference is
+    then JAX with a ``coo_segment_mean`` that sums in f32 as the port does,
+    the rest JAX's: e = 2**-8 against g = 0.0777."""
     data_kw = dict(num_users=50, num_items=30, seed=0)
     jd, td, j32, j16, tm, jfeats, tfeats, params = _pair(agg, hetero=hetero, data_kw=data_kw)
 
@@ -233,12 +242,15 @@ def test_compute_embeddings_match_jax_bf16(monkeypatch, agg, hetero):
                                            deterministic=True))
 
     jref = jax.jit(embeddings(j32))(params)
-    monkeypatch.setattr(jcm, "coo_segment_mean", _f32_segment_mean)
-    jout = _compiled(embeddings(j16), params)
     out = compute_embeddings(tm, td.graph, tfeats, device="cpu")
+    jout = _compiled(embeddings(j16), params)
     assert sorted(out) == sorted(jout)
     assert all(x.dtype == torch.bfloat16 for x in out.values())
     e, g = _e_and_g(out, jout, jref)
+    if full_graph_mean:
+        assert e > E_OVER_G * g, (e, g)  # JAX's bf16 sums: the reason for the f32 reference
+        monkeypatch.setattr(jcm, "coo_segment_mean", _f32_segment_mean)
+        e, g = _e_and_g(out, _compiled(embeddings(j16), params), jref)
     assert g > 0 and e <= E_OVER_G * g, (e, g)
 
 
@@ -349,11 +361,13 @@ def test_params_of_a_bf16_jax_model_convert():
 
 
 def test_dtype_argument():
-    """None and f32 are the same model; scores leave a bf16 model as f32;
-    another dtype is refused."""
+    """None and f32 are the same model, on one path (f32 is stored as None);
+    scores leave a bf16 model as f32; another dtype is refused."""
     kw = dict(canonical_etypes=[ET_BUYS, REVERSE_BUYS], dims=DIMS, n_layers=3,
               aggregator_type="mean_nn")
     a, b = ConvModel(**kw), ConvModel(**kw, dtype=torch.float32)
+    assert a.dtype is None and b.dtype is None
+    assert all(m.dtype is None for m in b.modules() if hasattr(m, "dtype"))
     feats = {"user": torch.randn(5, 8), "item": torch.randn(4, 8)}
     for nt in feats:
         assert torch.equal(a.embed[nt](feats[nt]), b.embed[nt](feats[nt]))

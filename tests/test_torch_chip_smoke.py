@@ -59,6 +59,9 @@ def test_train_dedup_and_packed_leaf_rehearsal(data):
     assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
     # 8 gather-mean calls a step, in 4 shapes (2 levels x 2 node types).
     assert sum(tap.calls_by_shape.values()) == 16 * 8 and len(tap.calls_by_shape) == 4
+    # No kernel launches on the CPU: each shape's count stays 0.
+    assert set(tap.launches["gather_mean_fwd"]) == set(tap.calls_by_shape)
+    assert not any(c for by_shape in tap.launches.values() for c in by_shape.values())
     assert len(tap.captured) == 8 and all("dout" in c for c in tap.captured)
     assert all(c["transpose"].rows is not None for c in tap.captured)
     assert chip_smoke.conv_model.gather_mean is chip_smoke.gm.gather_mean
@@ -75,11 +78,35 @@ def test_train_dedup_and_packed_leaf_rehearsal(data):
 def test_train_graph_rehearsal(data, dedup):
     """Phase 9 through the trainer's device epochs, on the CPU the eager
     body: the loss falls, and the eager-against-graph check (here the eager
-    body twice) agrees bit for bit."""
+    body twice) agrees bit for bit.  A dedup run's gather-mean calls go
+    through a tap (8 a step, in the 4 shapes of the dedup step)."""
+    tap = chip_smoke.GatherTap() if dedup else None
     launches = chip_smoke.phase_train_graph(torch.device("cpu"), data, hidden=32, out=16,
                                             steps=8, valid_steps=2, batch_size=128, pool=48,
-                                            dedup=dedup, on_card=False, check_steps=3)
+                                            dedup=dedup, on_card=False, check_steps=3, tap=tap)
     assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
+    if dedup:
+        assert len(tap.calls_by_shape) == 4 and sum(tap.calls_by_shape.values()) % 8 == 0
+        assert not any(c for by_shape in tap.launches.values() for c in by_shape.values())
+        assert chip_smoke.conv_model.gather_mean is chip_smoke.gm.gather_mean
+
+
+def test_gather_tap_adds_captured_launches_at_each_replay():
+    """Launches counted during a capture leave the tap's counts and come back
+    once a replay; totals must match the wrappers' counts."""
+    tap = chip_smoke.GatherTap()
+    shape = (16, 8, 40, 12)
+    tap.launches["gather_mean_fwd"][shape] = 2  # warm-up steps
+    tap.in_graph["gather_mean_fwd"][shape] = tap.in_graph["gather_mean_bwd"][shape] = 1
+    captured = tap.take_graph()
+    assert not any(tap.in_graph.values())
+    for _ in range(3):
+        tap.replayed(captured)
+    assert tap.launches["gather_mean_fwd"][shape] == 5
+    assert tap.launches["gather_mean_bwd"][shape] == 3
+    tap.check_totals({"gather_mean_fwd": 5, "gather_mean_bwd": 3}, "replays")
+    with pytest.raises(AssertionError, match="add up"):
+        tap.check_totals({"gather_mean_fwd": 6, "gather_mean_bwd": 3}, "replays")
 
 
 @pytest.mark.parametrize("dedup", [False, True])

@@ -311,7 +311,9 @@ def test_bf16_device_epochs_replay_the_eager_body(dev, dedup):
     eids = chip_smoke.edge_slices(g, etypes, 512)
     report, captured = chip_smoke.graph_route_check(dev, g, feats, kw, cfg, eids, tables,
                                                     per_step, steps=4)
-    assert report["grad_rel_worst"] <= chip_smoke.BF16_GRAD_REL
+    assert report["grad_rel_worst"] <= chip_smoke.BF16_ROUTE_GRAD_REL
+    assert report["entries_above_gap"] > 0
+    assert report["update_gap_over_lr_above_gap"] <= chip_smoke.UPDATE_REL
     assert captured.launches == {n: c for n, c in per_step.items() if c}
 
 
