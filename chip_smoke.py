@@ -109,10 +109,28 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    within 2 * lr: the dedup step's ``index_add_`` adds bf16 cotangents with
    atomics), and recall@10 after training, which must beat the random
    weights' of phase 4.
+11. train_full_batch: BASELINE config[0] (2-layer mean GraphSAGE,
+   full-batch, recall@10) at the Medium width (hidden 256, out 128, cosine
+   head, dropout 0) through ``train_full_batch`` on the bench generator's
+   graph at 10,000 users and 3,000 items: ``FullBatchConfig`` defaults (63
+   uniform negatives a positive, false negatives masked, delta 0.266, lr
+   1e-3), 30 epochs, evaluating every 10 (recall@10 through ``mips_topk``).
+   Each epoch's step time (CUDA events), peak memory, the loss curve (it
+   must fall), recall@10 (it must beat the random weights') beside the
+   popularity baseline's, the ``mips_topk`` launches of the phase (they must
+   be more than 0), 3 epochs under ``torch.profiler``; then one step on the
+   card against the same step on the CPU at 500 users, from one state with
+   the card's negatives replayed (``full_batch_step_check``).
+12. train_full_batch_nn: the same with the MLP head (``pred='nn'``) at 5,000
+   users and 1,500 items, 20 epochs; then the trained model is saved with
+   ``save_run`` and serves one ``inference_ondemand`` request for 128 users
+   on the card (latency and its ``load_run`` share), held against the same
+   request on the CPU (``serve_nn_run``).
 
 Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
-gives its launches in phase 9, ``graph_launches``), the card's name and
-power limit,
+gives its launches in phase 9, ``graph_launches``, and ``mips_topk``'s its
+launches in phase 11, ``full_batch_launches``), the card's name and power
+limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device.
 """
@@ -142,12 +160,21 @@ from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
-from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
-from gnn_recsys_tpu_torch.ops.sampling import Draws
-from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
-from gnn_recsys_tpu_torch.retrieval.recs import get_recs
+from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, scatter_row_mask
+from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
+from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k, recs_to_metrics
+from gnn_recsys_tpu_torch.retrieval.recs import get_recs, make_mlp_score_fn, model_score_fn
+from gnn_recsys_tpu_torch.train import full_batch
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config, save_run
-from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings, init_model
+from gnn_recsys_tpu_torch.train.full_batch import (
+    FullBatchConfig,
+    TrainState,
+    compute_embeddings,
+    full_batch_inputs,
+    init_model,
+    make_full_batch_step,
+    train_full_batch,
+)
 from gnn_recsys_tpu_torch.train.minibatch import (
     EdgeStore,
     MinibatchConfig,
@@ -987,6 +1014,12 @@ def medium_kwargs(graph, hidden=256, out=128) -> dict:
                 embedding_layer=True)
 
 
+def run_model_kwargs(kw) -> dict:
+    """A model's keyword arguments as ``save_run`` writes them (JSON lists)."""
+    return dict(kw, canonical_etypes=[list(e) for e in kw["canonical_etypes"]],
+                dims=[list(d) for d in kw["dims"]], norm=True, dropout=0.0)
+
+
 def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=10,
                 on_card=True):
     """Serve the Medium model through the port's entry points on ``dev``;
@@ -999,8 +1032,7 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
     g.ndata["item"]["popularity"] = torch.from_numpy(counts / counts.max())[:, None]
     kw = medium_kwargs(g, hidden, out)
     model = ConvModel(**kw, generator=torch.Generator().manual_seed(0))
-    model_kwargs = dict(kw, canonical_etypes=[list(e) for e in kw["canonical_etypes"]],
-                        dims=[list(d) for d in kw["dims"]], norm=True, dropout=0.0)
+    model_kwargs = run_model_kwargs(kw)
     bought_rows = build_padded_pair_set(buys_u, buys_i, num_src=num_users).rows.numpy()
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
     rng = np.random.default_rng(1)
@@ -1612,6 +1644,205 @@ def phase_packed_leaf(dev, data, model, seeds=32) -> None:
     say("packed_leaf", seeds=seeds, max_abs_err=err, attach_s=attach_s, cache_bytes=cache)
 
 
+def popularity_recall(data, k=10) -> float:
+    """recall@k of recommending the most bought items to every test user
+    (the JAX package's ``tests/test_e2e_fullbatch.py:16-27``)."""
+    top = np.argsort(-np.bincount(data.train_pairs[BUYS][1], minlength=data.num_items))[:k]
+    gt_u, gt_i = data.test_ground_truth
+    users = np.unique(gt_u)
+    return recs_to_metrics(np.tile(top, (len(users), 1)), users, gt_u, gt_i, data.num_items)[1]
+
+
+def full_batch_kwargs(graph, pred, hidden=256, out=128) -> dict:
+    """BASELINE config[0] (2-layer mean GraphSAGE) at the Medium width."""
+    return dict(medium_kwargs(graph, hidden, out), aggregator_type="mean", pred=pred)
+
+
+def full_batch_step_check(dev, pred, hidden, out, size, cfg) -> dict:
+    """One full-batch step on ``dev`` against the same step on the CPU, from
+    one state with the card's negatives replayed: the loss within LOSS_RTOL
+    and the parameters after Adam's update within 2e-6 where |g| > 1e-5 and
+    2 * lr elsewhere.  The gradients' largest gap, relative to each
+    parameter's largest entry, is reported: the card's ``index_add_`` adds
+    each row's thousands of pair gradients with atomics, in another order
+    than the CPU.  ``size``: the graph's (users, items)."""
+    data = bench_data(*size)
+    kw = full_batch_kwargs(data.graph, pred, hidden, out)
+    models = {"card": ConvModel(**kw), "cpu": ConvModel(**kw)}
+    init_model(models["cpu"], seed=1)
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    recorded = Draws(torch.Generator(device=dev).manual_seed(3), record=True)
+    results = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = models[where].to(d)
+        draws = recorded if where == "card" else ReplayDraws(
+            [], [x.cpu() for x in recorded.randints])
+        step = make_full_batch_step(m, cfg, tuple(data.train_pairs))
+        _, loss = step(TrainState.create(m, lr=cfg.lr),
+                       *full_batch_inputs(data.graph, data.graph,
+                                          {nt: data.graph.ndata[nt]["features"]
+                                           for nt in data.graph.ntypes},
+                                          data.train_pairs, d), draws)
+        results[where] = (float(loss), {n: (p.grad.cpu(), p.detach().cpu())
+                                     for n, p in m.named_parameters()})
+    (lc, card), (lp, cpu) = results["card"], results["cpu"]
+    if not abs(lc - lp) <= LOSS_RTOL * abs(lp):
+        raise AssertionError(f"full-batch step, card vs CPU: loss {lc} vs {lp}")
+    grad_gap, update_gap = (-1.0, ""), 0.0
+    for name, (g, p) in cpu.items():
+        gc, pc = card[name]
+        grad_gap = max(grad_gap, (float((gc - g).abs().max() / g.abs().max().clamp(min=1e-30)),
+                                  name))
+        gap = (pc - p).abs()
+        big = g.abs() > 1e-5
+        big_gap = float(gap[big].max()) if big.any() else 0.0
+        if not (big_gap <= 2e-6 and float(gap.max()) <= 2 * cfg.lr):
+            raise AssertionError(f"full-batch step, card vs CPU: {name} updated apart")
+        update_gap = max(update_gap, big_gap)
+    return {"users_items": list(size), "loss_card": lc, "loss_cpu": lp,
+            "grad_gap_of_largest": grad_gap[0], "grad_gap_parameter": grad_gap[1],
+            "update_gap_where_g_big": update_gap}
+
+
+def serve_nn_run(dev, data, model, kw, users, k) -> dict:
+    """``save_run`` the trained nn model, serve one ``inference_ondemand``
+    request for ``users`` users on ``dev``, then the same on the CPU: where a
+    user's recs differ, the two lists' scores must agree within TOL slot by
+    slot, and they may hold other items only where the k-th and (k+1)-th
+    unbought scores lie within TOL."""
+    report = {}
+    rng = np.random.default_rng(5)
+    uids = rng.choice(data.num_users, users, replace=False).tolist()
+    with tempfile.TemporaryDirectory() as run_dir:
+        save_run(run_dir, model.state_dict(), run_model_kwargs(kw), graph=data.graph)
+        t0 = time.perf_counter()
+        card = inference_ondemand(run_dir, uids, k=k, use_popularity=False, device=dev)
+        sync(dev)
+        report["request_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_run(run_dir)
+        report["load_run_s"] = time.perf_counter() - t0
+        report["load_run_share"] = report["load_run_s"] / report["request_s"]
+        cpu = inference_ondemand(run_dir, uids, k=k, use_popularity=False, device="cpu")
+    buys_u, buys_i = data.train_pairs[BUYS]
+    bought = build_padded_pair_set(buys_u, buys_i, num_src=data.num_users)
+    _assert_recs_valid(card, bought.rows.numpy(), data.num_items)
+    if sorted(card) != sorted(uids) or any(len(r) != k for r in card.values()):
+        raise AssertionError("inference_ondemand answered other users or widths")
+    differ = [u for u in uids if card[u] != cpu[u]]
+    if differ:
+        cpu_model = ConvModel(**kw)
+        cpu_model.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+        h = compute_embeddings(cpu_model, data.graph, {nt: data.graph.ndata[nt]["features"]
+                                                       for nt in data.graph.ntypes})
+        rows = torch.as_tensor(differ)
+        scores = make_mlp_score_fn(cpu_model)(h["user"][rows], h["item"])
+        scores = scores.masked_fill(scatter_row_mask(bought, rows, data.num_items),
+                                    float("-inf"))
+        ranked = scores.sort(dim=1, descending=True).values
+        for r, u in enumerate(differ):
+            a, b = (scores[r, torch.as_tensor(x)] for x in (card[u], cpu[u]))
+            tied = float(ranked[r, k - 1] - ranked[r, k]) < TOL
+            if not (float((a - b).abs().max()) <= TOL
+                    and (tied or set(card[u]) == set(cpu[u]))):
+                raise AssertionError(f"nn recs of user {u}: card {card[u]} vs CPU {cpu[u]}")
+    report.update(users=users, k=k, users_differing_from_cpu=len(differ))
+    return report
+
+
+def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, hidden=256,
+                           out=128, epochs=30, eval_every=10, profile_epochs=3, k=10,
+                           check_size=(500, 150), serve_users=128, on_card=True) -> dict:
+    """Train BASELINE config[0] at the Medium width with ``train_full_batch``
+    on the bench generator's graph at ``num_users`` / ``num_items``:
+    ``FullBatchConfig`` defaults (63 negatives a positive, delta 0.266, lr
+    1e-3), ``epochs`` epochs, evaluating every ``eval_every``.  Reports each
+    epoch's step time (CUDA events), peak memory, the loss curve, recall@k
+    beside the random weights' and the popularity baseline's, the launches
+    of ``mips_topk`` (cosine evaluation) and ``profile_epochs`` epochs under
+    ``torch.profiler``; then :func:`full_batch_step_check`.  With ``pred='nn'``
+    also :func:`serve_nn_run`.  Returns the phase's launch counts."""
+    phase = "train_full_batch" + ("_nn" if pred == "nn" else "")
+    data = bench_data(num_users, num_items)
+    g = data.graph
+    kw = full_batch_kwargs(g, pred, hidden, out)
+    cfg = FullBatchConfig(num_epochs=epochs, eval_every=eval_every, k=k)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    bought = data.train_pairs[BUYS]
+    model = ConvModel(**kw).to(dev)
+    init_model(model, seed=cfg.seed)  # train_full_batch's own initial weights
+    h = compute_embeddings(model, g, feats, device=dev)
+    random_recall = get_metrics_at_k(h["user"], h["item"], data.test_ground_truth, bought, k,
+                                     score_fn=model_score_fn(pred, model), device=dev)[1]
+    positives = sum(len(u) for u, _ in data.train_pairs.values())
+    report = {"users": num_users, "items": num_items, "hidden": hidden, "out": out,
+              "positives_per_step": positives,
+              "negative_pairs_per_step": positives * cfg.neg_sample_size,
+              "random_weights_recall": random_recall,
+              "popularity_recall": popularity_recall(data, k)}
+
+    # The main path, through the entry point: counters from 0, read right
+    # after; each step between CUDA events (the step function wrapped).
+    events = []
+    make_step = full_batch.make_full_batch_step
+
+    def timed_steps(*args):
+        step = make_step(*args)
+
+        def run(*step_args):
+            if dev.type == "cuda":
+                events.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+                events[-1][0].record()
+            result = step(*step_args)
+            if dev.type == "cuda":
+                events[-1][1].record()
+            return result
+        return run
+
+    tm.reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    full_batch.make_full_batch_step = timed_steps
+    try:
+        t0 = time.perf_counter()
+        state, hist = train_full_batch(model, g, g, feats, data.train_pairs,
+                                       data.test_ground_truth, cfg, already_bought=bought,
+                                       device=dev)
+        sync(dev)
+        report["train_s"] = time.perf_counter() - t0
+    finally:
+        full_batch.make_full_batch_step = make_step
+    launches = {"mips_topk": tm.mips_topk.launches}
+    report.update(epochs=len(hist["loss"]), loss=hist["loss"], recall=hist["recall"],
+                  precision=hist["precision"], coverage=hist["coverage"],
+                  epoch_host_ms_median=1e3 * float(np.median(hist["epoch_time"])),
+                  launches=launches)
+    if events:
+        epoch_ms = [a.elapsed_time(b) for a, b in events]
+        report.update(epoch_ms_median=float(np.median(epoch_ms)),
+                      epoch_ms_min=float(np.min(epoch_ms)), epoch_ms_max=float(np.max(epoch_ms)),
+                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    losses = np.asarray(hist["loss"])
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss is not finite or does not fall: {losses}")
+    if not hist["recall"][-1] > random_recall:
+        raise AssertionError(f"{phase}: trained recall@{k} {hist['recall'][-1]} <= random "
+                             f"weights' {random_recall}")
+    if on_card and pred == "cos" and not launches["mips_topk"]:
+        raise AssertionError(f"{phase}: the cosine evaluation never launched mips_topk")
+    if on_card:
+        step = make_step(model, cfg, tuple(data.train_pairs))
+        inputs = full_batch_inputs(g, g, feats, data.train_pairs, dev)
+        draws = Draws(torch.Generator(device=dev).manual_seed(7))
+        report["profile"] = profile_steps(lambda: step(state, *inputs, draws), n=profile_epochs)
+    report["step_card_vs_cpu"] = full_batch_step_check(dev, pred, hidden, out, check_size, cfg)
+    if pred == "nn":
+        report["serve"] = serve_nn_run(dev, data, model, kw, serve_users, k)
+    say(phase, **report)
+    return launches
+
+
 # Kernel-name patterns of the step breakdown, first match wins.
 KERNEL_GROUPS = (
     ("gather_mean_fwd", ("gather_mean_fwd",)),
@@ -1693,10 +1924,15 @@ def main() -> int:
         for name in GATHER_KERNELS:
             into.update({f"{name}{tag}:{label}": run_tap.launches[name][shape]
                          for shape, label in labels.items()})
+    # The full-batch trainer (BASELINE config[0]) with each scoring head.
+    full_batch_launches = phase_train_full_batch(dev, "cos")
+    phase_train_full_batch(dev, "nn", num_users=5_000, num_items=1_500, epochs=20)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:
             row["graph_launches"] = graph_launches[row["name"]]
+        if row["name"] in full_batch_launches:
+            row["full_batch_launches"] = full_batch_launches[row["name"]]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -112,7 +112,7 @@ def inference_ondemand(
     recs = get_recs(
         h["user"], h["item"], user_node_ids, k,
         already_bought=already, remove_already_bought=remove_already_bought,
-        score_fn=model_score_fn(model.pred), popularity=popularity,
+        score_fn=model_score_fn(model.pred, model), popularity=popularity,
         weight_popularity=weight_popularity, backend="auto", device=dev,
     ).cpu().numpy()
     if pdt_id_df is not None and ctm_id_df is not None:

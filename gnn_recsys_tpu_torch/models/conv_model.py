@@ -3,12 +3,14 @@
 Port of ``ConvModel`` (``gnn_recsys_tpu/models/conv_model.py``): an
 optional per-ntype embedding Linear, a stack of per-etype
 :class:`ConvLayer`\\ s with a cross-etype reduction (``sum``, ``mean`` or
-``max``), and the cosine predictor.  ``get_repr`` runs the whole graph
-layer by layer; ``sampled_repr`` / ``minibatch_forward`` expand static-shape
+``max``), and the cosine or MLP predictor (``pred='cos'`` / ``'nn'``).
+``get_repr`` runs the whole graph layer by layer (``forward``: every
+node's embedding; ``full_pass``: the JAX ``__call__``, embeddings and the
+scores of given pairs); ``sampled_repr`` / ``minibatch_forward`` expand static-shape
 sampled trees of global node ids (one independent sample per occurrence,
 the JAX package's ``dedup=False`` tree) or, with ``dedup=True``, the dedup'd
 block forward (each level's unique nodes computed once).  Not ported yet
-(ROADMAP.md): ``pred="nn"``, ``remat_levels`` and the sharded hooks
+(ROADMAP.md): ``remat_levels`` and the sharded hooks
 (``feature_lookup``, ``neighbor_sample``).
 
 Layer-count rules as in the reference: ``n_layers`` counts the embedding
@@ -32,12 +34,13 @@ from gnn_recsys_tpu_torch.models.layers import (
     AGGREGATOR_TYPES,
     ConvLayer,
     NodeEmbedding,
+    PredictingLayer,
     dense,
     l2_normalize,
 )
 from gnn_recsys_tpu_torch.ops.cuda.gather_mean import SlotTranspose, gather_mean
 from gnn_recsys_tpu_torch.ops.cuda.leaf_agg import leaf_kernel_supported, leaf_mean_nn
-from gnn_recsys_tpu_torch.ops.message import coo_segment_max, coo_segment_mean
+from gnn_recsys_tpu_torch.ops.message import coo_segment_max, coo_segment_mean, edge_dot
 from gnn_recsys_tpu_torch.ops.sampling import (
     UniquePlan,
     exclusion_table,
@@ -116,8 +119,6 @@ class ConvModel(nn.Module):
             raise KeyError(f"Prediction function {pred} not recognized.")
         if aggregator_hetero not in ("sum", "mean", "max"):
             raise KeyError(f"Cross-etype aggregator {aggregator_hetero} not recognized.")
-        if pred == "nn":
-            raise NotImplementedError("pred='nn' (the MLP head) is not ported yet (ROADMAP.md)")
         if remat_levels:
             raise NotImplementedError("remat_levels is not ported yet (ROADMAP.md)")
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -163,6 +164,8 @@ class ConvModel(nn.Module):
         for _ in range(n_layers - 2):
             self.layers.append(conv_dict(len(self.layers), hidden_dims, dim["hidden"]))
         self.layers.append(conv_dict(len(self.layers), hidden_dims, dim["out"]))
+        if pred == "nn":  # the MLP head on concat(u, i)
+            self.pred_layer = PredictingLayer(2 * dim["out"], dtype=dtype)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -239,8 +242,19 @@ class ConvModel(nn.Module):
 
     def forward(self, graph: HeteroGraph,
                 features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Embeddings of every node: feature projection, then all conv layers."""
+        """Embeddings of every node: feature projection, then all conv layers.
+        (The JAX model's ``__call__`` also scores pairs: :meth:`full_pass`.)"""
         return self.get_repr(graph, self.embed_features(features))
+
+    def full_pass(self, graph: HeteroGraph, features: Dict[str, torch.Tensor],
+                  pos_pairs: PairDict, neg_pairs: PairDict):
+        """The full-batch pass, the JAX model's ``__call__``
+        (``conv_model.py:1190-1204``; reference ``ConvModel.forward``,
+        src/model.py:423-470): embed, every conv layer over the whole graph,
+        then the scores of the positive and negative pairs.  Returns (h,
+        pos_score, neg_score).  Dropout follows ``self.training``."""
+        h = self(graph, features)
+        return h, self.score_pairs(h, pos_pairs), self.score_pairs(h, neg_pairs)
 
     # ------------------------------------------------------------------
     # Sampled-tree minibatch forward
@@ -582,8 +596,30 @@ class ConvModel(nn.Module):
     # Scoring
     # ------------------------------------------------------------------
     def score_emb_pairs(self, emb_u: torch.Tensor, emb_v: torch.Tensor) -> torch.Tensor:
-        """Cosine score of embedding pairs on the last axis (broadcasting)."""
-        return (l2_normalize(emb_u) * l2_normalize(emb_v)).sum(dim=-1).float()
+        """Scores of embedding pairs on the last axis, shapes broadcast
+        (``conv_model.py:1045-1062``): cosine, or the MLP head on the concat
+        (reference src/model.py:317-327, 275-305).  f32."""
+        if self.pred == "cos":
+            return (l2_normalize(emb_u) * l2_normalize(emb_v)).sum(dim=-1).float()
+        u, v = torch.broadcast_tensors(emb_u, emb_v)
+        return self.pred_layer(torch.cat([u, v], dim=-1))[..., 0].float()
+
+    def score_pairs(self, h: Dict[str, torch.Tensor], pairs: PairDict) -> Dict:
+        """Scores of (src, dst) node-id pairs per etype (``conv_model.py:1159-1188``):
+        cosine as ``edge_dot`` of the L2-normalised tables, or the MLP head on
+        the gathered concat.  Id tensors may have any shape; the f32 scores
+        keep it."""
+        out = {}
+        for etype, (src_ids, dst_ids) in pairs.items():
+            hu, hv = h[etype[0]], h[etype[2]]
+            src, dst = src_ids.reshape(-1), dst_ids.reshape(-1)
+            if self.pred == "cos":
+                scores = edge_dot(l2_normalize(hu), l2_normalize(hv), src, dst)
+            else:
+                x = torch.cat([_take_rows(hu, src), _take_rows(hv, dst)], dim=-1)
+                scores = self.pred_layer(x).reshape(-1)
+            out[etype] = scores.reshape(src_ids.shape).float()
+        return out
 
     def minibatch_forward(self, graph: HeteroGraph, features: Dict[str, torch.Tensor],
                           batch: PairDict, neg_pool: torch.Tensor,
@@ -610,18 +646,21 @@ class ConvModel(nn.Module):
         offsets = [0]
         for p in pos_us:
             offsets.append(offsets[-1] + p.shape[0])
-        pool_norm = l2_normalize(reprs["item"][offsets[-1]:])
+        pool_emb = reprs["item"][offsets[-1]:]
+        pool_norm = l2_normalize(pool_emb) if self.pred == "cos" else None
         pos_scores, neg_scores, neg_dsts = {}, {}, {}
         for j, et in enumerate(etypes):
             lo, hi = offsets[j], offsets[j + 1]
             ue, ie = reprs["user"][lo:hi], reprs["item"][lo:hi]
             pos_scores[et] = self.score_emb_pairs(ue, ie)
-            scores = (l2_normalize(ue) @ pool_norm.T).float()  # [B, P]
             idx = neg_idx[et]
-            if idx is None:
-                neg_scores[et] = scores
-                neg_dsts[et] = neg_pool[None, :].expand(hi - lo, -1)
+            if self.pred == "cos":
+                scores = (l2_normalize(ue) @ pool_norm.T).float()  # [B, P]
+                neg_scores[et] = scores if idx is None else scores.gather(1, idx.long())
+            elif idx is None:  # the MLP head on every (positive, pool item)
+                neg_scores[et] = self.score_emb_pairs(ue[:, None, :], pool_emb[None, :, :])
             else:
-                neg_scores[et] = scores.gather(1, idx.long())
-                neg_dsts[et] = neg_pool[idx.long()]
+                neg_scores[et] = self.score_emb_pairs(ue[:, None, :], _take_rows(pool_emb, idx))
+            neg_dsts[et] = (neg_pool[None, :].expand(hi - lo, -1) if idx is None
+                            else neg_pool[idx.long()])
         return pos_scores, neg_scores, neg_dsts

@@ -43,6 +43,7 @@ AGGREGATOR_TYPES = (
 _PREAGG = ("mean_nn", "mean_nn_edge", "pool_nn", "pool_nn_edge")
 
 RELU_GAIN = math.sqrt(2.0)
+SIGMOID_GAIN = 1.0
 
 
 def xavier_uniform_relu_(weight: torch.Tensor,
@@ -156,6 +157,31 @@ class ConvLayer(nn.Module):
             z_norm = row_norm(z)
             z = z / torch.where(z_norm == 0.0, torch.ones_like(z_norm), z_norm)
         return z
+
+
+class PredictingLayer(nn.Module):
+    """The MLP scoring head of ``pred='nn'`` (``layers.py:211-229``;
+    reference ``src/model.py:240-272``): concat(u, i) -> Dense 128 -> ReLU ->
+    Dense 32 -> ReLU -> Dense 1 -> sigmoid, in the model's computation
+    dtype.  ``in_feats`` is the concat's width (twice the embedding's)."""
+
+    def __init__(self, in_feats: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.hidden_1 = nn.Linear(in_feats, 128)
+        self.hidden_2 = nn.Linear(128, 32)
+        self.output = nn.Linear(32, 1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for lin, gain in ((self.hidden_1, RELU_GAIN), (self.hidden_2, RELU_GAIN),
+                          (self.output, SIGMOID_GAIN)):
+            nn.init.xavier_uniform_(lin.weight, gain=gain, generator=generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(dense(self.hidden_1, x, self.dtype))
+        x = torch.relu(dense(self.hidden_2, x, self.dtype))
+        return torch.sigmoid(dense(self.output, x, self.dtype))
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

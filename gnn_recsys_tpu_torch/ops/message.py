@@ -7,7 +7,8 @@ layouts, same semantics:
 * ``coo_segment_*`` — scatter-reduce over the COO edge list
   (``index_add_`` / ``scatter_reduce_``), for full-graph passes.
 * ``csc_gather_mean`` — gather + masked mean over the padded neighbour table
-  (without edge weights: the gather-mean kernel, ``ops/cuda/gather_mean.py``).
+  (without edge weights: the gather-mean kernel, ``ops/cuda/gather_mean.py``);
+  ``csc_gather_max`` — the masked max over the same table.
 
 DGL semantics: ``mean`` divides by the number of incoming messages and a
 zero-degree destination gets zeros; ``max`` over no messages gives zeros;
@@ -107,8 +108,25 @@ def csc_gather_mean(
     return total / mask.sum(dim=1).clamp(min=1.0)[:, None]
 
 
+def csc_gather_max(
+    h_src: torch.Tensor,
+    nbr: torch.Tensor,
+    nbr_mask: torch.Tensor,
+    nbr_eid: Optional[torch.Tensor] = None,
+    edge_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Masked max over the padded neighbour axis (``message.py:108-120``);
+    a row with no valid slot gives zeros.  h_src: [N_src, D]; nbr/nbr_mask:
+    [N_dst, K]; padding ids (-1) and ids >= N_src are clipped into range."""
+    msgs = _gather_msgs(h_src, nbr, nbr_eid, edge_weight)
+    out = msgs.masked_fill(~nbr_mask.bool()[..., None], float("-inf")).amax(dim=1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+
+
 def edge_dot(h_u: torch.Tensor, h_v: torch.Tensor, src: torch.Tensor,
              dst: torch.Tensor) -> torch.Tensor:
     """Per-edge dot product of endpoint representations (DGL ``u_dot_v``).
-    Returns [E]."""
-    return (h_u[src.long()] * h_v[dst.long()]).sum(dim=-1)
+    Returns [E].  The rows are taken with ``index_select``, whose backward
+    is an ``index_add_``: advanced indexing's backward sorts the indices
+    first (PERF.md)."""
+    return (h_u.index_select(0, src.long()) * h_v.index_select(0, dst.long())).sum(dim=-1)

@@ -1,9 +1,10 @@
 """Batched full-catalog top-k retrieval.
 
 Port of ``gnn_recsys_tpu/retrieval/recs.py``.  Scores are cosine
-similarities of L2-normalized embeddings, with the optional popularity boost
-``softmax(ratings) + w * popularity`` per row (reference
-``src/metrics.py:69-72``).  Backends:
+similarities of L2-normalized embeddings, or a custom score function (the
+MLP head of a ``pred='nn'`` model, :func:`make_mlp_score_fn`), with the
+optional popularity boost ``softmax(ratings) + w * popularity`` per row
+(reference ``src/metrics.py:69-72``).  Backends:
 
 * ``torch`` (the JAX ``xla`` route): user chunks, one full-f32 ``[C, I]``
   product each (no TF32), then a tie-stable top-k.
@@ -24,10 +25,11 @@ equal to the reference's filter-after-ranking:
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from gnn_recsys_tpu_torch.models.layers import l2_normalize
 from gnn_recsys_tpu_torch.ops.cuda.topk_mips import (
@@ -56,11 +58,47 @@ def cosine_score_fn(u_chunk: torch.Tensor, item_emb: torch.Tensor) -> torch.Tens
         return l2_normalize(u_chunk) @ l2_normalize(item_emb).T
 
 
-def model_score_fn(pred: str) -> Optional[ScoreFn]:
-    """Retrieval score function for the model's predictor: ``None`` (the
-    cosine path) for ``pred='cos'``."""
+def make_mlp_score_fn(params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                      item_tile: int = 512) -> ScoreFn:
+    """Full-catalog scores of the trained MLP head (``pred='nn'``;
+    ``recs.py:68-115``, reference ``src/metrics.py:61-63``).
+
+    The first Dense on ``concat(u, i)`` factorises exactly: ``concat(u, i)
+    @ W1 = u @ W1[:D] + i @ W1[D:]``, so the item half is one ``[I, 128]``
+    product shared by every user chunk, and only the ``[C, T, 128]``
+    broadcast add and the 128 -> 32 -> 1 towers run per item tile of ``T =
+    item_tile`` items.  ``params``: a ``pred='nn'`` model or its state_dict.
+    Products in full f32.  Returns a ``ScoreFn`` for :func:`get_recs`
+    (``torch`` route)."""
+    sd = params.state_dict() if isinstance(params, nn.Module) else params
+    w1, b1, w2, b2, w3, b3 = (sd[f"pred_layer.{lin}.{leaf}"].detach().float()
+                              for lin in ("hidden_1", "hidden_2", "output")
+                              for leaf in ("weight", "bias"))
+
+    def score_fn(u_chunk: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
+        dev, d = u_chunk.device, u_chunk.shape[-1]
+        w1d, b1d, w2d, b2d, w3d, b3d = (t.to(dev) for t in (w1, b1, w2, b2, w3, b3))
+        with full_f32_matmul():
+            uh = u_chunk @ w1d[:, :d].T + b1d  # [C, 128]
+            ih = item_emb @ w1d[:, d:].T  # [I, 128]
+            tiles = []
+            for lo in range(0, ih.shape[0], item_tile):
+                h = torch.relu(uh[:, None, :] + ih[None, lo:lo + item_tile, :])  # [C, T, 128]
+                h = torch.relu(h @ w2d.T + b2d)  # [C, T, 32]
+                tiles.append(torch.sigmoid(h @ w3d.T + b3d)[..., 0])
+        return torch.cat(tiles, dim=1).float()
+
+    return score_fn
+
+
+def model_score_fn(pred: str, params) -> Optional[ScoreFn]:
+    """Retrieval score function of the model's trained predictor
+    (``recs.py:117-128``): ``None`` (the cosine path) for ``pred='cos'``,
+    the factorised MLP head of ``params`` (a model or its state_dict) for
+    ``pred='nn'``, so that retrieval ranks with the function training
+    optimised."""
     if pred == "nn":
-        raise NotImplementedError("the MLP head (pred='nn') is not ported yet (ROADMAP.md)")
+        return make_mlp_score_fn(params)
     return None
 
 

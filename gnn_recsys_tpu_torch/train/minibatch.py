@@ -601,7 +601,7 @@ def train_minibatch(
                 epoch % cfg.metrics_every == 1:
             h = infer_embeddings(model, graph, feats, mode=cfg.inference_mode,
                                  ntypes=("user", "item"), device=dev)
-            score_fn = model_score_fn(model.pred)
+            score_fn = model_score_fn(model.pred, model)
             precision, recall, coverage = get_metrics_at_k(
                 h["user"], h["item"], test_ground_truth, already_bought, cfg.k,
                 score_fn=score_fn, device=dev)

@@ -121,6 +121,31 @@ def test_train_graph_bf16_rehearsal(data, dedup):
     assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
 
 
+@pytest.mark.parametrize("pred", ["cos", "nn"])
+def test_train_full_batch_rehearsal(pred):
+    """Phases 11 and 12: the full-batch trainer with each head, the card's
+    step against the CPU's (here the CPU twice: the same bits) and, for the
+    MLP head, a saved run served and held against the CPU request."""
+    launches = chip_smoke.phase_train_full_batch(
+        torch.device("cpu"), pred, num_users=300, num_items=120, hidden=32, out=16, epochs=20,
+        check_size=(300, 120), serve_users=16, on_card=False)
+    assert launches == {"mips_topk": 0}
+
+
+def test_popularity_recall_matches_the_jax_gates_baseline():
+    """``popularity_recall`` is the JAX package's gate baseline
+    (``tests/test_e2e_fullbatch.py``) computed with the port's metrics."""
+    from test_e2e_fullbatch import popularity_baseline_recall
+
+    from gnn_recsys_tpu.utils.synthetic import make_synthetic_data as jmake
+
+    kw = dict(num_users=120, num_items=60, num_groups=4, interactions_per_user=10,
+              test_per_user=3, feat_dim=8, with_clicks=True, seed=0)
+    want = popularity_baseline_recall(jmake(**kw), k=10)
+    got = chip_smoke.popularity_recall(chip_smoke.make_synthetic_data(**kw), k=10)
+    assert got == pytest.approx(want, rel=1e-6)
+
+
 def test_per_call_ms_survives_lost_records():
     """Each kernel's mean recorded duration times its launches a call: 17 of
     20 records of a one-launch kernel and 37 of 40 of a two-launch one."""

@@ -50,6 +50,24 @@ def test_csc_gather_mean_matches_jax(weighted):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csc_gather_max_matches_jax(weighted):
+    """Padding slots (-1), valid slots holding ids >= N_src (clipped), edge
+    weights, and a row with no valid slot (zeros)."""
+    h, src, dst, w, n_dst = _inputs(seed=4)
+    h = h - 3.0  # all-negative messages: a masked slot must not win as 0
+    nbr, nbr_eid, nbr_mask, _ = coo_to_padded_csc(src, dst, n_dst)
+    nbr = np.where(nbr_mask, nbr, -1).astype(np.int32)
+    nbr[0, 0] = h.shape[0] + 5  # clipped to the last row
+    nbr_mask[1] = False  # no valid slot
+    jargs = [jnp.asarray(a) for a in (h, nbr, nbr_mask, nbr_eid)]
+    targs = [torch.from_numpy(a) for a in (h, nbr, nbr_mask, nbr_eid)]
+    ref = jmsg.csc_gather_max(*jargs, jnp.asarray(w) if weighted else None)
+    out = tmsg.csc_gather_max(*targs, torch.from_numpy(w) if weighted else None)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert (out[1] == 0).all() and (out[3] == 0).all() and (out[0] < 0).all()
+
+
 def test_edge_dot_matches_jax():
     rng = np.random.default_rng(2)
     hu = rng.normal(size=(20, 16)).astype(np.float32)
@@ -59,6 +77,25 @@ def test_edge_dot_matches_jax():
     ref = jmsg.edge_dot(*(jnp.asarray(a) for a in (hu, hv, s, d)))
     out = tmsg.edge_dot(*(torch.from_numpy(a) for a in (hu, hv, s, d)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+def test_edge_dot_gathers_like_advanced_indexing():
+    """``edge_dot`` takes rows with ``index_select``: its values and its
+    gradients with respect to both tables equal those of ``h[ids]``, bit for
+    bit."""
+    rng = np.random.default_rng(3)
+    tables = [torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32)).requires_grad_()
+              for n in (20, 30)]
+    s = torch.from_numpy(rng.integers(0, 20, 90).astype(np.int32))
+    d = torch.from_numpy(rng.integers(0, 30, 90).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=90).astype(np.float32))
+    out = tmsg.edge_dot(*tables, s, d)
+    grads = torch.autograd.grad(out, tables, g)
+    ref = (tables[0][s.long()] * tables[1][d.long()]).sum(dim=-1)
+    ref_grads = torch.autograd.grad(ref, tables, g)
+    assert torch.equal(out, ref)
+    for a, b in zip(grads, ref_grads):  # on the CPU both add in index order
+        assert torch.equal(a, b)
 
 
 def test_pair_set_contains_and_row_mask_match_jax():

@@ -56,12 +56,12 @@ DATA_KW = dict(num_users=40, num_items=30, num_groups=4, interactions_per_user=5
                test_per_user=1, feat_dim=8, with_clicks=True, seed=2)
 
 
-def _pair(agg, leaf_kernel=False):
+def _pair(agg, leaf_kernel=False, pred="cos"):
     """The same graph, model and parameters in both packages."""
     jd, td = jmake(**DATA_KW), make_synthetic_data(**DATA_KW)
     kw = dict(canonical_etypes=jd.graph.canonical_etypes,
               dims=(("user", 8), ("item", 8), ("hidden", 16), ("out", 8)),
-              n_layers=3, aggregator_type=agg, leaf_kernel=leaf_kernel)
+              n_layers=3, aggregator_type=agg, leaf_kernel=leaf_kernel, pred=pred)
     jm, tm = JConvModel(**kw), ConvModel(**kw)
     jfeats = {nt: jd.graph.ndata[nt]["features"] for nt in jd.graph.ntypes}
     tfeats = {nt: td.graph.ndata[nt]["features"] for nt in td.graph.ntypes}
@@ -192,11 +192,30 @@ def _batch(train_pairs, n=16):
 def test_dense_pool_step_matches_jax(monkeypatch, kernels):
     """One full training step (dense pool, batch-edge exclusion, false-negative
     mask, max-margin loss, Adam) from the same parameters, pool and draws."""
-    jd, td, jm, tm, jfeats, tfeats, params = _pair("mean_nn", leaf_kernel=kernels)
+    check_step_against_jax(monkeypatch, _pair("mean_nn", leaf_kernel=kernels),
+                           dict(edge_batch_size=32, fanouts=(3, 3), neg_mode="dense_pool",
+                                neg_pool_size=24, neg_sample_size=24,
+                                pool_mask_kernel=kernels))
+
+
+@pytest.mark.parametrize("neg_mode", ["dense_pool", "shared_pool"])
+def test_nn_head_step_matches_jax(monkeypatch, neg_mode):
+    """The same step with the MLP head (``pred='nn'``): on the dense pool's
+    every (positive, pool item) pair, or on the picked pool rows."""
+    check_step_against_jax(monkeypatch, _pair("mean_nn", pred="nn"),
+                           dict(edge_batch_size=32, fanouts=(3, 3), neg_mode=neg_mode,
+                                neg_pool_size=24,
+                                neg_sample_size=24 if neg_mode == "dense_pool" else 5),
+                           head=True)
+
+
+def check_step_against_jax(monkeypatch, pair, cfg_kw, head=False):
+    """One step of JAX's ``make_minibatch_step`` (un-jitted, its draws
+    recorded) and of the port's from the same parameters: loss, gradients
+    and the parameters after the update."""
+    jd, td, jm, tm, jfeats, tfeats, params = pair
     etypes = tuple(jd.train_pairs)
     has_reverse = {et: True for et in etypes}
-    cfg_kw = dict(edge_batch_size=32, fanouts=(3, 3), neg_mode="dense_pool",
-                  neg_pool_size=24, neg_sample_size=24, pool_mask_kernel=kernels)
     jbatch, tbatch = _batch(jd.train_pairs)
     jtables = {et: jbuild_pairs(u, i, num_src=40) for et, (u, i) in jd.train_pairs.items()}
     ttables = {et: build_padded_pair_set(u, i, num_src=40)
@@ -226,6 +245,7 @@ def test_dense_pool_step_matches_jax(monkeypatch, kernels):
 
     jgrads = params_from_jax(jax.tree.map(np.asarray, captured["grads"]))
     jnew = params_from_jax(jax.tree.map(np.asarray, jstate.params))
+    assert head == any(name.startswith("pred_layer.") for name in jgrads)
     for name, p in tm.named_parameters():
         g = p.grad.numpy() if p.grad is not None else np.zeros(tuple(p.shape), np.float32)
         np.testing.assert_allclose(g, jgrads[name].numpy(), rtol=GRAD_RTOL, atol=GRAD_ATOL,

@@ -24,11 +24,11 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _pair(agg, hetero, n_layers, emb, seed=0):
+def _pair(agg, hetero, n_layers, emb, seed=0, pred="cos"):
     jd = jmake(num_users=50, num_items=30, seed=seed)
     td = make_synthetic_data(num_users=50, num_items=30, seed=seed)
     kw = dict(canonical_etypes=jd.graph.canonical_etypes, dims=DIMS, n_layers=n_layers,
-              aggregator_type=agg, aggregator_hetero=hetero, embedding_layer=emb)
+              aggregator_type=agg, aggregator_hetero=hetero, embedding_layer=emb, pred=pred)
     jm, tm = JConvModel(**kw), ConvModel(**kw)
     jfeats = {nt: jd.graph.ndata[nt]["features"] for nt in jd.graph.ntypes}
     params = init_model(jm, jd.graph, jfeats, seed=seed)
@@ -88,11 +88,31 @@ def test_own_init_mirrors_jax(agg, emb):
             assert np.abs(leaf).max() <= np.sqrt(2.0) * np.sqrt(6.0 / (fan_in + fan_out))
 
 
+def test_pred_layer_mirrors_jax():
+    """``ConvModel(pred='nn')`` builds ``pred_layer`` with JAX's tree and
+    shapes (concat(u, i) -> 128 -> 32 -> 1): xavier-uniform at gain sqrt(2)
+    for the hidden layers and 1 for the output, zero biases."""
+    jd, *_, params = _pair("mean", "sum", 3, True, pred="nn")
+    tree = jax.tree.map(np.asarray, params)["params"]["pred_layer"]
+    tm = ConvModel(jd.graph.canonical_etypes, DIMS, pred="nn",
+                   generator=torch.Generator().manual_seed(3))
+    mine = params_to_jax(tm.state_dict())["params"]["pred_layer"]
+    assert jax.tree.structure(mine) == jax.tree.structure(tree)
+    assert mine["hidden_1"]["kernel"].shape == (2 * 16, 128)
+    for lin, gain in (("hidden_1", np.sqrt(2.0)), ("hidden_2", np.sqrt(2.0)), ("output", 1.0)):
+        for leaf in ("kernel", "bias"):
+            assert mine[lin][leaf].shape == tree[lin][leaf].shape, (lin, leaf)
+        fan_in, fan_out = mine[lin]["kernel"].shape
+        limit = gain * np.sqrt(6.0 / (fan_in + fan_out))
+        assert 0.5 * limit < np.abs(mine[lin]["kernel"]).max() <= limit, lin
+        assert (mine[lin]["bias"] == 0).all()
+
+
 def test_unported_options_raise():
     et = (("user", "buys", "item"), ("item", "bought-by", "user"))
     with pytest.raises(NotImplementedError):
         ConvModel(et, DIMS, aggregator_type="lstm")
-    with pytest.raises(NotImplementedError):
-        ConvModel(et, DIMS, pred="nn")
     with pytest.raises(KeyError):
         ConvModel(et, DIMS, aggregator_type="bogus")
+    with pytest.raises(KeyError):
+        ConvModel(et, DIMS, pred="bogus")
