@@ -115,12 +115,17 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    graph at 10,000 users and 3,000 items: ``FullBatchConfig`` defaults (63
    uniform negatives a positive, false negatives masked, delta 0.266, lr
    1e-3), 30 epochs, evaluating every 10 (recall@10 through ``mips_topk``).
-   Each epoch's step time (CUDA events), peak memory, the loss curve (it
-   must fall), recall@10 (it must beat the random weights') beside the
+   Each epoch's step time (the trainer's own), peak memory, the loss curve
+   (it must fall), recall@10 (it must beat the random weights') beside the
    popularity baseline's, the ``mips_topk`` launches of the phase (they must
-   be more than 0), 3 epochs under ``torch.profiler``; then one step on the
-   card against the same step on the CPU at 500 users, from one state with
-   the card's negatives replayed (``full_batch_step_check``).
+   be more than 0); the trained model's evaluation recs ranked through
+   ``mips_topk`` and through the torch route, which must agree but at
+   near-ties (``eval_routes_check``); 3 steps between CUDA events and 3
+   under ``torch.profiler``; then one step on the card against the same
+   step on the CPU at 500 users, from one state with the card's negatives
+   replayed: loss, gradients and update; the card's gradients also against
+   the same step in f64 on the CPU, and the card's step run twice
+   (``full_batch_step_check``).
 12. train_full_batch_nn: the same with the MLP head (``pred='nn'``) at 5,000
    users and 1,500 items, 20 epochs; then the trained model is saved with
    ``save_run`` and serves one ``inference_ondemand`` request for 128 users
@@ -164,7 +169,6 @@ from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, scatter_r
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k, recs_to_metrics
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs, make_mlp_score_fn, model_score_fn
-from gnn_recsys_tpu_torch.train import full_batch
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config, save_run
 from gnn_recsys_tpu_torch.train.full_batch import (
     FullBatchConfig,
@@ -209,6 +213,13 @@ BF16_ROUTE_GRAD_REL, ABOVE_GAP, UPDATE_REL = 3e-2, 20.0, 0.25
 # One step, kernel route against plain route: the CPU tests' tolerances
 # (tests/test_torch_minibatch.py).
 LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+# A full-batch step's gradients relative to each parameter's largest entry,
+# about four times the largest gaps measured on the H100 (PERF.md): card
+# against the CPU's f32 step within FULL_BATCH_GRAD_REL (0.0068 measured, the
+# nn model's first-layer weights, where the CPU's f32 step is as far from an
+# f64 step), card against the f64 step within FULL_BATCH_F64_GRAD_REL
+# (0.00075 measured, the MLP head's output bias).
+FULL_BATCH_GRAD_REL, FULL_BATCH_F64_GRAD_REL = 3e-2, 3e-3
 BUYS = ("user", "buys", "item")
 MIPS = ("gnn_recsys_tpu_torch/csrc/topk_mips.cu", "gnn_recsys_tpu/ops/pallas/topk_mips.py")
 LEAF = ("gnn_recsys_tpu_torch/csrc/leaf_agg.cu", "gnn_recsys_tpu/ops/pallas/leaf_agg.py")
@@ -954,15 +965,19 @@ def _assert_recs_valid(recs: dict, bought_rows: np.ndarray, num_items: int) -> N
         raise AssertionError("an already-bought item was recommended")
 
 
-def _assert_routes_agree(a: torch.Tensor, b: torch.Tensor, score) -> int:
+def _assert_routes_agree(a: torch.Tensor, b: torch.Tensor, score, gaps=None) -> int:
     """Kernel route ``a`` vs torch route ``b``: rows may differ only where
     the scores of the two lists agree within TOL (near-ties at the fetch
-    boundary).  Returns the number of differing rows."""
+    boundary).  Returns the number of differing rows; each such row's
+    largest score gap is appended to ``gaps`` when it is given."""
     diff = torch.nonzero((a != b).any(dim=1)).flatten()
     for r in diff.tolist():
         sa, sb = score(r, a[r]).sort().values, score(r, b[r]).sort().values
-        if not float((sa - sb).abs().max()) <= TOL:
+        gap = float((sa - sb).abs().max())
+        if not gap <= TOL:
             raise AssertionError(f"kernel and torch routes disagree for row {r}")
+        if gaps is not None:
+            gaps.append(gap)
     return int(diff.numel())
 
 
@@ -1658,50 +1673,96 @@ def full_batch_kwargs(graph, pred, hidden=256, out=128) -> dict:
     return dict(medium_kwargs(graph, hidden, out), aggregator_type="mean", pred=pred)
 
 
+def grad_gap(a: dict, b: dict) -> tuple:
+    """The largest ``|a - b|`` of any parameter's gradient relative to that
+    parameter's largest entry in ``b``, and the parameter."""
+    return max((float((a[n] - g).abs().max() / g.abs().max().clamp(min=1e-30)), n)
+               for n, g in b.items())
+
+
 def full_batch_step_check(dev, pred, hidden, out, size, cfg) -> dict:
     """One full-batch step on ``dev`` against the same step on the CPU, from
-    one state with the card's negatives replayed: the loss within LOSS_RTOL
-    and the parameters after Adam's update within 2e-6 where |g| > 1e-5 and
-    2 * lr elsewhere.  The gradients' largest gap, relative to each
-    parameter's largest entry, is reported: the card's ``index_add_`` adds
-    each row's thousands of pair gradients with atomics, in another order
-    than the CPU.  ``size``: the graph's (users, items)."""
+    one state with the card's negatives replayed: the loss within LOSS_RTOL,
+    the parameters after Adam's update within 2e-6 where |g| > 1e-5 and
+    2 * lr elsewhere, and the gradients within FULL_BATCH_GRAD_REL of each
+    parameter's largest entry.  Adam's first update moves a weight by about
+    lr * sign(g), so the gradients are held in their own right.  Two more
+    steps witness where the gap comes from: the step in f64 on the CPU,
+    which the card's gradients must meet within FULL_BATCH_F64_GRAD_REL (the
+    CPU's own f32 gap to it is reported), and the card's step run again (its
+    ``index_add_`` adds with atomics, in no fixed order).  ``size``: the
+    graph's (users, items)."""
     data = bench_data(*size)
     kw = full_batch_kwargs(data.graph, pred, hidden, out)
-    models = {"card": ConvModel(**kw), "cpu": ConvModel(**kw)}
-    init_model(models["cpu"], seed=1)
-    models["card"].load_state_dict(models["cpu"].state_dict())
+    first = ConvModel(**kw)
+    init_model(first, seed=1)
     recorded = Draws(torch.Generator(device=dev).manual_seed(3), record=True)
+    cpu = torch.device("cpu")
     results = {}
-    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        m = models[where].to(d)
-        draws = recorded if where == "card" else ReplayDraws(
-            [], [x.cpu() for x in recorded.randints])
+    for run, d, dtype in (("card", dev, torch.float32), ("card_again", dev, torch.float32),
+                          ("cpu", cpu, torch.float32), ("cpu_f64", cpu, torch.float64)):
+        m = ConvModel(**kw)
+        m.load_state_dict(first.state_dict())
+        m = m.to(d, dtype)
+        draws = recorded if run == "card" else ReplayDraws(
+            [], [x.to(d) for x in recorded.randints])
         step = make_full_batch_step(m, cfg, tuple(data.train_pairs))
+        feats = {nt: data.graph.ndata[nt]["features"].to(dtype) for nt in data.graph.ntypes}
         _, loss = step(TrainState.create(m, lr=cfg.lr),
-                       *full_batch_inputs(data.graph, data.graph,
-                                          {nt: data.graph.ndata[nt]["features"]
-                                           for nt in data.graph.ntypes},
-                                          data.train_pairs, d), draws)
-        results[where] = (float(loss), {n: (p.grad.cpu(), p.detach().cpu())
-                                     for n, p in m.named_parameters()})
-    (lc, card), (lp, cpu) = results["card"], results["cpu"]
+                       *full_batch_inputs(data.graph, data.graph, feats, data.train_pairs, d),
+                       draws)
+        results[run] = (float(loss), {n: p.grad.double().cpu() for n, p in m.named_parameters()},
+                        {n: p.detach().float().cpu() for n, p in m.named_parameters()})
+    (lc, card, card_p), (lp, cpu_g, cpu_p) = results["card"], results["cpu"]
     if not abs(lc - lp) <= LOSS_RTOL * abs(lp):
         raise AssertionError(f"full-batch step, card vs CPU: loss {lc} vs {lp}")
-    grad_gap, update_gap = (-1.0, ""), 0.0
-    for name, (g, p) in cpu.items():
-        gc, pc = card[name]
-        grad_gap = max(grad_gap, (float((gc - g).abs().max() / g.abs().max().clamp(min=1e-30)),
-                                  name))
-        gap = (pc - p).abs()
+    gaps = {"card_vs_cpu": grad_gap(card, cpu_g),
+            "card_vs_card_again": grad_gap(card, results["card_again"][1]),
+            "card_vs_cpu_f64": grad_gap(card, results["cpu_f64"][1]),
+            "cpu_vs_cpu_f64": grad_gap(cpu_g, results["cpu_f64"][1])}
+    for what, bound in (("card_vs_cpu", FULL_BATCH_GRAD_REL),
+                        ("card_vs_cpu_f64", FULL_BATCH_F64_GRAD_REL)):
+        if not gaps[what][0] <= bound:
+            raise AssertionError(f"full-batch step, {what}: gradients of {gaps[what][1]} "
+                                 f"apart by {gaps[what][0]} of the largest entry")
+    update_gap = 0.0
+    for name, g in cpu_g.items():
+        gap = (card_p[name] - cpu_p[name]).abs()
         big = g.abs() > 1e-5
         big_gap = float(gap[big].max()) if big.any() else 0.0
         if not (big_gap <= 2e-6 and float(gap.max()) <= 2 * cfg.lr):
             raise AssertionError(f"full-batch step, card vs CPU: {name} updated apart")
         update_gap = max(update_gap, big_gap)
     return {"users_items": list(size), "loss_card": lc, "loss_cpu": lp,
-            "grad_gap_of_largest": grad_gap[0], "grad_gap_parameter": grad_gap[1],
+            "loss_cpu_f64": results["cpu_f64"][0],
+            "grad_gap_of_largest": {w: v for w, (v, _) in gaps.items()},
+            "grad_gap_parameter": {w: n for w, (_, n) in gaps.items()},
             "update_gap_where_g_big": update_gap}
+
+
+def eval_routes_check(dev, model, graph, feats, data, k) -> dict:
+    """The trained model's recs as the full-batch evaluation ranks them
+    (``get_metrics_at_k``'s users, already-bought table and k), through
+    ``mips_topk`` and through the torch route on the same embeddings: rows
+    may differ only at near-ties (:func:`_assert_routes_agree`)."""
+    h = compute_embeddings(model, graph, feats, device=dev)
+    gt_u = np.asarray(data.test_ground_truth[0])
+    bu, bi = data.train_pairs[BUYS]
+    uids = torch.as_tensor(np.unique(gt_u), device=dev)
+    ps = build_padded_pair_set(bu, bi, num_src=max(h["user"].shape[0], int(np.max(bu)) + 1,
+                                                   int(gt_u.max()) + 1))
+    a, b = (get_recs(h["user"], h["item"], uids, k, already_bought=ps, backend=route,
+                     device=dev) for route in ("cuda", "torch"))
+    cos = dot_scores(l2_normalize(h["user"]), l2_normalize(h["item"]))
+
+    def score(r, items):
+        items = items[items >= 0]
+        return cos(uids[r].expand_as(items), items)
+
+    gaps = []
+    rows = _assert_routes_agree(a, b, score, gaps)
+    return {"users": int(uids.numel()), "k": k, "fetch": k + ps.max_row,
+            "rows_differing": rows, "max_score_gap": max(gaps, default=0.0)}
 
 
 def serve_nn_run(dev, data, model, kw, users, k) -> dict:
@@ -1757,11 +1818,14 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
     on the bench generator's graph at ``num_users`` / ``num_items``:
     ``FullBatchConfig`` defaults (63 negatives a positive, delta 0.266, lr
     1e-3), ``epochs`` epochs, evaluating every ``eval_every``.  Reports each
-    epoch's step time (CUDA events), peak memory, the loss curve, recall@k
-    beside the random weights' and the popularity baseline's, the launches
-    of ``mips_topk`` (cosine evaluation) and ``profile_epochs`` epochs under
-    ``torch.profiler``; then :func:`full_batch_step_check`.  With ``pred='nn'``
-    also :func:`serve_nn_run`.  Returns the phase's launch counts."""
+    epoch's step time (``train_full_batch``'s host clock, which ends in
+    reading the loss), peak memory, the loss curve, recall@k beside the
+    random weights' and the popularity baseline's and the launches of
+    ``mips_topk`` (cosine evaluation); with the cosine head,
+    :func:`eval_routes_check`; on the card, ``profile_epochs`` steps between
+    CUDA events and as many under ``torch.profiler``; then
+    :func:`full_batch_step_check`.  With ``pred='nn'`` also
+    :func:`serve_nn_run`.  Returns the phase's launch counts."""
     phase = "train_full_batch" + ("_nn" if pred == "nn" else "")
     data = bench_data(num_users, num_items)
     g = data.graph
@@ -1782,47 +1846,24 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
               "popularity_recall": popularity_recall(data, k)}
 
     # The main path, through the entry point: counters from 0, read right
-    # after; each step between CUDA events (the step function wrapped).
-    events = []
-    make_step = full_batch.make_full_batch_step
-
-    def timed_steps(*args):
-        step = make_step(*args)
-
-        def run(*step_args):
-            if dev.type == "cuda":
-                events.append((torch.cuda.Event(enable_timing=True),
-                               torch.cuda.Event(enable_timing=True)))
-                events[-1][0].record()
-            result = step(*step_args)
-            if dev.type == "cuda":
-                events[-1][1].record()
-            return result
-        return run
-
+    # after.  Each epoch's time is the trainer's own (host clock, up to
+    # reading the loss, which waits for the card).
     tm.reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    full_batch.make_full_batch_step = timed_steps
-    try:
-        t0 = time.perf_counter()
-        state, hist = train_full_batch(model, g, g, feats, data.train_pairs,
-                                       data.test_ground_truth, cfg, already_bought=bought,
-                                       device=dev)
-        sync(dev)
-        report["train_s"] = time.perf_counter() - t0
-    finally:
-        full_batch.make_full_batch_step = make_step
+    t0 = time.perf_counter()
+    state, hist = train_full_batch(model, g, g, feats, data.train_pairs, data.test_ground_truth,
+                                   cfg, already_bought=bought, device=dev)
+    sync(dev)
+    report["train_s"] = time.perf_counter() - t0
     launches = {"mips_topk": tm.mips_topk.launches}
+    epoch_ms = 1e3 * np.asarray(hist["epoch_time"])
     report.update(epochs=len(hist["loss"]), loss=hist["loss"], recall=hist["recall"],
                   precision=hist["precision"], coverage=hist["coverage"],
-                  epoch_host_ms_median=1e3 * float(np.median(hist["epoch_time"])),
-                  launches=launches)
-    if events:
-        epoch_ms = [a.elapsed_time(b) for a, b in events]
-        report.update(epoch_ms_median=float(np.median(epoch_ms)),
-                      epoch_ms_min=float(np.min(epoch_ms)), epoch_ms_max=float(np.max(epoch_ms)),
-                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+                  epoch_ms_median=float(np.median(epoch_ms)), epoch_ms_min=float(epoch_ms.min()),
+                  epoch_ms_max=float(epoch_ms.max()), launches=launches)
+    if dev.type == "cuda":
+        report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
     losses = np.asarray(hist["loss"])
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss is not finite or does not fall: {losses}")
@@ -1831,10 +1872,14 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
                              f"weights' {random_recall}")
     if on_card and pred == "cos" and not launches["mips_topk"]:
         raise AssertionError(f"{phase}: the cosine evaluation never launched mips_topk")
+    if pred == "cos":
+        report["eval_routes"] = eval_routes_check(dev, model, g, feats, data, k)
     if on_card:
-        step = make_step(model, cfg, tuple(data.train_pairs))
+        step = make_full_batch_step(model, cfg, tuple(data.train_pairs))
         inputs = full_batch_inputs(g, g, feats, data.train_pairs, dev)
         draws = Draws(torch.Generator(device=dev).manual_seed(7))
+        report["step_ms_events"] = event_step_ms(lambda: step(state, *inputs, draws),
+                                                 n=profile_epochs)
         report["profile"] = profile_steps(lambda: step(state, *inputs, draws), n=profile_epochs)
     report["step_card_vs_cpu"] = full_batch_step_check(dev, pred, hidden, out, check_size, cfg)
     if pred == "nn":
@@ -1854,6 +1899,21 @@ KERNEL_GROUPS = (
     ("reductions", ("reduce", "Reduce")),
     ("elementwise", ("elementwise", "vectorized", "Elementwise", "unrolled")),
 )
+
+
+def event_step_ms(run_step, n) -> list:
+    """Device milliseconds of each of ``n`` steps, between CUDA events."""
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    if not all(t > 0 for t in times):
+        raise AssertionError(f"a step between CUDA events took no time: {times}")
+    return times
 
 
 def profile_steps(run_step, n=5, top_n=8) -> dict:

@@ -2,6 +2,8 @@
 on CPU tensors, where every wrapper takes its plain version (so there are no
 timings and no launches to count)."""
 
+import json
+
 import pytest
 import torch
 from test_torch_minibatch import one_torch_thread  # noqa: F401 (autouse)
@@ -122,14 +124,28 @@ def test_train_graph_bf16_rehearsal(data, dedup):
 
 
 @pytest.mark.parametrize("pred", ["cos", "nn"])
-def test_train_full_batch_rehearsal(pred):
+def test_train_full_batch_rehearsal(pred, capsys):
     """Phases 11 and 12: the full-batch trainer with each head, the card's
-    step against the CPU's (here the CPU twice: the same bits) and, for the
-    MLP head, a saved run served and held against the CPU request."""
+    step against the CPU's (here the CPU twice: the same bits; the f64
+    witness within the bound), the cosine evaluation's recs through both
+    routes and, for the MLP head, a saved run served and held against the
+    CPU request."""
     launches = chip_smoke.phase_train_full_batch(
         torch.device("cpu"), pred, num_users=300, num_items=120, hidden=32, out=16, epochs=20,
         check_size=(300, 120), serve_users=16, on_card=False)
     assert launches == {"mips_topk": 0}
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["phase"] == "train_full_batch" + ("_nn" if pred == "nn" else "")
+    assert len(report["loss"]) == 20 and report["epoch_ms_min"] <= report["epoch_ms_median"]
+    gaps = report["step_card_vs_cpu"]["grad_gap_of_largest"]
+    assert gaps["card_vs_cpu"] == gaps["card_vs_card_again"] == 0.0
+    assert 0.0 < gaps["cpu_vs_cpu_f64"] == gaps["card_vs_cpu_f64"]
+    assert gaps["card_vs_cpu_f64"] <= chip_smoke.FULL_BATCH_F64_GRAD_REL
+    if pred == "cos":
+        routes = report["eval_routes"]
+        assert routes["users"] > 0 and routes["max_score_gap"] <= chip_smoke.TOL
+    else:
+        assert "eval_routes" not in report and report["serve"]["users"] == 16
 
 
 def test_popularity_recall_matches_the_jax_gates_baseline():

@@ -15,6 +15,8 @@ Tolerances: the loss within 1e-5 relative; gradients within 1e-4 relative +
 and 2 * lr elsewhere, per update (the step tests' tolerances,
 ``tests/test_torch_minibatch.py``)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +56,18 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_params(pred, agg, seed):
+    """JAX's initial parameters (as numpy) of :func:`_pair`'s model, drawn
+    once a module for each (pred, agg, seed): the init is jitted anew for
+    every model object."""
+    jd = jmake(**DATA_KW)
+    jm = JConvModel(canonical_etypes=jd.graph.canonical_etypes, dims=DIMS, n_layers=3,
+                    aggregator_type=agg, pred=pred, dropout=0.0)
+    jfeats = {nt: jd.graph.ndata[nt]["features"] for nt in jd.graph.ntypes}
+    return jax.tree.map(np.asarray, jfb.init_model(jm, jd.graph, jfeats, seed=seed))
+
+
 def _pair(pred, agg="mean", seed=0):
     """The same graph, model and (JAX-initialised) parameters in both packages."""
     jd, td = jmake(**DATA_KW), make_synthetic_data(**DATA_KW)
@@ -62,9 +76,9 @@ def _pair(pred, agg="mean", seed=0):
     jm, tm = JConvModel(**kw), ConvModel(**kw)
     jfeats = {nt: jd.graph.ndata[nt]["features"] for nt in jd.graph.ntypes}
     tfeats = {nt: td.graph.ndata[nt]["features"] for nt in td.graph.ntypes}
-    params = jfb.init_model(jm, jd.graph, jfeats, seed=seed)
-    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
-    return jd, td, jm, tm, jfeats, tfeats, params
+    params = _jax_params(pred, agg, seed)
+    tm.load_state_dict(params_from_jax(params))
+    return jd, td, jm, tm, jfeats, tfeats, jax.tree.map(jnp.asarray, params)
 
 
 def jax_negatives(key, pos_src, num_items, neg_sample_size):
@@ -164,11 +178,9 @@ def test_train_full_batch_matches_jax(pred):
     """Three epochs of the trainer, evaluating each, with every epoch's
     negatives replayed from JAX's keys (``rng, sub = split(rng)`` an
     epoch): the loss and metric histories agree."""
-    jd, td, jm, tm, jfeats, tfeats, _ = _pair(pred)
     cfg = dict(neg_sample_size=NEG, lr=3e-3, num_epochs=3, eval_every=1, k=5, seed=2)
+    jd, td, jm, tm, jfeats, tfeats, _ = _pair(pred, seed=cfg["seed"])  # JAX's own init
     etypes = tuple(jd.train_pairs)
-    params = jfb.init_model(jm, jd.graph, jfeats, seed=cfg["seed"])
-    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     negs, rng = [], jax.random.PRNGKey(cfg["seed"])
     for _ in range(cfg["num_epochs"]):
         rng, sub = jax.random.split(rng)
