@@ -132,9 +132,28 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    on the card (latency and its ``load_run`` share), held against the same
    request on the CPU (``serve_nn_run``).
 
+13. hp_search: three trials of the port's hyperparameter search
+   (``run_search(optimizer="gp", seed=46)``) on the hard synthetic world of
+   ``benchmarks/hp_search_hard.py`` (20,000 users, 6,000 items,
+   ``max_fanout=32``), each trial ``trial.run_trial_on_graph`` (split,
+   ``build_model``, ``minibatch_config``, ``train_minibatch`` through the
+   device epochs for ``FixedParams(num_epochs=2)``, recall@10 with the
+   popularity boost where the trial serves with it): one ``hp_trial`` line
+   a trial (seconds of each part, the replayed step, profile, peak memory
+   and memory left after the trial, losses, recall@10 against the initial
+   weights', launches, the gather-mean kernels' launches by shape, the
+   dropout check of :func:`dropout_replay_check`), each trial's kernels
+   held against their plain versions at its own shapes (the evaluation's
+   ranking through ``mips_topk`` or ``mips_lse`` + ``mips_boost`` against
+   the torch route, ``eval_routes_check``; both gather-mean kernels on one
+   step's plan, rows ``gather_mean_*:hp<trial>:B…_K…_N…_D…``), then the
+   proposals held against :data:`HP_TRIALS` and a resumed search that must
+   run no trial.
+
 Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
-gives its launches in phase 9, ``graph_launches``, and ``mips_topk``'s its
-launches in phase 11, ``full_batch_launches``), the card's name and power
+gives its launches in phase 9, ``graph_launches``, ``mips_topk``'s its
+launches in phase 11, ``full_batch_launches``, and each kernel of phase 13
+its launches there, ``hp_search_launches``), the card's name and power
 limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device.
@@ -143,6 +162,7 @@ a CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -154,8 +174,9 @@ import warnings
 import numpy as np
 import torch
 
-from gnn_recsys_tpu_torch.config import HyperParams
+from gnn_recsys_tpu_torch.config import FixedParams, HyperParams
 from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features
+from gnn_recsys_tpu_torch.hpsearch import run_search
 from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_ondemand
 from gnn_recsys_tpu_torch.models import conv_model
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
@@ -190,7 +211,13 @@ from gnn_recsys_tpu_torch.train.minibatch import (
     make_minibatch_step,
     train_minibatch,
 )
-from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
+from gnn_recsys_tpu_torch.trial import (
+    build_model,
+    run_trial_on_graph,
+    trial_embeddings,
+    trial_metrics,
+)
+from gnn_recsys_tpu_torch.utils.synthetic import make_hard_synthetic_data, make_synthetic_data
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -909,13 +936,19 @@ def check_gather_bwd(what, dh, g, nbr, mask, n, transpose) -> float:
     return err
 
 
-def phase_gather_steps(dev, tap, timed=True) -> list:
+def gather_label(shape) -> str:
+    return "B{}_K{}_N{}".format(*shape)
+
+
+def phase_gather_steps(dev, tap, timed=True, label=gather_label, bf16=True) -> list:
     """Both gather-mean kernels at each shape one dedup step runs, on that
     step's own plan (the first call of each shape that ``tap`` captured):
     against the plain versions, timed beside the bound, the plain versions
     and ``embedding_bag``, with the slot statistics of every call and the
     forward again on ids that all fall in the table's first 4 MB (its rows
-    stay in L2).  Returns the rows of the kernels line."""
+    stay in L2); with ``bf16``, again with the table and the cotangent
+    rounded to bf16.  Rows are named by ``label(shape)``.  Returns the rows
+    of the kernels line."""
     rows, seen = [], set()
     for i, call in enumerate(tap.captured):
         b, k, n, d = call["shape"]
@@ -928,10 +961,10 @@ def phase_gather_steps(dev, tap, timed=True) -> list:
         if call["shape"] in seen:
             continue
         seen.add(call["shape"])
-        label = f"B{b}_K{k}_N{n}"
+        name = label(call["shape"])
         # f32 as the step ran, then the same plan with the table and the
         # cotangent rounded to bf16 (the bf16 step's gathers have this plan).
-        for tag, hh, gg in (("", h, g), ("bf16:", h.bfloat16(), g.bfloat16())):
+        for tag, hh, gg in (("", h, g), ("bf16:", h.bfloat16(), g.bfloat16()))[:2 if bf16 else 1]:
             what = f"at {call['shape']}" + (" bf16" if tag else "")
             err = check_gather_fwd(f"gather_mean_fwd {what}", hh, nbr, mask)
             grad_err = check_gather_bwd(f"gather_mean_bwd {what}",
@@ -939,11 +972,11 @@ def phase_gather_steps(dev, tap, timed=True) -> list:
                                         n, tr)
             bag, bag_bwd = embedding_bag_calls(hh, nbr, mask, gg)
             fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, hh.element_size())
-            fwd = kernel_row(rows, timed, f"gather_mean_fwd:{tag}{label}", GATHER, 49, err,
+            fwd = kernel_row(rows, timed, f"gather_mean_fwd:{tag}{name}", GATHER, 49, err,
                              lambda hh=hh: gm.gather_mean_fwd(hh, nbr, mask),
                              lambda hh=hh: gm.gather_mean_reference(hh, nbr, mask), bag,
                              *fwd_cost, shape=stats)
-            kernel_row(rows, timed, f"gather_mean_bwd:{tag}{label}", GATHER, 49, grad_err,
+            kernel_row(rows, timed, f"gather_mean_bwd:{tag}{name}", GATHER, 49, grad_err,
                        lambda gg=gg: gm.gather_mean_bwd(gg, nbr, mask, n, tr),
                        lambda gg=gg: gm.gather_mean_bwd_plain(gg, mask, n, tr), bag_bwd,
                        *bwd_cost, shape=stats)
@@ -1505,6 +1538,42 @@ def replay_profile(captured, per_step, n=5, bf16=False) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def timed_replays(tap=None, keep_steps=False):
+    """While active, each replay of a :class:`CapturedStep` is timed between
+    CUDA events (``"events"``: (a training step?, start, end)); with
+    ``keep_steps``, every step made is kept (``"steps"``); with a
+    :class:`GatherTap`, the tap's launches of each capture are added back at
+    each replay."""
+    from gnn_recsys_tpu_torch.train import graph_step
+
+    init, replay = graph_step.CapturedStep.__init__, graph_step.CapturedStep.replay
+    record = {"steps": [], "events": []}
+
+    def counted_init(step, *args, **kwargs):  # the tap's launches of the capture
+        init(step, *args, **kwargs)
+        step.tap_launches = tap.take_graph() if tap else {}
+        if keep_steps:
+            record["steps"].append(step)
+
+    def timed_replay(step):
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        replay(step)
+        pair[1].record()
+        record["events"].append((step.state is not None, *pair))
+        if tap:
+            tap.replayed(step.tap_launches)
+
+    graph_step.CapturedStep.__init__ = counted_init
+    graph_step.CapturedStep.replay = timed_replay
+    try:
+        yield record
+    finally:
+        graph_step.CapturedStep.__init__ = init
+        graph_step.CapturedStep.replay = replay
+
+
 def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
                       batch_size=2048, pool=2560, fanouts=(8, 4), dedup=False, on_card=True,
                       check_steps=10, dtype=None, random_recall=None, k=10, tap=None) -> dict:
@@ -1554,33 +1623,16 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
         fn.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    init, replay, events = graph_step.CapturedStep.__init__, graph_step.CapturedStep.replay, []
-
-    def counted_init(step, *args, **kwargs):  # the tap's launches of the capture
-        init(step, *args, **kwargs)
-        step.tap_launches = tap.take_graph() if tap else {}
-
-    def timed_replay(step):  # CUDA events around each replay
-        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        pair[0].record()
-        replay(step)
-        pair[1].record()
-        events.append((step.state is not None, *pair))
-        if tap:
-            tap.replayed(step.tap_launches)
-
-    graph_step.CapturedStep.__init__ = counted_init
-    graph_step.CapturedStep.replay = timed_replay
     if tap:
         conv_model.gather_mean, tap.counting = tap, True
     t0 = time.perf_counter()
     try:
-        state, hist = train_minibatch(model, g, g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
-                                      train_eids, valid_eids, cfg, device=dev)
-        sync(dev)
+        with timed_replays(tap) as replays:
+            state, hist = train_minibatch(model, g, g,
+                                          {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                                          train_eids, valid_eids, cfg, device=dev)
+            sync(dev)
     finally:
-        graph_step.CapturedStep.__init__ = init
-        graph_step.CapturedStep.replay = replay
         conv_model.gather_mean = gm.gather_mean
         if tap:
             tap.counting = False
@@ -1604,7 +1656,7 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
         report["gather_launches_by_shape"] = {
             name: {"B{}_K{}_N{}_D{}".format(*shape): c for shape, c in by_shape.items()}
             for name, by_shape in tap.launches.items()}
-    train_ms = [a.elapsed_time(b) for update, a, b in events if update]
+    train_ms = [a.elapsed_time(b) for update, a, b in replays["events"] if update]
     if on_card:
         if len(train_ms) != 2 * nb:
             raise AssertionError(f"{phase}: {len(train_ms)} timed replays, expected {2 * nb}")
@@ -1740,29 +1792,38 @@ def full_batch_step_check(dev, pred, hidden, out, size, cfg) -> dict:
             "update_gap_where_g_big": update_gap}
 
 
-def eval_routes_check(dev, model, graph, feats, data, k) -> dict:
-    """The trained model's recs as the full-batch evaluation ranks them
-    (``get_metrics_at_k``'s users, already-bought table and k), through
-    ``mips_topk`` and through the torch route on the same embeddings: rows
-    may differ only at near-ties (:func:`_assert_routes_agree`)."""
-    h = compute_embeddings(model, graph, feats, device=dev)
+def eval_routes_check(dev, h, data, k, popularity=None, weight=1.0) -> dict:
+    """Embeddings ``h`` ranked as the evaluation ranks them
+    (``get_metrics_at_k``'s users, already-bought table and k; with
+    ``popularity``, the boost at ``weight``), through the kernels
+    (``mips_topk``, or ``mips_lse`` then ``mips_boost``) and through the
+    torch route: rows may differ only at near-ties
+    (:func:`_assert_routes_agree`)."""
     gt_u = np.asarray(data.test_ground_truth[0])
     bu, bi = data.train_pairs[BUYS]
     uids = torch.as_tensor(np.unique(gt_u), device=dev)
     ps = build_padded_pair_set(bu, bi, num_src=max(h["user"].shape[0], int(np.max(bu)) + 1,
                                                    int(gt_u.max()) + 1))
-    a, b = (get_recs(h["user"], h["item"], uids, k, already_bought=ps, backend=route,
-                     device=dev) for route in ("cuda", "torch"))
-    cos = dot_scores(l2_normalize(h["user"]), l2_normalize(h["item"]))
+    route_kw = dict(already_bought=ps, device=dev, popularity=popularity,
+                    weight_popularity=weight)
+    a, b = (get_recs(h["user"], h["item"], uids, k, backend=route, **route_kw)
+            for route in ("cuda", "torch"))
+    ue, ie = l2_normalize(h["user"].to(dev)), l2_normalize(h["item"].to(dev))
+    cos = dot_scores(ue, ie)
+    if popularity is not None:
+        pop = torch.as_tensor(popularity).to(dev).reshape(-1).double()
+        lse = torch.logsumexp(ue[uids].double() @ ie.double().T, dim=1)
 
     def score(r, items):
         items = items[items >= 0]
-        return cos(uids[r].expand_as(items), items)
+        s = cos(uids[r].expand_as(items), items)
+        return s if popularity is None else torch.exp(s - lse[r]) + weight * pop[items]
 
     gaps = []
     rows = _assert_routes_agree(a, b, score, gaps)
     return {"users": int(uids.numel()), "k": k, "fetch": k + ps.max_row,
-            "rows_differing": rows, "max_score_gap": max(gaps, default=0.0)}
+            "boosted": popularity is not None, "rows_differing": rows,
+            "max_score_gap": max(gaps, default=0.0)}
 
 
 def serve_nn_run(dev, data, model, kw, users, k) -> dict:
@@ -1873,7 +1934,8 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
     if on_card and pred == "cos" and not launches["mips_topk"]:
         raise AssertionError(f"{phase}: the cosine evaluation never launched mips_topk")
     if pred == "cos":
-        report["eval_routes"] = eval_routes_check(dev, model, g, feats, data, k)
+        report["eval_routes"] = eval_routes_check(
+            dev, compute_embeddings(model, g, feats, device=dev), data, k)
     if on_card:
         step = make_full_batch_step(model, cfg, tuple(data.train_pairs))
         inputs = full_batch_inputs(g, g, feats, data.train_pairs, dev)
@@ -1886,6 +1948,326 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
         report["serve"] = serve_nn_run(dev, data, model, kw, serve_users, k)
     say(phase, **report)
     return launches
+
+
+# Device memory a trial may leave allocated once its objects are dropped
+# (the first trial's cuBLAS workspaces on the shared warm-up stream fit in
+# it): a trial whose captured graphs and their pools outlived it, or that
+# left a workspace a new stream, would exceed it.
+TRIAL_LEFTOVER_BYTES = 128 << 20
+# The first three proposals of run_search(optimizer="gp", seed=46): the
+# defaults (the reference's x0), then the GP optimizer's random asks, which
+# do not depend on the objectives.  Floats to 4 digits.
+HP_TRIALS = (
+    dict(aggregator_type="mean_nn", aggregator_hetero="mean", embed_dim="medium", n_layers=3,
+         embedding_layer=False, popularity_importance="no", use_recency=True,
+         neg_sample_size=2500, dropout=0.01, delta=0.266),
+    dict(aggregator_type="pool_nn", aggregator_hetero="sum", embed_dim="large", n_layers=4,
+         embedding_layer=True, popularity_importance="medium", use_recency=False,
+         neg_sample_size=2484, dropout=0.4975, delta=0.2045),
+    dict(aggregator_type="mean_nn", aggregator_hetero="max", embed_dim="small", n_layers=3,
+         embedding_layer=True, popularity_importance="small", use_recency=True,
+         neg_sample_size=1597, dropout=0.5843, delta=0.161),
+)
+
+
+def dropout_replay_check(dev, make_model, cfg, graph, feats, tables, eids, n=4, seed=3) -> dict:
+    """A trial's training step at its dropout: ``n`` replays of the captured
+    step and ``n`` eager runs of its body, each from the same initial
+    parameters, Adam state, permutation and step draws (the step's generator
+    re-seeded before each).  Only dropout's masks differ: they come from the
+    default CUDA generator, which a captured graph advances at each replay.
+    Every loss must be finite, the replays' losses must not all be equal
+    (new masks each replay), and the replays' mean within 5 standard errors
+    of the eager runs' (the masks' spread)."""
+    from gnn_recsys_tpu_torch.train import graph_step
+    from gnn_recsys_tpu_torch.train.minibatch import _reverse
+
+    etypes = tuple(eids)
+    counts = {et: len(v) for et, v in eids.items()}
+    has_reverse = {et: _reverse(et) in graph.rels for et in etypes}
+    store = device_edge_store(graph, etypes, dev)
+    eids_dev = {et: torch.as_tensor(v, dtype=torch.int64, device=dev) for et, v in eids.items()}
+    losses = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*capturable=True.*")
+        for capture in (True, False):
+            model = make_model().to(dev)
+            state = TrainState.create(model, lr=cfg.lr)
+            state.make_capturable()
+            perm_fn, chunk_fn = make_epoch_fns(model, cfg, etypes, True, cfg.exclude_batch_edges,
+                                               has_reverse, counts, capture=capture)
+            gen = torch.Generator(device=dev)
+            held = graph_step._snapshot(state)
+            out = []
+            for _ in range(n):
+                graph_step._restore(state, held)
+                gen.manual_seed(seed)
+                perms = perm_fn(eids_dev, gen)
+                _, loss = chunk_fn(state, graph, feats, tables, store, perms, 0, Draws(gen),
+                                   n_steps=1)
+                out.append(float(loss[0]))
+            losses["replays" if capture else "eager"] = out
+            del model, state, perm_fn, chunk_fn
+    r, e = (np.asarray(losses[key]) for key in ("replays", "eager"))
+    se = float(np.sqrt(r.var(ddof=1) / n + e.var(ddof=1) / n))
+    gap = abs(float(r.mean() - e.mean()))
+    report = {"losses": losses, "mean_gap": gap, "standard_error": se}
+    if not (np.isfinite(r).all() and np.isfinite(e).all()):
+        raise AssertionError(f"dropout check: a loss is not finite: {losses}")
+    if len(set(r.tolist())) < 2:
+        raise AssertionError(f"dropout check: every replay drew the same masks: {losses}")
+    if not gap <= 5 * se:
+        raise AssertionError(f"dropout check: replays' mean loss {r.mean()} is {gap} from the "
+                             f"eager runs' {e.mean()}, beyond 5 standard errors ({se})")
+    return report
+
+
+def trial_gather_rows(dev, tap, run, graph, feats, tables, label, timed) -> list:
+    """One eager step of the device epoch's body (the trial's config, its
+    trained model, the first batch of a permutation) with the block
+    forward's gather-mean calls captured by ``tap``; then both gather-mean
+    kernels at each shape of that step's plan against their plain versions
+    (f32, as the trial ran; :func:`phase_gather_steps`), rows named
+    ``label(shape)``."""
+    from gnn_recsys_tpu_torch.train.minibatch import _reverse
+
+    eids = run.split.train_eids
+    etypes = tuple(eids)
+    has_reverse = {et: _reverse(et) in graph.rels for et in etypes}
+    _, chunk_fn = make_epoch_fns(run.model, run.cfg, etypes, True, run.cfg.exclude_batch_edges,
+                                 has_reverse, {et: len(v) for et, v in eids.items()},
+                                 capture=False)
+    perms = {et: torch.as_tensor(v, dtype=torch.int64, device=dev) for et, v in eids.items()}
+    state = TrainState.create(run.model, lr=run.cfg.lr)
+    tap.capturing = True
+    try:
+        chunk_fn(state, graph, feats, tables, device_edge_store(graph, etypes, dev), perms, 0,
+                 Draws(torch.Generator(device=dev).manual_seed(1)), n_steps=1)
+    finally:
+        tap.capturing = False
+    return phase_gather_steps(dev, tap, timed=timed, label=label, bf16=False)
+
+
+def hp_trial(dev, data, fixed, hyper, popularity, index, on_card=True) -> tuple:
+    """Trial ``index`` of the search: ``trial.run_trial_on_graph`` on the
+    built graph (the split with ``max_fanout``, see :func:`phase_hp_search`;
+    a pool of at most 2048 items; training through the device epochs; recall
+    of the test users on the full graph's embeddings, with the popularity
+    boost where the trial serves with it), around which this reports the
+    seconds of each part, the same model's recall at its initial weights,
+    the training replays (CUDA events), the last epoch's edges a second,
+    peak memory, and each kernel's launches in training (the gather-mean
+    kernels' by shape too, through a :class:`GatherTap`) and in the
+    evaluation.  Then it holds the kernels at this trial's shapes against
+    their plain versions: the evaluation's ranking through the kernels
+    against the torch route (:func:`eval_routes_check`), and, where the
+    trial runs the dedup'd block forward, both gather-mean kernels on one
+    step's plan (:func:`trial_gather_rows`, rows ``gather_mean_*:hp<index>:
+    B…_K…_N…_D…``).  On the card also a profile of 5 training replays and
+    :func:`dropout_replay_check`.  Returns (recall, the report, the rows)."""
+    g = data.graph
+    bought = data.train_pairs[BUYS]
+    counters = build.launch_counters()
+    report = {"hyper": dataclasses.asdict(hyper)}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        report["allocated_bytes_before"] = torch.cuda.memory_allocated(dev)
+    tap = GatherTap()
+    at, parts, launches = {}, {}, {}
+
+    def on_stage(stage, run):
+        at[stage] = time.perf_counter()
+        if stage == "built":
+            parts["run"] = run
+            init_model(run.model.to(dev), seed=run.cfg.seed)  # train_minibatch's own weights
+            report["initial_weights_recall"] = trial_metrics(
+                trial_embeddings(run.model, g, run.features, fixed, dev), run.model,
+                data.test_ground_truth, bought, fixed, hyper, popularity, dev)[1]
+            tap.counting = True
+        elif stage == "trained":
+            tap.counting = False
+            launches["train"] = {name: fn.launches for name, fn in counters.items() if fn.launches}
+        elif stage == "evaluated":
+            launches["eval"] = {name: fn.launches for name, fn in counters.items() if fn.launches}
+        if stage in ("built", "trained"):
+            sync(dev)
+            at[stage + "_end"] = time.perf_counter()
+            for fn in counters.values():
+                fn.launches = 0
+
+    conv_model.gather_mean = tap
+    try:
+        with timed_replays(tap, keep_steps=on_card) as replays:
+            t0 = time.perf_counter()
+            result = run_trial_on_graph(data, data.test_ground_truth, bought, fixed, hyper,
+                                        popularity=popularity,
+                                        neg_pool_size=min(2048, data.num_items),
+                                        max_fanout=fixed.max_fanout, device=dev,
+                                        on_stage=on_stage)
+        if on_card:  # the trial's own peak, before the checks below allocate
+            report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        run, hist, recall = parts.pop("run"), result.history, result.recall
+        tap.check_totals({name: launches["train"].get(name, 0) for name in GATHER_KERNELS},
+                         "hp_search")
+        split = run.split
+        losses = hist["train_loss"] + hist["valid_loss"]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"hp_search: a loss is not finite: {hist}")
+        if not 0.0 <= recall <= 1.0:
+            raise AssertionError(f"hp_search: recall@{fixed.k} {recall} is not a share")
+        report.update(
+            split_s=at["split"] - t0, build_s=at["built"] - at["split"],
+            train_s=at["trained"] - at["built_end"], evaluate_s=at["evaluated"] - at["trained_end"],
+            dedup=run.cfg.dedup,
+            fanouts=run.cfg.fanouts, neg_pool_size=run.cfg.neg_pool_size,
+            train_edges={"/".join(et): len(v) for et, v in split.train_eids.items()},
+            valid_edges={"/".join(et): len(v) for et, v in split.valid_eids.items()},
+            train_graph_row_width={"/".join(et): rel.max_fanout
+                                   for et, rel in split.train_graph.rels.items()},
+            # What run_trial's split, which passes no max_fanout, would give.
+            train_graph_row_width_uncapped={
+                "/".join(et): -(-int(np.bincount(rel.dst.numpy()).max()) // 8) * 8
+                for et, rel in split.train_graph.rels.items()},
+            epochs=len(hist["train_loss"]), train_loss=hist["train_loss"],
+            valid_loss=hist["valid_loss"], valid_recall=hist["recall"],
+            subtrain_recall=hist["subtrain_recall"],
+            edges_per_s_last_epoch=hist["edges_per_s"][-1], updates=run.state.step,
+            precision_recall_coverage=(result.precision, recall, result.coverage),
+            boosted=hyper.serve_with_popularity_boost, train_launches=launches["train"],
+            eval_launches=launches["eval"],
+            gather_launches_by_shape={name: {trial_label(index, shape): c
+                                             for shape, c in by_shape.items()}
+                                      for name, by_shape in tap.launches.items()})
+        # The kernels at this trial's shapes against their plain versions.
+        boost = hyper.serve_with_popularity_boost
+        report["eval_routes"] = eval_routes_check(
+            dev, run.embeddings, data, fixed.k, popularity=popularity if boost else None,
+            weight=hyper.weight_popularity)
+        gd = split.train_graph.to(dev)
+        feats = {nt: x.to(dev) for nt, x in run.features.items()}
+        tables = {et: build_padded_pair_set(g.rels[et].src.numpy(), g.rels[et].dst.numpy(),
+                                            num_src=data.num_users).to(dev)
+                  for et in split.train_eids}
+        rows = []
+        if run.cfg.dedup:
+            rows = trial_gather_rows(dev, tap, run, gd, feats, tables,
+                                     lambda shape: trial_label(index, shape), timed=on_card)
+            report["gather_max_abs_err"] = {row["name"]: row["max_abs_err"] for row in rows}
+        if on_card:
+            train_ms = [a.elapsed_time(b) for update, a, b in replays["events"] if update]
+            report.update(train_replays=len(train_ms), step_ms_median=float(np.median(train_ms)),
+                          step_ms_min=float(np.min(train_ms)),
+                          step_ms_max=float(np.max(train_ms)))
+            step = next(s for s in replays["steps"] if s.state is not None)
+            report["profile"] = profile_steps(step.replay, n=5)
+
+            def make_model():
+                fresh = build_model(data, fixed, hyper)
+                init_model(fresh, seed=run.cfg.seed)
+                return fresh
+
+            report["dropout_check"] = dict(dropout=hyper.dropout, **dropout_replay_check(
+                dev, make_model, run.cfg, gd, feats, tables, split.train_eids))
+            del step
+        replays.clear()
+        del run, split, gd, feats, tables, result, hist
+        tap.captured.clear()
+    finally:
+        conv_model.gather_mean = gm.gather_mean
+    if dev.type == "cuda":  # what the trial leaves behind, before any gc.collect()
+        torch.cuda.synchronize(dev)
+        report["allocated_bytes_after"] = after = torch.cuda.memory_allocated(dev)
+        if after - report["allocated_bytes_before"] > TRIAL_LEFTOVER_BYTES:
+            raise AssertionError(f"hp_search: the trial left {after} bytes allocated, "
+                                 f"{report['allocated_bytes_before']} before it")
+    return recall, report, rows
+
+
+def trial_label(index, shape) -> str:
+    return "hp{}:B{}_K{}_N{}_D{}".format(index, *shape)
+
+
+def phase_hp_search(dev, num_users=20_000, num_items=6_000, max_fanout=32,
+                    edge_batch_size=2048, on_card=True) -> dict:
+    """Three trials of the port's hyperparameter search on the hard synthetic
+    world of ``benchmarks/hp_search_hard.py:46-47, 87-90``
+    (``make_hard_synthetic_data(20_000, 6_000, seed=0, max_fanout=32)``:
+    240,000 edges an etype, 4 etypes, features of width 8):
+    ``run_search(fitness, n_calls=3, optimizer="gp", seed=46)`` in a
+    temporary directory, ``fitness`` being :func:`hp_trial` with
+    ``FixedParams(max_fanout=32, num_epochs=2)`` (the rest the defaults:
+    2048 edges a batch, the full sampler, ``valid_size`` 0.05, k = 10,
+    cosine).  Cutting ``num_epochs`` from 100 is the one reduction, for the
+    script's time limit (``max_fanout`` and ``edge_batch_size`` are smaller
+    only in the CPU rehearsal).  The split passes ``max_fanout``, where
+    ``run_trial`` does not (its train graph's rows would be uncapped:
+    ROADMAP.md queue 3).  The proposals must be :data:`HP_TRIALS`; a second
+    ``run_search`` on the same directory must return the same trials without
+    calling ``fitness``; ``mips_topk``, ``mips_lse`` and ``mips_boost`` must
+    have launched (``topk_kernel``'s three epilogues).  Popularity is each
+    item's share of the purchases (``hp_search_hard.py:96-102``).  Returns
+    (the launches of each kernel over the three trials, the rows of the
+    gather-mean kernels at the trials' own shapes)."""
+    t0 = time.perf_counter()
+    data = make_hard_synthetic_data(num_users=num_users, num_items=num_items, seed=0,
+                                    max_fanout=max_fanout, with_clicks=True)
+    deg = np.bincount(data.train_pairs[BUYS][1], minlength=num_items).astype(np.float32)
+    popularity = torch.as_tensor(deg / max(float(deg.sum()), 1.0))
+    fixed = FixedParams(max_fanout=max_fanout, num_epochs=2, edge_batch_size=edge_batch_size)
+    report = {"users": num_users, "items": num_items, "data_s": time.perf_counter() - t0,
+              "edges": {"/".join(et): data.graph.num_edges(et)
+                        for et in data.graph.canonical_etypes},
+              "row_width": {"/".join(et): rel.max_fanout for et, rel in data.graph.rels.items()},
+              "popularity_recall": popularity_recall(data, fixed.k), "trials": []}
+
+    rows = []
+
+    def fitness(hyper) -> float:
+        index = len(report["trials"]) + 1
+        recall, trial, trial_rows = hp_trial(dev, data, fixed, hyper, popularity, index,
+                                             on_card=on_card)
+        report["trials"].append(trial)
+        for row in trial_rows:  # the launches of the training at the row's shape
+            kernel, label = row["name"].split(":", 1)
+            row["launches"] = trial["gather_launches_by_shape"][kernel].get(label, 0)
+            if on_card and not row["launches"]:
+                raise AssertionError(f"hp_search: {row['name']} never launched in training")
+        rows.extend(trial_rows)
+        say("hp_trial", index=index, **trial)
+        return recall
+
+    with tempfile.TemporaryDirectory() as logdir:
+        t1 = time.perf_counter()
+        state = run_search(fitness, n_calls=len(HP_TRIALS), logdir=logdir, optimizer="gp",
+                           seed=46)
+        report["search_s"] = time.perf_counter() - t1
+
+        def refuse(hyper):
+            raise AssertionError("hp_search: the resumed search ran a trial")
+
+        again = run_search(refuse, n_calls=len(HP_TRIALS), logdir=logdir, optimizer="gp",
+                           seed=46)
+    proposals = [dataclasses.asdict(t.hyper) for t in state.trials]
+    if len(proposals) != len(HP_TRIALS):
+        raise AssertionError(f"hp_search: {len(proposals)} trials, expected {len(HP_TRIALS)}")
+    for got, want in zip(proposals, HP_TRIALS):
+        if any(round(got[key], 4) != value if isinstance(value, float) else got[key] != value
+               for key, value in want.items()):
+            raise AssertionError(f"hp_search: proposal {got}, expected {want}")
+    if [dataclasses.asdict(t.hyper) for t in again.trials] != proposals or \
+            [t.objective for t in again.trials] != [t.objective for t in state.trials]:
+        raise AssertionError("hp_search: the resumed search returned other trials")
+    launches = collections.Counter()
+    for trial in report["trials"]:
+        launches.update(trial["train_launches"])
+        launches.update(trial["eval_launches"])
+    if on_card and not all(launches[name] for name in ("mips_topk", "mips_lse", "mips_boost")):
+        raise AssertionError(f"hp_search: a topk_kernel epilogue never launched: {launches}")
+    report.update(objectives=[t.objective for t in state.trials], resumed_trials=len(again.trials),
+                  launches=dict(launches))
+    say("hp_search", **{k: v for k, v in report.items() if k != "trials"})
+    return dict(launches), rows
 
 
 # Kernel-name patterns of the step breakdown, first match wins.
@@ -1968,7 +2350,7 @@ def main() -> int:
     # The device epochs: each step one replay of a CUDA graph.  Then the
     # bench config as bench.py defines it: bf16 compute.  The gather-mean
     # launches by shape are each dedup run's own (0 at a shape it never ran).
-    labels = {shape: "B{}_K{}_N{}".format(*shape) for shape in tap.calls_by_shape}
+    labels = {shape: gather_label(shape) for shape in tap.calls_by_shape}
     for name in GATHER_KERNELS:
         launches.update({f"{name}:{label}": tap.launches[name][shape]
                          for shape, label in labels.items()})
@@ -1987,14 +2369,19 @@ def main() -> int:
     # The full-batch trainer (BASELINE config[0]) with each scoring head.
     full_batch_launches = phase_train_full_batch(dev, "cos")
     phase_train_full_batch(dev, "nn", num_users=5_000, num_items=1_500, epochs=20)
+    # The hyperparameter search: three trials on the hard synthetic world.
+    hp_launches, hp_rows = phase_hp_search(dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:
             row["graph_launches"] = graph_launches[row["name"]]
         if row["name"] in full_batch_launches:
             row["full_batch_launches"] = full_batch_launches[row["name"]]
+        if row["name"] in hp_launches:
+            row["hp_search_launches"] = hp_launches[row["name"]]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
+    rows += hp_rows  # launches: each trial's training, by shape
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -97,6 +97,14 @@ class HeteroGraph:
     def num_edges(self, etype: CanonicalEtype) -> int:
         return self.rels[etype].num_edges
 
+    def etypes_into(self, ntype: str) -> Tuple[CanonicalEtype, ...]:
+        """All canonical etypes whose destination is ``ntype``."""
+        return tuple(et for et in self.rels if et[2] == ntype)
+
+    def etypes_from(self, ntype: str) -> Tuple[CanonicalEtype, ...]:
+        """All canonical etypes whose source is ``ntype``."""
+        return tuple(et for et in self.rels if et[0] == ntype)
+
     def to(self, device) -> "HeteroGraph":
         return HeteroGraph(
             rels={et: rel.to(device) for et, rel in self.rels.items()},
@@ -251,3 +259,29 @@ def attach_leaf_features(graph: HeteroGraph, features: Mapping[str, torch.Tensor
         packed = f[nbr.long().clamp(min=0)] * rel.nbr_mask.to(f.device)[..., None].to(f.dtype)
         rels[et] = dataclasses.replace(rel, nbr_feat=packed.reshape(nbr.shape[0], -1))
     return dataclasses.replace(graph, rels=rels)
+
+
+def remove_edges(
+    graph: HeteroGraph,
+    eids_to_remove: Mapping[CanonicalEtype, np.ndarray],
+    max_fanout: Optional[int] = None,
+    fanout_multiple: int = 8,
+) -> HeteroGraph:
+    """A new graph with the given edge ids (positions in the COO arrays)
+    removed per etype (``hetero.py:323-351``; DGL's ``remove_edges`` in the
+    reference's split).  A host rebuild through :func:`build_relation`, so
+    each destination keeps its most recent edges under ``max_fanout``; the
+    relations lie on the CPU and carry no packed leaf cache."""
+    new_rels = {}
+    for etype, rel in graph.rels.items():
+        src = rel.src.cpu().numpy()
+        dst = rel.dst.cpu().numpy()
+        keep = np.ones(src.shape[0], dtype=bool)
+        if etype in eids_to_remove:
+            keep[np.asarray(eids_to_remove[etype], dtype=np.int64)] = False
+        new_rels[etype] = build_relation(
+            src[keep], dst[keep], num_dst=graph.num_nodes(etype[2]),
+            edata={k: v.cpu().numpy()[keep] for k, v in rel.edata.items()},
+            max_fanout=max_fanout, fanout_multiple=fanout_multiple,
+        )
+    return dataclasses.replace(graph, rels=new_rels)

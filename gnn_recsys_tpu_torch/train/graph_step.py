@@ -44,6 +44,19 @@ from gnn_recsys_tpu_torch.train.full_batch import TrainState
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
 
+# One warm-up stream a device, shared by every capture: cuBLAS gives each
+# stream that runs a product its own workspace, which PyTorch keeps for the
+# life of the process, so a new stream a capture would keep more device
+# memory for every model a search trains.
+_WARMUP_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _warmup_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream on which captures on ``dev`` run their warm-up."""
+    if dev not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _WARMUP_STREAMS[dev]
+
 
 class DeviceUpdate:
     """The device half of :meth:`TrainState.apply_gradients`, as a captured
@@ -112,7 +125,7 @@ class CapturedStep:
     is a :class:`DeviceUpdate` of ``state`` for a training step (None for a
     loss-only step, ``state`` None), and ``draws`` the step's draw source.
     Capturing runs :data:`WARMUP_STEPS` eager steps first (their launches
-    count: they ran)."""
+    count: they ran).  The step holds ``body`` and so every tensor it reads."""
 
     def __init__(self, body: Callable, draws: Draws, state: Optional[TrainState] = None,
                  warmup: int = WARMUP_STEPS):
@@ -121,6 +134,10 @@ class CapturedStep:
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
         self.state, self.generator, self.lrs = state, generator, []
+        # The graph reads the tensors of ``body``'s closure by address: the
+        # step keeps them alive, so a replay never reads freed memory after
+        # its caller has dropped them.
+        self.body = body
         update = None
         if state is not None:
             state.make_capturable()
@@ -129,7 +146,7 @@ class CapturedStep:
             update = DeviceUpdate(state, self.lrs)
         counters = build.launch_counters()
         held = _snapshot(state)
-        side = torch.cuda.Stream(dev)
+        side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), warnings.catch_warnings():
             # Adam warns when its capturable form steps outside a capture.

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -349,7 +350,7 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
         static.update(t=t, losses=losses, perms=buffers,
                       inputs=(state, graph, features, edge_tables, store),
                       step=CapturedStep(body, draws, state if with_update else None))
-        chunk_fn.captured = static["step"]
+        chunk_ref().captured = static["step"]
 
     def chunk_fn(state, graph, features, edge_tables, store, perms, t0, draws, n_steps: int):
         on_graph = capture
@@ -386,6 +387,9 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
         return state, static["losses"][pos]
 
     chunk_fn.captured = None
+    # A weak reference: a cycle between the two closures would keep the
+    # graph and its memory pool alive until Python's cycle collector ran.
+    chunk_ref = weakref.ref(chunk_fn)
     return perm_fn, chunk_fn
 
 

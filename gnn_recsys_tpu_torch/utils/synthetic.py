@@ -1,9 +1,10 @@
 """Synthetic interaction graphs for tests and benchmarks.
 
-Port of ``make_synthetic_data`` (``gnn_recsys_tpu/utils/synthetic.py:41``):
-a clustered bipartite user-item graph with clicks and an optional sport node
-type.  The numpy draws come in the same order, so the same seed gives the
-same arrays as the JAX package.
+Port of ``gnn_recsys_tpu/utils/synthetic.py``: ``make_synthetic_data``
+(``:41``), a clustered bipartite user-item graph with clicks and an optional
+sport node type, and ``make_hard_synthetic_data`` (``:146``), interactions
+from a latent-factor model with Zipf popularity.  The numpy draws come in the
+same order, so the same seed gives the same arrays as the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +29,11 @@ class SyntheticData:
     num_groups: int
     user_group: Optional[np.ndarray] = None
     item_group: Optional[np.ndarray] = None
+    # make_hard_synthetic_data: the latent factors that generated the
+    # interactions, for oracle-ceiling baselines.
+    user_latent: Optional[np.ndarray] = None
+    item_latent: Optional[np.ndarray] = None
+    item_logpop: Optional[np.ndarray] = None
 
 
 def make_synthetic_data(
@@ -125,4 +131,108 @@ def make_synthetic_data(
         num_groups=num_groups,
         user_group=user_group,
         item_group=item_group,
+    )
+
+
+def make_hard_synthetic_data(
+    num_users: int = 50_000,
+    num_items: int = 15_000,
+    latent_dim: int = 16,
+    feat_dim: int = 8,
+    interactions_per_user: int = 12,
+    test_per_user: int = 2,
+    beta: float = 6.0,
+    pop_exponent: float = 0.9,
+    pop_weight: float = 0.5,
+    feat_noise: float = 1.5,
+    with_clicks: bool = True,
+    click_beta: float = 2.0,
+    seed: int = 0,
+    max_fanout: Optional[int] = None,
+    user_chunk: int = 2048,
+) -> SyntheticData:
+    """Interactions drawn from ``P(i | u) ~ exp(beta <z_u, z_i> + pop_weight *
+    logpop_i)`` without replacement (Gumbel top-k): unit Gaussian latents, a
+    Zipf(``pop_exponent``) item popularity, so hub items and a popularity
+    baseline that a model can beat; node features are a low-rank noisy
+    projection of the latents, so a model must use the graph.  Clicks are the
+    same process at the weaker ``click_beta``.  The latent scorer's recall is
+    the ceiling, popularity's the floor."""
+    rng = np.random.default_rng(seed)
+    zu = rng.standard_normal((num_users, latent_dim)).astype(np.float32)
+    zi = rng.standard_normal((num_items, latent_dim)).astype(np.float32)
+    zu /= np.linalg.norm(zu, axis=1, keepdims=True)
+    zi /= np.linalg.norm(zi, axis=1, keepdims=True)
+    # Zipf popularity over a random item permutation.
+    ranks = rng.permutation(num_items) + 1
+    logpop = (-pop_exponent * np.log(ranks)).astype(np.float32)
+    logpop -= logpop.max()
+
+    def draw_for(users_lo, users_hi, n_draw, b):
+        """Gumbel top-n_draw item ids [C, n_draw] (unordered) per user."""
+        z = zu[users_lo:users_hi]
+        logits = b * (z @ zi.T) + pop_weight * logpop[None, :]
+        g = rng.gumbel(size=logits.shape).astype(np.float32)
+        part = np.argpartition(-(logits + g), n_draw, axis=1)[:, :n_draw]
+        return part.astype(np.int32)
+
+    n_draw = interactions_per_user + test_per_user
+    buys = np.empty((num_users, n_draw), dtype=np.int32)
+    for lo in range(0, num_users, user_chunk):
+        hi = min(lo + user_chunk, num_users)
+        buys[lo:hi] = draw_for(lo, hi, n_draw, beta)
+    # Shuffle each row, then split train / test: the held-out items are an
+    # exchangeable sample of the user's draws.
+    perm = rng.permuted(np.broadcast_to(np.arange(n_draw), (num_users, n_draw)), axis=1)
+    buys = np.take_along_axis(buys, perm, axis=1)
+    train_items = buys[:, :interactions_per_user]
+    test_items = buys[:, interactions_per_user:]
+
+    buys_u = np.repeat(np.arange(num_users, dtype=np.int32), interactions_per_user)
+    buys_i = train_items.reshape(-1)
+    test_u = np.repeat(np.arange(num_users, dtype=np.int32), test_per_user)
+    test_i = test_items.reshape(-1)
+
+    schema = {
+        ("user", "buys", "item"): (buys_u, buys_i),
+        ("item", "bought-by", "user"): (buys_i, buys_u),
+    }
+    train_pairs = {("user", "buys", "item"): (buys_u, buys_i)}
+    if with_clicks:
+        clicks = np.empty((num_users, interactions_per_user), dtype=np.int32)
+        for lo in range(0, num_users, user_chunk):
+            hi = min(lo + user_chunk, num_users)
+            clicks[lo:hi] = draw_for(lo, hi, interactions_per_user, click_beta)
+        clicks_u = np.repeat(np.arange(num_users, dtype=np.int32), interactions_per_user)
+        clicks_i = clicks.reshape(-1)
+        schema[("user", "clicks", "item")] = (clicks_u, clicks_i)
+        schema[("item", "clicked-by", "user")] = (clicks_i, clicks_u)
+        train_pairs[("user", "clicks", "item")] = (clicks_u, clicks_i)
+
+    proj_u = rng.standard_normal((latent_dim, feat_dim)).astype(np.float32)
+    proj_i = rng.standard_normal((latent_dim, feat_dim)).astype(np.float32)
+    ndata = {
+        "user": {"features": zu @ proj_u + feat_noise * rng.standard_normal(
+            (num_users, feat_dim)).astype(np.float32)},
+        "item": {"features": zi @ proj_i + feat_noise * rng.standard_normal(
+            (num_items, feat_dim)).astype(np.float32)},
+    }
+    edata = {
+        etype: {"occurrence": np.ones(len(s), dtype=np.float32),
+                "recency": rng.integers(1, 30, size=len(s)).astype(np.float32)}
+        for etype, (s, _) in schema.items()
+    }
+    graph = build_hetero_graph(schema, {"user": num_users, "item": num_items},
+                               edata=edata, ndata=ndata, max_fanout=max_fanout)
+    return SyntheticData(
+        graph=graph,
+        train_graph=graph,  # test edges were never added
+        train_pairs=train_pairs,
+        test_ground_truth=(test_u, test_i),
+        num_users=num_users,
+        num_items=num_items,
+        num_groups=0,
+        user_latent=zu,
+        item_latent=zi,
+        item_logpop=logpop,
     )

@@ -148,6 +148,44 @@ def test_train_full_batch_rehearsal(pred, capsys):
         assert "eval_routes" not in report and report["serve"]["users"] == 16
 
 
+def test_hp_search_rehearsal(capsys):
+    """Phase hp_search at a tiny world (rows capped at 8): three trials whose
+    proposals are the search's first three, each trained two epochs through
+    the device epochs' eager body and evaluated (with the boost in trials 2
+    and 3), and a resumed search that runs no trial.  Each trial's ranking
+    is held route against route, and trial 1's gather-mean calls (the one
+    mean aggregator on the dedup'd forward) give a row a shape."""
+    launches, rows = chip_smoke.phase_hp_search(torch.device("cpu"), num_users=200,
+                                                num_items=150, max_fanout=8,
+                                                edge_batch_size=256, on_card=False)
+    assert launches == {}  # CPU tensors: the plain versions, no launch
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    trials = [line for line in lines if line["phase"] == "hp_trial"]
+    search = lines[-1]
+    assert search["phase"] == "hp_search" and search["resumed_trials"] == 3
+    assert [t["index"] for t in trials] == [1, 2, 3]
+    assert [t["dedup"] for t in trials] == [True, True, False]
+    assert [t["boosted"] for t in trials] == [False, True, True]
+    for t, want in zip(trials, chip_smoke.HP_TRIALS):
+        assert t["hyper"]["aggregator_type"] == want["aggregator_type"]
+        assert t["epochs"] == 2 and len(t["valid_loss"]) == 2 and t["updates"] > 0
+        assert all(w <= 8 for w in t["train_graph_row_width"].values())
+        assert 0.0 <= t["initial_weights_recall"] <= 1.0
+    assert search["objectives"] == [-t["precision_recall_coverage"][1] for t in trials]
+    for t in trials:
+        routes = t["eval_routes"]
+        assert routes["boosted"] == t["boosted"] and routes["rows_differing"] == 0
+        assert routes["users"] > 0 and routes["k"] == 10
+    names = [row["name"] for row in rows]
+    assert names and all(n.split(":")[1] == "hp1" for n in names)
+    assert {n.split(":")[0] for n in names} == set(chip_smoke.GATHER_KERNELS)
+    assert len(set(names)) == len(names)
+    assert trials[0]["gather_max_abs_err"] == {row["name"]: 0.0 for row in rows}
+    assert all(row["launches"] == 0 and row["bound_ms"] > 0 for row in rows)
+    assert trials[1]["gather_max_abs_err"] == {}  # pool_nn: no gather-mean call
+    assert "gather_max_abs_err" not in trials[2]  # the tree forward
+
+
 def test_popularity_recall_matches_the_jax_gates_baseline():
     """``popularity_recall`` is the JAX package's gate baseline
     (``tests/test_e2e_fullbatch.py``) computed with the port's metrics."""

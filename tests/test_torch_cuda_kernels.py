@@ -256,6 +256,32 @@ def test_train_minibatch_runs_the_kernels_on_the_card(dev):
     assert pm.pool_membership_mask.launches > n_pool
 
 
+def test_captured_step_keeps_the_tensors_it_reads(dev):
+    """A captured step replays correctly after its maker dropped every
+    tensor that its graph reads, and their memory was handed out again."""
+    from gnn_recsys_tpu_torch.ops.sampling import Draws
+    from gnn_recsys_tpu_torch.train.graph_step import CapturedStep
+
+    out = torch.zeros(4096, device=dev)
+
+    def make():
+        a = torch.arange(4096, dtype=torch.float32, device=dev)
+        b = torch.full((4096,), 0.5, device=dev)
+
+        def body(update, draws):
+            out.copy_(a * 2 + b)
+
+        return CapturedStep(body, Draws(torch.Generator(device=dev)), warmup=1)
+
+    step = make()
+    junk = [torch.full((4096,), -7.0, device=dev) for _ in range(64)]
+    out.zero_()
+    step.replay()
+    torch.cuda.synchronize()
+    want = torch.arange(4096, dtype=torch.float32, device=dev) * 2 + 0.5
+    assert torch.equal(out, want) and len(junk) == 64
+
+
 @pytest.mark.parametrize("dedup", [False, True])
 def test_device_epochs_replay_the_eager_body(dev, dedup):
     """The device epochs' CUDA graph at a small size: 4 replays against 4

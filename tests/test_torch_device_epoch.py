@@ -294,3 +294,26 @@ def test_captured_route_refuses_what_it_cannot_replay():
         chunk_fn(state, g, feats, tables, store, perms, 0, ReplayDraws([]), n_steps=1)
     with pytest.raises(ValueError, match="CUDA generator"):
         chunk_fn(state, g, feats, tables, store, perms, 0, Draws(torch.Generator()), n_steps=1)
+
+
+def test_epoch_fns_are_freed_without_the_cycle_collector():
+    """The epoch functions hold no reference cycle, so a captured step's
+    graph and memory pool go as soon as the trainer drops them (a search
+    trains model after model; the cycle collector may not run in between)."""
+    import gc
+    import weakref
+
+    et = ("user", "buys", "item")
+    model = ConvModel([et, ("item", "bought-by", "user")],
+                      (("user", 8), ("item", 8), ("hidden", 16), ("out", 8)))
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        perm_fn, chunk_fn = tmb.make_epoch_fns(model, tmb.MinibatchConfig(), (et,), True, True,
+                                               {et: True}, {et: 100})
+        refs = [weakref.ref(perm_fn), weakref.ref(chunk_fn)]
+        del perm_fn, chunk_fn
+        assert all(r() is None for r in refs)
+    finally:
+        if enabled:
+            gc.enable()

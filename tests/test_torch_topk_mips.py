@@ -28,10 +28,15 @@ def _check(vals, idx, jvals, jidx, rtol=0.0):
 def _check_near_ties(vals, idx, jvals, jidx, exact_scores):
     """Values within TOL of JAX's; indices equal except at slots where the
     port's item scores (exactly, in f64) within TOL of JAX's value there;
-    no repeated index in a row."""
+    no repeated index in a row.  A failure names each side's largest gap to
+    the exact f64 top-k values."""
     vals, idx = vals.numpy(), idx.numpy()
     jvals, jidx = np.asarray(jvals), np.asarray(jidx)
-    np.testing.assert_allclose(vals, jvals, rtol=0, atol=TOL)
+    exact = -np.sort(-exact_scores, axis=1)[:, :vals.shape[1]]
+    np.testing.assert_allclose(
+        vals, jvals, rtol=0, atol=TOL,
+        err_msg=f"largest gap to the exact values: port {np.abs(vals - exact).max()}, "
+                f"JAX {np.abs(jvals - exact).max()}")
     for r, c in zip(*np.nonzero(idx != jidx)):
         assert abs(exact_scores[r, idx[r, c]] - jvals[r, c]) <= TOL, (r, c)
     for row in idx:
