@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: build the hand-written
 kernels, hold each against its plain version, serve recommendations with the
-full-width Medium model, then train it.
+full-width Medium model, train it, search, and run the CLIs from raw logs.
 
 Run from the repository root on a CUDA host (one card)::
 
@@ -149,12 +149,26 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    step's plan, rows ``gather_mean_*:hp<trial>:B…_K…_N…_D…``), then the
    proposals held against :data:`HP_TRIALS` and a resumed search that must
    run no trial.
+14. etl_cli: the JAX package's CLI drill (``benchmarks/e2e_drift_cli.py``)
+   from raw CSV logs, in process through each CLI's ``main(argv)``:
+   ``make_drift_logs`` (3,000 users, 900 items, 90,000 interactions), the
+   rows after each date window (each must drop rows), the 14-day presplit,
+   ``main_hp`` (2 trials of 3 epochs, ``--remove 0.3``, 1,024 edges a
+   batch), the best hyperparameters to JSON, ``main_train`` (3 epochs), and
+   ``main_inference`` for three named users (k 10) and ``--all`` (k 5); one
+   ``etl_trial`` line a trial (the seconds of each ETL stage and of the
+   split, build, training, evaluation and in-loop inference evaluation,
+   nodes, edges, recall); the run directory's artifacts, k external item ids
+   a named user and more than half the users under ``--all`` asserted; the
+   saved run's embeddings ranked through the kernels against the torch
+   route, and the first dedup'd trial's gather-mean plan against the plain
+   versions (rows ``gather_mean_*:etl:…``).
 
 Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
 gives its launches in phase 9, ``graph_launches``, ``mips_topk``'s its
-launches in phase 11, ``full_batch_launches``, and each kernel of phase 13
-its launches there, ``hp_search_launches``), the card's name and power
-limit,
+launches in phase 11, ``full_batch_launches``, each kernel of phase 13 its
+launches there, ``hp_search_launches``, and of phase 14,
+``etl_cli_launches``), the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device.
 """
@@ -163,18 +177,26 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
 import torch
 
-from gnn_recsys_tpu_torch.config import FixedParams, HyperParams
+from gnn_recsys_tpu_torch.config import ColumnConfig, FixedParams, HyperParams
+from gnn_recsys_tpu_torch.data import etl
+from gnn_recsys_tpu_torch.data.io import read_data, write_csv
+from gnn_recsys_tpu_torch.data.presplit import presplit_data
+from gnn_recsys_tpu_torch.data.table import Table
 from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features
 from gnn_recsys_tpu_torch.hpsearch import run_search
 from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_ondemand
@@ -217,7 +239,11 @@ from gnn_recsys_tpu_torch.trial import (
     trial_embeddings,
     trial_metrics,
 )
-from gnn_recsys_tpu_torch.utils.synthetic import make_hard_synthetic_data, make_synthetic_data
+from gnn_recsys_tpu_torch.utils.synthetic import (
+    make_drift_logs,
+    make_hard_synthetic_data,
+    make_synthetic_data,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -319,6 +345,10 @@ def per_call_ms(kernels, reps: int) -> float:
     return sum(us / count * -(-count // reps) for _, count, us in kernels) / 1e3
 
 
+class NoKernelRecorded(RuntimeError):
+    """``torch.profiler`` recorded no CUDA kernel for a call that launches one."""
+
+
 def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     """Device time of one call of ``fn`` in ms (``per_call_ms`` under
     ``torch.profiler``).  A profile with no kernel recorded is taken again;
@@ -328,7 +358,19 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
         _, kernels = profiled_kernels(fn, reps)
         if kernels:
             return per_call_ms(kernels, reps)
-    raise RuntimeError("torch.profiler recorded no CUDA kernel for a call that launches one")
+    raise NoKernelRecorded("torch.profiler recorded no CUDA kernel for a call that launches one")
+
+
+def yardstick_ms(fn) -> tuple:
+    """(ms, how) of one call of a library yardstick: its device time over
+    20 calls (:func:`device_ms`), or, where the profiler recorded none of
+    its kernels (seen once on the H100's host, late in the run, for
+    ``embedding_bag``'s three profiled launches), CUDA events around
+    back-to-back calls (:func:`time_ms`, host gaps included)."""
+    try:
+        return device_ms(fn), "profiler"
+    except NoKernelRecorded:
+        return time_ms(fn), "cuda_events"
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -462,7 +504,7 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
             row.update(ms=device_ms(kernel), events_ms=time_ms(kernel),
                        plain_ms=device_ms(plain, reps=3))
             if library is not None:
-                row["library_ms"] = device_ms(library, reps=3)
+                row["library_ms"], row["library_timing"] = yardstick_ms(library)
     rows.append(row)
     say("kernel", **row)
     return row
@@ -2024,12 +2066,17 @@ def dropout_replay_check(dev, make_model, cfg, graph, feats, tables, eids, n=4, 
 
 
 def trial_gather_rows(dev, tap, run, graph, feats, tables, label, timed) -> list:
+    """:func:`capture_step_plan`, then both gather-mean kernels at each shape
+    of that step's plan against their plain versions (f32, as the trial
+    ran; :func:`phase_gather_steps`), rows named ``label(shape)``."""
+    capture_step_plan(dev, tap, run, graph, feats, tables)
+    return phase_gather_steps(dev, tap, timed=timed, label=label, bf16=False)
+
+
+def capture_step_plan(dev, tap, run, graph, feats, tables) -> None:
     """One eager step of the device epoch's body (the trial's config, its
-    trained model, the first batch of a permutation) with the block
-    forward's gather-mean calls captured by ``tap``; then both gather-mean
-    kernels at each shape of that step's plan against their plain versions
-    (f32, as the trial ran; :func:`phase_gather_steps`), rows named
-    ``label(shape)``."""
+    model, the first batch of a permutation; the step updates the model)
+    with the block forward's gather-mean calls captured by ``tap``."""
     from gnn_recsys_tpu_torch.train.minibatch import _reverse
 
     eids = run.split.train_eids
@@ -2046,7 +2093,6 @@ def trial_gather_rows(dev, tap, run, graph, feats, tables, label, timed) -> list
                  Draws(torch.Generator(device=dev).manual_seed(1)), n_steps=1)
     finally:
         tap.capturing = False
-    return phase_gather_steps(dev, tap, timed=timed, label=label, bf16=False)
 
 
 def hp_trial(dev, data, fixed, hyper, popularity, index, on_card=True) -> tuple:
@@ -2270,6 +2316,268 @@ def phase_hp_search(dev, num_users=20_000, num_items=6_000, max_fanout=32,
     return dict(launches), rows
 
 
+# The users the drill asks for by name (benchmarks/e2e_drift_cli.py:242).
+ETL_NAMED_USERS = ("u7", "u42", "u1234")
+
+
+def window_rows(df, item_feat) -> dict:
+    """Rows of the interaction table ``df`` after each date window of the
+    reference's defaults (365 / 30 / 180 days; the drill's
+    ``assert_windows_filter``, ``e2e_drift_cli.py:112-149``): each window
+    must drop rows."""
+    c, fp = ColumnConfig(), FixedParams()
+    empty = {"item_sport": Table({c.specific_item_id: [], c.spt_id: []}),
+             "user_sport": Table({c.ctm_id: [], c.spt_id: []}),
+             "sport_sportg": Table({c.sports_id: [], c.sportsgroup_id: [], c.spt_id: []}),
+             "sport": Table({c.spt_id: []})}
+
+    def n_rows(days_p, days_c, lifespan):
+        out = etl.format_dfs(df, df.take([]), empty["item_sport"], empty["user_sport"],
+                             empty["sport_sportg"], item_feat, Table({c.ctm_id: []}),
+                             empty["sport"], empty["sport"], days_of_purchases=days_p,
+                             days_of_clicks=days_c, lifespan_of_items=lifespan, columns=c)
+        return len(out[0])
+
+    rows = {"rows_full": n_rows(10_000, 10_000, 10_000),
+            "rows_purchase_window": n_rows(fp.days_of_purchases, 10_000, 10_000),
+            "rows_click_window": n_rows(10_000, fp.days_of_clicks, 10_000),
+            "rows_lifespan": n_rows(365, 10_000, fp.lifespan_of_items)}
+    if not (rows["rows_purchase_window"] < rows["rows_full"]
+            and rows["rows_click_window"] < rows["rows_full"]
+            and rows["rows_lifespan"] < rows["rows_purchase_window"]):
+        raise AssertionError(f"etl_cli: a date window dropped no row: {rows}")
+    return rows
+
+
+class TrialObserver:
+    """Stands in for ``run_trial`` in the CLI modules while the phase runs
+    them: it calls the real one with an ``on_stage`` callback and records, a
+    trial, the seconds of each ETL stage (``GraphData.seconds``), the
+    graph's nodes and edges, the seconds of the split, build, training,
+    evaluation and of saving with the in-loop inference evaluation, and the
+    trial's metrics.  At the first dedup'd trial's ``"trained"`` stage it
+    runs one eager step of that trial's body on a copy of the trained model
+    with ``tap`` capturing its gather-mean calls (the launches of that step
+    are taken off the counters again: they are a check's, not the path's)."""
+
+    def __init__(self, dev, tap):
+        self.dev, self.tap, self.trials = dev, tap, []
+
+    def wrap(self, run_trial, label):
+        def observed(*args, **kwargs):
+            at, parts = {}, {}
+
+            def on_stage(stage, run):
+                at[stage] = time.perf_counter()
+                parts["run"] = run
+                if stage == "trained" and run.cfg.dedup and not self.tap.captured:
+                    self.capture_plan(run)
+                sync(self.dev)
+                at[stage + "_end"] = time.perf_counter()
+
+            t0 = time.perf_counter()
+            result = run_trial(*args, on_stage=on_stage, **kwargs)
+            run = parts["run"]
+            gd = run.graph_data
+            g = gd.graph
+            etl_s = sum(gd.seconds.values())
+            report = {
+                "trial": label, "etl_s": gd.seconds, "nodes": gd.num_nodes,
+                "edges": {"/".join(et): g.num_edges(et) for et in g.canonical_etypes},
+                "split_s": at["split"] - t0 - etl_s, "build_s": at["built"] - at["split_end"],
+                "train_s": at["trained"] - at["built_end"],
+                "evaluate_s": at["evaluated"] - at["trained_end"],
+                "save_and_inference_eval_s": at.get("inference_evaluated", at["evaluated_end"])
+                - at["evaluated_end"],
+                "dedup": run.cfg.dedup, "fanouts": run.cfg.fanouts,
+                "train_graph_row_width": {"/".join(et): rel.max_fanout
+                                          for et, rel in run.split.train_graph.rels.items()},
+                "epochs": len(result.history["train_loss"]),
+                "train_loss": result.history["train_loss"], "updates": run.state.step,
+                "precision_recall_coverage": (result.precision, result.recall, result.coverage),
+                "recall_purchase": result.recall_purchase,
+                "inference_recall": result.inference_recall, "saved_to": result.saved_to,
+                "hyper": dataclasses.asdict(args[1])}
+            if not np.isfinite(result.history["train_loss"]).all():
+                raise AssertionError(f"etl_cli: trial {label}: a loss is not finite")
+            if result.inference_recall is None or not 0.0 <= result.recall <= 1.0:
+                raise AssertionError(f"etl_cli: trial {label}: recall {result.recall}, "
+                                     f"inference recall {result.inference_recall}")
+            self.trials.append(report)
+            return result
+        return observed
+
+    def capture_plan(self, run) -> None:
+        counters = build.launch_counters()
+        held = {name: fn.launches for name, fn in counters.items()}
+        g = run.graph_data.graph
+        feats = {nt: x.to(self.dev) for nt, x in run.features.items()}
+        tables = {et: build_padded_pair_set(g.rels[et].src.numpy(), g.rels[et].dst.numpy(),
+                                            num_src=g.num_nodes("user")).to(self.dev)
+                  for et in run.split.train_eids}
+        counting, self.tap.counting = self.tap.counting, False
+        try:
+            capture_step_plan(self.dev, self.tap, dataclasses.replace(
+                run, model=copy.deepcopy(run.model)), run.split.train_graph.to(self.dev),
+                feats, tables)
+        finally:
+            self.tap.counting = counting
+            for name, fn in counters.items():
+                fn.launches = held[name]
+
+
+def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
+                  edge_batch_size=1024, named_users=ETL_NAMED_USERS, on_card=True) -> tuple:
+    """The JAX package's CLI drill (``benchmarks/e2e_drift_cli.py:166-260``)
+    on the port, in process, through each CLI's ``main(argv)`` on ``dev``:
+    ``make_drift_logs`` (3,000 users, 900 items, 30 a user over 540 days),
+    the date windows' row counts (:func:`window_rows`), the 14-day presplit,
+    ``main_hp --n-calls 2 --num-epochs 3 --remove 0.3 --edge-batch-size
+    1024`` (each trial ``run_trial`` from the CSV files: the ETL, the split,
+    training, evaluation, saving and the in-loop inference evaluation), the
+    best hyperparameters to JSON, ``main_train`` for 3 epochs (patience 4,
+    1,024 edges a batch), then ``main_inference`` for three named users at
+    k = 10 and ``--all`` at k = 5.  Every kernel counter is set to 0 just
+    before ``main_hp`` and read after the last request; a
+    :class:`TrialObserver` reports each trial (one ``etl_trial`` line).
+
+    Checks: the run directory's artifacts, k external item ids a named user,
+    more than half the users under ``--all``; then the saved run's
+    embeddings (``extras.pkl``) ranked on its test users through the kernels
+    and through the torch route, with the boost where the run serves with
+    it (:func:`eval_routes_check`), and both gather-mean kernels against
+    their plain versions on the first dedup'd trial's plan (rows
+    ``gather_mean_*:etl:B…_K…_N…_D…``).  Returns (each kernel's launches on
+    the path, the gather-mean rows)."""
+    import io
+
+    from gnn_recsys_tpu_torch.cli import main_hp, main_inference, main_train
+
+    device = str(dev)
+    report = {"users": num_users, "items": num_items}
+    counters = build.launch_counters()
+    tap = GatherTap()
+    observer = TrialObserver(dev, tap)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths, df = make_drift_logs(f"{tmp}/data", num_users=num_users, num_items=num_items)
+        report.update(interactions=len(df), logs_s=time.perf_counter() - t0)
+        item_feat = read_data(paths["item_feat"])
+        report["windows"] = window_rows(df, item_feat)
+        train, test = presplit_data(item_feat, df)
+        write_csv(train, f"{tmp}/data/train.csv")
+        write_csv(test, f"{tmp}/data/test.csv")
+        report.update(presplit_rows=(len(train), len(test)),
+                      data_s=time.perf_counter() - t0)
+        plots = importlib.util.find_spec("matplotlib") is not None
+        run_dir, hp_dir = f"{tmp}/models/run1", f"{tmp}/hp"
+        os.makedirs(hp_dir)
+        named = [arg for u in named_users for arg in ("--user-ids", u)]
+
+        def cli(main, argv):
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = main(argv + ["--device", device])
+            sync(dev)
+            return result, out.getvalue(), time.perf_counter() - t
+
+        for fn in counters.values():
+            fn.launches = 0
+        tap.counting = True
+        conv_model.gather_mean = tap
+        modules = ((main_hp, "hp"), (main_train, "train"))
+        real = {mod: mod.run_trial for mod, _ in modules}
+        try:
+            for mod, label in modules:
+                mod.run_trial = observer.wrap(real[mod], label)
+            with timed_replays(tap):
+                state, _, report["main_hp_s"] = cli(main_hp.main, [
+                    "--train-path", f"{tmp}/data/train.csv",
+                    "--test-path", f"{tmp}/data/test.csv",
+                    "--item-feat-path", paths["item_feat"],
+                    "--user-feat-path", paths["user_feat"], "--n-calls", str(n_calls),
+                    "--num-epochs", str(epochs), "--remove", "0.3",
+                    "--edge-batch-size", str(edge_batch_size), "--logdir", hp_dir,
+                    "--result-filepath", f"{hp_dir}/result_log.txt"])
+                hyper_json = f"{hp_dir}/best_hyper.json"
+                with open(hyper_json, "w") as f:
+                    json.dump(dataclasses.asdict(state.best.hyper), f)
+                result, _, report["main_train_s"] = cli(main_train.main, [
+                    "--interactions-path", paths["interactions"],
+                    "--item-feat-path", paths["item_feat"],
+                    "--user-feat-path", paths["user_feat"], "--hyper-json", hyper_json,
+                    "--num-epochs", str(epochs), "--patience", str(epochs + 1),
+                    "--edge-batch-size", str(edge_batch_size), "--out-dir", run_dir,
+                    "--result-filepath", f"{tmp}/train_log.txt",
+                    "--plots-dir", f"{tmp}/plots" if plots else ""])
+                recs, text, report["request_named_s"] = cli(
+                    main_inference.main, ["--run-dir", run_dir, *named, "--k", "10"])
+                all_recs, all_text, report["request_all_s"] = cli(
+                    main_inference.main, ["--run-dir", run_dir, "--all", "--k", "5"])
+        finally:
+            for mod, _ in modules:
+                mod.run_trial = real[mod]
+            conv_model.gather_mean = gm.gather_mean
+            tap.counting = False
+        launches = {name: fn.launches for name, fn in counters.items()}
+        tap.check_totals(launches, "etl_cli")
+        for trial in observer.trials:
+            say("etl_trial", **trial)
+
+        # What the drill asserts.
+        artifacts = sorted(os.listdir(run_dir))
+        want = ["extras.pkl", "fixed_params.json", "graph.npz", "hyper_params.json",
+                "id_maps.pkl", "model.json", "params.npz"]
+        if artifacts != want:
+            raise AssertionError(f"etl_cli: run directory holds {artifacts}, expected {want}")
+        if not os.path.exists(f"{hp_dir}/result_log.txt") or len(state.trials) != n_calls:
+            raise AssertionError(f"etl_cli: main_hp ran {len(state.trials)} trials")
+        lines = [ln for ln in text.splitlines() if ln.startswith("u")]
+        if sorted(recs) != sorted(named_users) or len(lines) != len(named_users) or \
+                any(len(items) != 10 or not all(str(i).startswith("it") for i in items)
+                    for items in recs.values()):
+            raise AssertionError(f"etl_cli: named requests gave {recs}")
+        if not len(all_recs) > num_users // 2 or \
+                len([ln for ln in all_text.splitlines() if ln.startswith("u")]) != len(all_recs):
+            raise AssertionError(f"etl_cli: --all gave {len(all_recs)} users")
+        if on_card and not all(launches[name] for name in ("mips_topk",) + GATHER_KERNELS):
+            raise AssertionError(f"etl_cli: a kernel of the path never launched: {launches}")
+
+        # The kernels at this path's shapes against their plain versions.
+        run = load_run(run_dir)
+        extras, hyper = run["extras"], HyperParams(**run["hyper_params"])
+        h = {"user": torch.as_tensor(extras["user_embeddings"]).to(dev),
+             "item": torch.as_tensor(extras["item_embeddings"]).to(dev)}
+        popularity = None
+        if hyper.serve_with_popularity_boost:
+            popularity = run["graph"].ndata["item"]["popularity"].reshape(-1)
+        report["routes"] = eval_routes_check(
+            dev, h, types.SimpleNamespace(
+                test_ground_truth=tuple(np.asarray(a, dtype=np.int64)
+                                        for a in extras["ground_truth_test"]),
+                train_pairs={BUYS: extras["already_bought"]}),
+            10, popularity=popularity, weight=hyper.weight_popularity)
+        rows = phase_gather_steps(dev, tap, timed=on_card, bf16=False,
+                                  label=lambda shape: "etl:B{}_K{}_N{}_D{}".format(*shape))
+        for row in rows:  # the launches of the path at the row's shape
+            kernel, label = row["name"].split(":", 1)
+            shape = tuple(int(x[1:]) for x in label.split(":")[1].split("_"))
+            row["launches"] = tap.launches[kernel][shape]
+            if on_card and not row["launches"]:
+                raise AssertionError(f"etl_cli: {row['name']} never launched on the path")
+        tap.captured.clear()
+    report.update(plots=plots, hp_objectives=[t.objective for t in state.trials],
+                  train_recall=result.recall, train_inference_recall=result.inference_recall,
+                  named_recs={u: list(v) for u, v in recs.items()}, all_users=len(all_recs),
+                  artifacts=artifacts, launches=launches,
+                  gather_launches_by_shape={name: {"B{}_K{}_N{}_D{}".format(*shape): c
+                                                   for shape, c in by_shape.items()}
+                                            for name, by_shape in tap.launches.items()})
+    say("etl_cli", **report)
+    return launches, rows
+
+
 # Kernel-name patterns of the step breakdown, first match wins.
 KERNEL_GROUPS = (
     ("gather_mean_fwd", ("gather_mean_fwd",)),
@@ -2371,6 +2679,8 @@ def main() -> int:
     phase_train_full_batch(dev, "nn", num_users=5_000, num_items=1_500, epochs=20)
     # The hyperparameter search: three trials on the hard synthetic world.
     hp_launches, hp_rows = phase_hp_search(dev)
+    # The user's path from raw CSV logs: the ETL, run_trial and the CLIs.
+    etl_launches, etl_rows = phase_etl_cli(dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:
@@ -2379,9 +2689,11 @@ def main() -> int:
             row["full_batch_launches"] = full_batch_launches[row["name"]]
         if row["name"] in hp_launches:
             row["hp_search_launches"] = hp_launches[row["name"]]
+        if row["name"] in etl_launches:
+            row["etl_cli_launches"] = etl_launches[row["name"]]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
-    rows += hp_rows  # launches: each trial's training, by shape
+    rows += hp_rows + etl_rows  # launches: each phase's training, by shape
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

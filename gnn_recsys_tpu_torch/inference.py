@@ -4,8 +4,9 @@ Port of ``gnn_recsys_tpu/inference.py`` (the reference's
 ``main_inference.py:20-175``): map external customer ids to node ids,
 rebuild the model from the saved config, embed every user and item on the
 device, rank the full catalog with already-bought exclusion, and map node
-ids back to external item ids.  Id maps are pandas DataFrames; pandas is
-needed only when the run directory holds them.
+ids back to external item ids.  Id maps are the port's
+``dict[str, np.ndarray]`` (``data/etl.py``) or, from a run directory the JAX
+package wrote, pandas DataFrames (unpickling those needs pandas).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gnn_recsys_tpu_torch.config import HyperParams
+from gnn_recsys_tpu_torch.config import FixedParams, HyperParams
 from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.ops.membership import PaddedPairSet, build_padded_pair_set
@@ -25,10 +26,17 @@ from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_conf
 from gnn_recsys_tpu_torch.train.minibatch import infer_embeddings
 
 
+def _pairs(id_map, new_col: str) -> Tuple[list, list]:
+    """(external ids, node ids) of an id map: a dict of columns or a
+    DataFrame, whose one column besides ``new_col`` is the external id."""
+    names = list(id_map.columns) if hasattr(id_map, "columns") else list(id_map)
+    ext_col = [c for c in names if c != new_col][0]
+    return np.asarray(id_map[ext_col]).tolist(), np.asarray(id_map[new_col]).tolist()
+
+
 def fetch_uids(user_ids: Sequence, ctm_id_df) -> np.ndarray:
     """External customer ids -> node ids (reference utils_inference.py:15-28)."""
-    ext_col = [c for c in ctm_id_df.columns if c != "ctm_new_id"][0]
-    mapping = dict(zip(ctm_id_df[ext_col], ctm_id_df["ctm_new_id"]))
+    mapping = dict(zip(*_pairs(ctm_id_df, "ctm_new_id")))
     missing = [u for u in user_ids if u not in mapping]
     if missing:
         raise KeyError(f"unknown user ids: {missing[:5]}")
@@ -37,10 +45,9 @@ def fetch_uids(user_ids: Sequence, ctm_id_df) -> np.ndarray:
 
 def postprocess_recs(recs, user_node_ids: np.ndarray, pdt_id_df, ctm_id_df) -> Dict:
     """Node-id recs -> external-id recs (reference utils_inference.py:31-40)."""
-    item_col = [c for c in pdt_id_df.columns if c != "pdt_new_id"][0]
-    user_col = [c for c in ctm_id_df.columns if c != "ctm_new_id"][0]
-    item_map = dict(zip(pdt_id_df["pdt_new_id"], pdt_id_df[item_col]))
-    user_map = dict(zip(ctm_id_df["ctm_new_id"], ctm_id_df[user_col]))
+    items, item_nodes = _pairs(pdt_id_df, "pdt_new_id")
+    users, user_nodes = _pairs(ctm_id_df, "ctm_new_id")
+    item_map, user_map = dict(zip(item_nodes, items)), dict(zip(user_nodes, users))
     return {
         user_map[int(u)]: [item_map[int(i)] for i in row]
         for u, row in zip(user_node_ids, np.asarray(recs))
@@ -60,25 +67,40 @@ def inference_ondemand(
     user_ids: Sequence,
     k: int = 10,
     remove_already_bought: bool = True,
+    node_batch_size: int = 128,
     inference_mode: str = "full_graph",
     use_popularity: Optional[bool] = None,
     weight_popularity: float = 1.0,
+    rebuild_dataframes: Optional[Dict] = None,
     device="cuda",
 ) -> Dict:
     """Recommendations for external user ids from a saved run directory.
 
-    ``user_ids='all'`` recommends for every known user.  ``device``: where
-    the model embeds and ranks (the CUDA device unless the caller asks for
-    the CPU).  ``use_popularity=None`` resolves from the saved run's
-    hyperparameters (``HyperParams.serve_with_popularity_boost``); pass
-    True/False to override.
+    ``user_ids='all'`` recommends for every known user.  When the run has
+    no saved graph, ``rebuild_dataframes`` (the keyword arguments of
+    :meth:`GraphData.from_dataframes`) rebuilds it from the raw data with
+    the run's fixed parameters (reference main_inference.py:69-87).
+    ``node_batch_size``: the users or items a batch of the
+    ``"node_batches"`` inference mode.  ``device``: where the model embeds
+    and ranks (the CUDA device unless the caller asks for the CPU).
+    ``use_popularity=None`` resolves from the saved run's hyperparameters
+    (``HyperParams.serve_with_popularity_boost``); pass True/False to
+    override.
     """
     dev = torch.device(device)
     run = load_run(run_dir)
     graph = run["graph"]
-    if graph is None:
-        raise FileNotFoundError(f"{run_dir}/graph.npz missing")
     id_maps = run["id_maps"] or {}
+    if graph is None and rebuild_dataframes is not None:
+        from gnn_recsys_tpu_torch.data.etl import GraphData
+
+        gd = GraphData.from_dataframes(FixedParams(**(run["fixed_params"] or {})),
+                                       **rebuild_dataframes)
+        graph = gd.graph
+        id_maps = {"ctm_id": gd.ctm_id, "pdt_id": gd.pdt_id, "spt_id": gd.spt_id}
+    if graph is None:
+        raise FileNotFoundError(f"{run_dir}/graph.npz missing (pass rebuild_dataframes to "
+                                f"rebuild it from the raw data)")
     ctm_id_df = id_maps.get("ctm_id")
     pdt_id_df = id_maps.get("pdt_id")
 
@@ -94,7 +116,8 @@ def inference_ondemand(
         user_node_ids = np.asarray(user_ids, dtype=np.int32)
 
     features = {nt: graph.ndata[nt]["features"] for nt in graph.ntypes}
-    h = infer_embeddings(model, graph, features, mode=inference_mode, device=dev)
+    h = infer_embeddings(model, graph, features, mode=inference_mode,
+                         node_batch_size=node_batch_size, ntypes=("user", "item"), device=dev)
 
     already: Optional[PaddedPairSet] = None
     if remove_already_bought:

@@ -4,7 +4,8 @@ state for resuming.
 Port of ``save_run`` / ``load_run`` (``gnn_recsys_tpu/train/checkpoint.py:88-153``)
 in the JAX package's formats — ``model.json``, ``fixed_params.json``,
 ``hyper_params.json``, ``graph.npz`` and the optional ``id_maps.pkl`` /
-``extras.pkl`` — except the parameters: the JAX package writes them with
+``extras.pkl`` (the port's id maps are ``dict[str, np.ndarray]``, so its
+runs unpickle without pandas) — except the parameters: the JAX package writes them with
 orbax (``params/``), which the port cannot read; the port writes
 ``params.npz``, keyed by flax path (``params/layer0_user__buys__item/
 fc_self/kernel``) in flax's layout.  ``save_train_state`` /
@@ -121,7 +122,8 @@ def load_run(out_dir: str) -> Dict[str, Any]:
 
     Returns a dict with keys params (a state_dict), model_kwargs,
     fixed_params, hyper_params, graph, id_maps, extras (None when absent).
-    Unpickling id maps needs pandas, which is imported only then.
+    The port's id maps are dicts of numpy columns; a JAX package's run
+    holds pandas DataFrames, which need pandas to unpickle.
     """
     ppath = os.path.join(out_dir, PARAMS_FILE)
     if not os.path.exists(ppath):

@@ -1,26 +1,33 @@
-"""One search trial: its model, training config, and the trial itself on a
-graph that is already built.
+"""One build / train / evaluate trial, the unit of work of the search and
+training CLIs.
 
 Port of ``gnn_recsys_tpu/trial.py``: the model-save thresholds,
-:class:`TrialResult`, :func:`build_model`, :func:`minibatch_config`, and
-:func:`run_trial_on_graph`, which is ``run_trial`` (JAX ``trial.py:133-409``)
-from the split on (``:166-300``: split, model, config, packed leaf cache,
-training, embeddings on the full graph, metrics, saving).  The start of
-``run_trial``, the pandas ETL (``GraphData.from_dataframes`` /
-``from_paths``), waits for the port's decision about pandas (ROADMAP.md,
-queue 1); so do its in-loop inference evaluation and plots.
+:class:`TrialResult`, :func:`build_model`, :func:`minibatch_config`,
+:func:`run_trial` (JAX ``trial.py:133-409``: the ETL, then the trial on the
+built graph, then the in-loop inference evaluation, the qualitative checks
+and the plots), and :func:`run_trial_on_graph`, its part from the split on
+(``:166-300``: split, model, config, packed leaf cache, training, embeddings
+on the full graph, metrics, saving).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from gnn_recsys_tpu_torch.config import GENERAL, SPECIFIC, FixedParams, HyperParams
+from gnn_recsys_tpu_torch.config import (
+    GENERAL,
+    SPECIFIC,
+    ColumnConfig,
+    DataPaths,
+    FixedParams,
+    HyperParams,
+)
+from gnn_recsys_tpu_torch.data.etl import GraphData, raw_inputs
 from gnn_recsys_tpu_torch.data.split import TrainValSplit, train_valid_split
 from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
@@ -119,10 +126,12 @@ def minibatch_config(fixed: FixedParams, hyper: HyperParams, model: ConvModel,
 @dataclasses.dataclass
 class TrialRun:
     """The parts of a trial as :func:`run_trial_on_graph` makes them, handed
-    to its ``on_stage`` callback: the split (its train graph with the packed
-    leaf cache under the full sampler), then the model, config and node
-    features, then the training's state and history, then the embeddings."""
+    to its ``on_stage`` callback: the built graph data and the split (its
+    train graph with the packed leaf cache under the full sampler), then the
+    model, config and node features, then the training's state and history,
+    then the embeddings."""
     split: TrainValSplit
+    graph_data: Any = None
     model: Optional[ConvModel] = None
     cfg: Optional[MinibatchConfig] = None
     features: Optional[Dict[str, torch.Tensor]] = None
@@ -170,6 +179,7 @@ def run_trial_on_graph(
     verbose: bool = False,
     device="cuda",
     on_stage: Optional[Callable[[str, TrialRun], None]] = None,
+    id_maps: Optional[Dict] = None,
 ) -> TrialResult:
     """Split -> train -> test metrics on ``graph_data.graph`` (JAX
     ``run_trial:166-300``, after the ETL).  ``already_bought``: the purchase
@@ -180,14 +190,15 @@ def run_trial_on_graph(
     cap built the full graph (a reference flaw, ROADMAP.md queue 3).
     ``on_stage(stage, run)`` is called with ``"split"``, ``"built"`` (model,
     config and features made; not trained), ``"trained"`` and
-    ``"evaluated"`` (embeddings and metrics made)."""
+    ``"evaluated"`` (embeddings and metrics made).  ``id_maps``: saved with
+    the run (``id_maps.pkl``)."""
     stage = on_stage or (lambda name, run: None)
     t0 = time.perf_counter()
     g = graph_data.graph
     run = TrialRun(split=train_valid_split(g, ground_truth_test, fixed,
                                            clicks_sample=hyper.clicks_sample,
                                            purchases_sample=hyper.purchases_sample,
-                                           max_fanout=max_fanout))
+                                           max_fanout=max_fanout), graph_data=graph_data)
     stage("split", run)
     run.model = model = build_model(graph_data, fixed, hyper, dtype=dtype)
     if fixed.bucket_shapes:
@@ -241,7 +252,7 @@ def run_trial_on_graph(
                 "aggregator_hetero": model.aggregator_hetero,
                 "embedding_layer": model.embedding_layer,
             },
-            fixed_params=fixed, hyper_params=hyper, graph=g,
+            fixed_params=fixed, hyper_params=hyper, graph=g, id_maps=id_maps,
             extras={"user_embeddings": h["user"].cpu().numpy(),
                     "item_embeddings": h["item"].cpu().numpy(),
                     "already_bought": already_bought, "ground_truth_test": ground_truth_test,
@@ -250,3 +261,130 @@ def run_trial_on_graph(
     return TrialResult(recall=recall, precision=precision, coverage=coverage,
                        recall_purchase=recall_purchase, history=run.history,
                        train_time_s=time.perf_counter() - t0, saved_to=saved_to)
+
+
+def run_trial(
+    fixed: FixedParams,
+    hyper: HyperParams,
+    paths: Optional[DataPaths] = None,
+    dataframes: Optional[Dict] = None,
+    save_dir: Optional[str] = None,
+    save_threshold: Optional[float] = None,
+    plots_dir: Optional[str] = None,
+    dtype: Optional[torch.dtype] = None,
+    neg_pool_size: int = 2048,
+    verbose: bool = False,
+    check_embedding: bool = False,
+    device="cuda",
+    on_stage: Optional[Callable[[str, TrialRun], None]] = None,
+) -> TrialResult:
+    """Build the data, train, evaluate (JAX ``trial.py:133-409``; reference
+    main.py:42-447).  The graph comes from ``dataframes`` (the keyword
+    arguments of :meth:`GraphData.from_dataframes`) or the files of
+    ``paths``, built with ``fixed.max_fanout``; then
+    :func:`run_trial_on_graph` with no row cap on the split, as JAX's
+    ``run_trial`` (ROADMAP.md queue 3, flaw 1), saving ``id_maps`` with the
+    run.  Then, by ``fixed.run_inference``, the recall of the trained
+    weights on the graph rebuilt with ``remove_on_inference`` (1), and also
+    with 710-day windows (2); with ``check_embedding``, example
+    recommendations, similar sports and demographic coverage; with
+    ``plots_dir``, the loss and metric curves.  ``device``: where the model
+    trains, embeds and ranks.  ``on_stage``: :func:`run_trial_on_graph`'s
+    stages, then ``"inference_evaluated"``."""
+    t0 = time.perf_counter()
+    inputs = dataframes if dataframes is not None else raw_inputs(paths)
+    gd = GraphData.from_dataframes(fixed, use_recency=hyper.use_recency,
+                                   use_popularity=hyper.use_popularity,
+                                   days_popularity=hyper.days_popularity,
+                                   max_fanout=fixed.max_fanout, **inputs)
+    runs = []
+
+    def stage(name, run):
+        runs[:] = [run]
+        if on_stage is not None:
+            on_stage(name, run)
+
+    result = run_trial_on_graph(
+        gd, gd.ground_truth_test, gd.already_bought, fixed, hyper,
+        ground_truth_purchase_test=gd.ground_truth_purchase_test, save_dir=save_dir,
+        save_threshold=save_threshold, dtype=dtype, neg_pool_size=neg_pool_size,
+        verbose=verbose, device=device, on_stage=stage,
+        id_maps={"ctm_id": gd.ctm_id, "pdt_id": gd.pdt_id, "spt_id": gd.spt_id})
+    run = runs[0]
+
+    # In-loop inference evaluation (reference main.py:418-436): the same
+    # weights on the data rebuilt under the inference regime.
+    if fixed.run_inference > 0:
+        from gnn_recsys_tpu_torch.inference_eval import inference_fn
+
+        result.inference_recall = inference_fn(
+            run.model, fixed, hyper, inputs, remove_on_inference=fixed.remove_on_inference,
+            device=device)[1]
+        if verbose:
+            print(f"inference eval (remove={fixed.remove_on_inference}): "
+                  f"recall@{fixed.k}={result.inference_recall:.4f}")
+        if fixed.run_inference > 1:
+            # "For all users": 710-day windows (reference main.py:426-436).
+            result.inference_recall_all_users = inference_fn(
+                run.model, fixed, hyper, inputs, remove_on_inference=fixed.remove_on_inference,
+                days_of_purchases=710, days_of_clicks=710, lifespan_of_items=710,
+                device=device)[1]
+            if verbose:
+                print(f"inference eval (all users, 710-day windows): "
+                      f"recall@{fixed.k}={result.inference_recall_all_users:.4f}")
+        if on_stage is not None:
+            on_stage("inference_evaluated", run)
+
+    if check_embedding:
+        _check_embedding(gd, run, fixed, device)
+
+    if plots_dir is not None:
+        from gnn_recsys_tpu_torch.utils.viz import plot_train_loss
+
+        history = result.history
+        hp_str = ", ".join(f"{k}={v}" for k, v in dataclasses.asdict(hyper).items())
+        plot_train_loss(hp_str, {"train_loss_list": history["train_loss"],
+                                 "loss_list": history["valid_loss"],
+                                 "val_recall_list": history["recall"]}, out_dir=plots_dir)
+    result.train_time_s = time.perf_counter() - t0
+    return result
+
+
+def _check_embedding(gd: GraphData, run: TrialRun, fixed: FixedParams, device) -> None:
+    """Qualitative evaluation (JAX ``trial.py:336-386``, reference
+    main.py:314-400): example recommendations, demographic coverage and
+    similar sports."""
+    from gnn_recsys_tpu_torch.evaluation.explore import (
+        check_coverage,
+        explore_recs,
+        explore_sports,
+    )
+    from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
+    from gnn_recsys_tpu_torch.retrieval.recs import get_recs
+
+    item_col = ColumnConfig().item_id(fixed.item_id_type)
+    h, model = run.embeddings, run.model
+    user_ids = np.unique(np.asarray(gd.ground_truth_test[0]))[: fixed.num_choices * 4]
+    if len(user_ids):
+        bought = gd.already_bought
+        ab_set = build_padded_pair_set(bought[0], bought[1], num_src=gd.num_nodes["user"])
+        recs = get_recs(h["user"], h["item"], user_ids.astype(np.int64), fixed.k,
+                        already_bought=ab_set, score_fn=model_score_fn(model.pred, model),
+                        device=device).cpu().numpy()
+        recs_dict = {int(u): row.tolist() for u, row in zip(user_ids, recs)}
+        gt_dict: Dict[int, list] = {}
+        for u, i in zip(*gd.ground_truth_test):
+            gt_dict.setdefault(int(u), []).append(int(i))
+        explore_recs(recs_dict, gd.user_item_train_grouped, gd.item_feat_df, gd.pdt_id,
+                     gd.ctm_id, ground_truth=gt_dict, num_choices=fixed.num_choices,
+                     item_id_type=item_col)
+        if gd.item_feat_df is not None:
+            check_coverage(gd.user_item_train_grouped, gd.item_feat_df, gd.pdt_id, recs_dict,
+                           item_id_type=item_col)
+    g = gd.graph
+    if "sport" in g.ntypes and gd.sport_feat_df is not None and len(gd.sport_feat_df):
+        h_sport = infer_embeddings(model, g, run.features, mode=fixed.inference_mode,
+                                   node_batch_size=fixed.node_batch_size, ntypes=("sport",),
+                                   device=device)["sport"]
+        explore_sports(h_sport.cpu().numpy(), gd.sport_feat_df, gd.spt_id,
+                       num_choices=fixed.num_choices)

@@ -5,15 +5,22 @@ Port of ``gnn_recsys_tpu/utils/synthetic.py``: ``make_synthetic_data``
 sport node type, and ``make_hard_synthetic_data`` (``:146``), interactions
 from a latent-factor model with Zipf popularity.  The numpy draws come in the
 same order, so the same seed gives the same arrays as the JAX package.
+``make_drift_logs`` is ``benchmarks/e2e_drift_cli.py:make_drift_csvs``
+without pandas: raw interaction logs in the reference's CSV layout, whose
+items live for a finite window, so that the ETL's date windows drop rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from gnn_recsys_tpu_torch.config import ColumnConfig
+from gnn_recsys_tpu_torch.data.io import write_csv
+from gnn_recsys_tpu_torch.data.table import Table
 from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph, build_hetero_graph
 
 
@@ -236,3 +243,63 @@ def make_hard_synthetic_data(
         item_latent=zi,
         item_logpop=logpop,
     )
+
+
+def make_drift_logs(outdir: str, num_users: int = 3000, num_items: int = 900,
+                    per_user: int = 30, total_days: int = 540, latent_dim: int = 8,
+                    beta: float = 5.0, pop_weight: float = 0.5,
+                    seed: int = 0) -> Tuple[Dict[str, str], Table]:
+    """Write ``interactions.csv``, ``item_feat.csv`` and ``user_feat.csv``
+    to ``outdir``, byte for byte what ``make_drift_csvs`` writes for the same
+    arguments (the same draws from ``np.random.default_rng(seed)``); returns
+    (the files' paths by name, the interactions).
+
+    Users prefer items of high ``<z_u, z_i>`` and popular items; each item
+    is active over ``[birth, death)`` days (birth uniform over the history,
+    120-300 day lives); a user interacts only with items active that day,
+    half the days in the last 120; 60% of interactions are purchases."""
+    c = ColumnConfig()
+    rng = np.random.default_rng(seed)
+    zu = rng.normal(size=(num_users, latent_dim))
+    zi = rng.normal(size=(num_items, latent_dim))
+    logpop = -0.9 * np.log(rng.permutation(num_items) + 1.0)
+    birth = rng.integers(0, total_days - 60, num_items)
+    death = np.minimum(birth + rng.integers(120, 300, num_items), total_days)
+    base = np.datetime64("2020-01-01", "D")
+    rows = []
+    for u in range(num_users):
+        days = np.concatenate([
+            rng.integers(0, total_days, per_user // 2),
+            rng.integers(total_days - 120, total_days, per_user // 2),
+        ])
+        for d in days:
+            active = np.flatnonzero((birth <= d) & (d < death))
+            if len(active) == 0:
+                continue
+            logits = beta * (zi[active] @ zu[u]) / np.sqrt(latent_dim) \
+                + pop_weight * logpop[active]
+            logits -= logits.max()
+            pvec = np.exp(logits)
+            it = int(rng.choice(active, p=pvec / pvec.sum()))
+            buy = int(rng.random() < 0.6)
+            rows.append((f"u{u}", f"it{it}", buy, str(base + np.timedelta64(int(d), "D")),
+                         int(d) * 100000 + len(rows)))
+    cols = list(zip(*rows)) or [()] * 5
+    df = Table({name: np.array(col, dtype=object if i in (0, 1, 3) else np.int64)
+                for i, (name, col) in enumerate(zip(
+                    (c.ctm_id, c.specific_item_id, c.buy, c.hit_date, c.hit_timestamp), cols))})
+    ar_items, ar_users = np.arange(num_items), np.arange(num_users)
+    itf = Table({
+        c.specific_item_id: np.array([f"it{i}" for i in ar_items], dtype=object),
+        c.general_item_id: np.array([f"g{i // 3}" for i in ar_items], dtype=object),
+        "is_junior": ar_items % 2, "is_male": (ar_items + 1) % 2,
+        "is_female": np.zeros(num_items, np.int64), "eco_design": np.ones(num_items, np.int64),
+    })
+    uf = Table({c.ctm_id: np.array([f"u{i}" for i in ar_users], dtype=object),
+                "is_male": ar_users % 2, "is_female": (ar_users + 1) % 2})
+    os.makedirs(outdir, exist_ok=True)
+    paths = {}
+    for name, table in (("interactions", df), ("item_feat", itf), ("user_feat", uf)):
+        paths[name] = os.path.join(outdir, f"{name}.csv")
+        write_csv(table, paths[name])
+    return paths, df

@@ -186,6 +186,43 @@ def test_hp_search_rehearsal(capsys):
     assert "gather_max_abs_err" not in trials[2]  # the tree forward
 
 
+def test_etl_cli_rehearsal(capsys):
+    """Phase etl_cli at 200 users and 80 items: raw CSV logs, the windows'
+    row counts, the presplit, ``main_hp`` (two trials from the files),
+    ``main_train`` and two ``main_inference`` requests, each trial reported
+    with its ETL stages; the saved run's rankings held route against route,
+    and the first dedup'd trial's gather-mean plan held against the plain
+    versions (rows ``gather_mean_*:etl:…``)."""
+    launches, rows = chip_smoke.phase_etl_cli(torch.device("cpu"), num_users=200, num_items=80,
+                                              epochs=2, edge_batch_size=256,
+                                              named_users=("u7", "u42", "u123"), on_card=False)
+    assert set(launches.values()) == {0}  # CPU tensors: the plain versions, no launch
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    trials = [line for line in lines if line["phase"] == "etl_trial"]
+    phase = lines[-1]
+    assert phase["phase"] == "etl_cli" and phase["interactions"] > 5000
+    w = phase["windows"]
+    assert w["rows_lifespan"] < w["rows_purchase_window"] < w["rows_full"]
+    assert w["rows_click_window"] < w["rows_full"]
+    assert [t["trial"] for t in trials] == ["hp", "hp", "train"]
+    for t in trials:
+        assert sorted(t["etl_s"]) == ["build_graph", "create_ids", "df_to_adjacency_list",
+                                      "format_dfs", "import_features"]
+        assert t["epochs"] == 2 and t["updates"] > 0 and t["inference_recall"] is not None
+        assert min(t["split_s"], t["build_s"], t["train_s"], t["evaluate_s"]) > 0
+        assert t["nodes"]["user"] > 0 and t["edges"]["user/buys/item"] > 0
+    assert trials[0]["dedup"] and trials[0]["hyper"]["aggregator_type"] == "mean_nn"
+    assert trials[2]["saved_to"] is not None
+    assert phase["all_users"] > 100 and sorted(phase["named_recs"]) == ["u123", "u42", "u7"]
+    assert all(len(v) == 10 for v in phase["named_recs"].values())
+    assert phase["routes"]["rows_differing"] == 0 and phase["routes"]["users"] > 0
+    names = [row["name"] for row in rows]
+    assert names and len(set(names)) == len(names)
+    assert {n.split(":")[0] for n in names} == set(chip_smoke.GATHER_KERNELS)
+    assert all(n.split(":")[1] == "etl" for n in names)
+    assert all(row["max_abs_err"] == 0.0 and row["launches"] == 0 for row in rows)
+
+
 def test_popularity_recall_matches_the_jax_gates_baseline():
     """``popularity_recall`` is the JAX package's gate baseline
     (``tests/test_e2e_fullbatch.py``) computed with the port's metrics."""
@@ -206,6 +243,28 @@ def test_per_call_ms_survives_lost_records():
     full = [("a", 20, 200.0), ("b", 40, 400.0)]
     lost = [("a", 17, 170.0), ("b", 37, 370.0)]
     assert chip_smoke.per_call_ms(full, 20) == chip_smoke.per_call_ms(lost, 20) == 0.03
+
+
+def test_yardstick_falls_back_to_events_only_when_no_kernel_is_recorded(monkeypatch):
+    """A library yardstick is timed by the profiler; where it recorded none
+    of the call's kernels, by CUDA events, and the row says which.  Any
+    other error propagates."""
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: 2.5)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn: 1.5)
+    assert chip_smoke.yardstick_ms(None) == (1.5, "profiler")
+
+    def lost(fn):
+        raise chip_smoke.NoKernelRecorded("none")
+
+    monkeypatch.setattr(chip_smoke, "device_ms", lost)
+    assert chip_smoke.yardstick_ms(None) == (2.5, "cuda_events")
+
+    def broken(fn):
+        raise RuntimeError("CUDA error")
+
+    monkeypatch.setattr(chip_smoke, "device_ms", broken)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        chip_smoke.yardstick_ms(None)
 
 
 def test_slot_stats_counts_valid_slots_per_source_row():
