@@ -186,7 +186,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 import warnings
 
 import numpy as np
@@ -307,11 +306,13 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_kernels(run, n: int):
+def profiled_kernels(run, n: int, pad_s: float = 0.0):
     """``run`` ``n`` times under ``torch.profiler``: (host ms a run,
     [(kernel name, launches, device us)]).  One call runs in the profiler's
     warm-up cycle, which it discards: on the H100's host it lost the first
-    kernels launched as tracing started."""
+    kernels launched as tracing started.  ``pad_s`` idle seconds open and
+    close the active window (``profiler_probe.py``: they keep none of the
+    records the profiler loses, :func:`phase_profiler_window`)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -319,11 +320,13 @@ def profiled_kernels(run, n: int):
         run()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         for _ in range(n):
             run()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / n
+        time.sleep(pad_s)
         prof.step()
     kernels = []
     for evt in prof.key_averages():
@@ -339,38 +342,24 @@ def profiled_kernels(run, n: int):
 def per_call_ms(kernels, reps: int) -> float:
     """Device ms of one call from a profile of ``reps`` calls: each kernel's
     mean recorded duration times its launches a call.  The profiler on the
-    H100's host drops the records of a few launches now and then (up to 3 of
-    20 seen); the mean of the rest still times each launch, and the launches
-    a call are the recorded count rounded up to a multiple of ``reps``."""
+    H100's host drops records once the process has run a while (about 10 a
+    profile, now and then hundreds: :func:`phase_profiler_window`); the mean
+    of the rest still times each launch, and the launches a call are the
+    recorded count rounded up to a multiple of ``reps``."""
     return sum(us / count * -(-count // reps) for _, count, us in kernels) / 1e3
-
-
-class NoKernelRecorded(RuntimeError):
-    """``torch.profiler`` recorded no CUDA kernel for a call that launches one."""
 
 
 def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     """Device time of one call of ``fn`` in ms (``per_call_ms`` under
     ``torch.profiler``).  A profile with no kernel recorded is taken again;
     after ``tries`` of them this raises, so that ``ms`` always means device
-    time."""
+    time.  Take ``reps`` well above the records a profile may lose: 3 calls
+    of a two-kernel call (6 records) often kept none late in a run."""
     for _ in range(tries):
         _, kernels = profiled_kernels(fn, reps)
         if kernels:
             return per_call_ms(kernels, reps)
-    raise NoKernelRecorded("torch.profiler recorded no CUDA kernel for a call that launches one")
-
-
-def yardstick_ms(fn) -> tuple:
-    """(ms, how) of one call of a library yardstick: its device time over
-    20 calls (:func:`device_ms`), or, where the profiler recorded none of
-    its kernels (seen once on the H100's host, late in the run, for
-    ``embedding_bag``'s three profiled launches), CUDA events around
-    back-to-back calls (:func:`time_ms`, host gaps included)."""
-    try:
-        return device_ms(fn), "profiler"
-    except NoKernelRecorded:
-        return time_ms(fn), "cuda_events"
+    raise RuntimeError("torch.profiler recorded no CUDA kernel for a call that launches one")
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -501,10 +490,10 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
         row["library"] = NO_YARDSTICK
     if timed:
         with tm.full_f32_matmul():
-            row.update(ms=device_ms(kernel), events_ms=time_ms(kernel),
-                       plain_ms=device_ms(plain, reps=3))
+            # One clock for all three: 20 profiled calls each.
+            row.update(ms=device_ms(kernel), events_ms=time_ms(kernel), plain_ms=device_ms(plain))
             if library is not None:
-                row["library_ms"], row["library_timing"] = yardstick_ms(library)
+                row["library_ms"] = device_ms(library)
     rows.append(row)
     say("kernel", **row)
     return row
@@ -1027,6 +1016,64 @@ def phase_gather_steps(dev, tap, timed=True, label=gather_label, bf16=True) -> l
                 say("gather_l2_probe", name=fwd["name"], ms=fwd["ms"],
                     l2_resident_ms=fwd["l2_resident_ms"])
     return rows
+
+
+def launch_gaps(fn, reps=200, pad_s=0.1) -> dict:
+    """One profile of ``reps`` calls of ``fn`` with ``pad_s`` idle seconds
+    at the window's edges: the kernel records and the host's launches it
+    kept, and, where they pair up in order, each kernel's start minus its
+    launch's start as the profiler places them (min and median us; a
+    negative gap means its host and device clocks disagree)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(pad_s)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+        prof.step()
+    events = prof.events()
+    kernels = sorted(e.time_range.start for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = sorted(e.time_range.start for e in events if e.name.startswith("cudaLaunch"))
+    out = {"kernels": len(kernels), "launches": len(launches)}
+    if kernels and len(kernels) == len(launches):
+        gaps = np.asarray(kernels) - np.asarray(launches)
+        out.update(gap_min_us=float(gaps.min()), gap_median_us=float(np.median(gaps)))
+    return out
+
+
+def phase_profiler_window(dev, when, profiles=20, reps=(3, 20), pads=(0.0,),
+                          shape=(2104, 24, 904, 4)) -> dict:
+    """How many kernel records ``torch.profiler`` keeps of a small call
+    profiled ``profiles`` times at each count of calls in ``reps`` and each
+    idle time in ``pads`` at the edges of the active window, and where it
+    places the kernels against their launches (:func:`launch_gaps`).  The
+    call is the yardstick that once kept no record late in a run:
+    ``embedding_bag``'s forward at B, K, N, D = ``shape`` (a gather plan of
+    phase ``etl_cli``).  A profile of r calls should keep r times the call's
+    launches; the most any profile kept stands for that."""
+    b, k, n, d = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn(n, d, device=dev, generator=gen)
+    nbr = torch.randint(0, n, (b, k), device=dev, generator=gen, dtype=torch.int32)
+    mask = torch.rand(b, k, device=dev, generator=gen) < 0.5
+    bag, _ = embedding_bag_calls(h, nbr, mask, torch.ones(b, d, device=dev))
+    report = {"when": when, "profiles": profiles, "shape": list(shape)}
+    for pad in pads:
+        for r in reps:
+            kept = [sum(count for _, count, _ in profiled_kernels(bag, r, pad_s=pad)[1])
+                    for _ in range(profiles)]
+            report[f"pad_{pad}_s_reps_{r}"] = {"kept_max": max(kept), "kept_min": min(kept),
+                                               "profiles_with_none": kept.count(0)}
+    report["launch_gaps"] = launch_gaps(bag)
+    say("profiler_window", **report)
+    return report
 
 
 def _assert_recs_valid(recs: dict, bought_rows: np.ndarray, num_items: int) -> None:
@@ -1834,15 +1881,17 @@ def full_batch_step_check(dev, pred, hidden, out, size, cfg) -> dict:
             "update_gap_where_g_big": update_gap}
 
 
-def eval_routes_check(dev, h, data, k, popularity=None, weight=1.0) -> dict:
+def eval_routes_check(dev, h, ground_truth, already_bought, k, popularity=None,
+                      weight=1.0) -> dict:
     """Embeddings ``h`` ranked as the evaluation ranks them
-    (``get_metrics_at_k``'s users, already-bought table and k; with
+    (``get_metrics_at_k``'s users, the users of the ``ground_truth`` pairs;
+    its already-bought table, of the ``already_bought`` pairs; and k; with
     ``popularity``, the boost at ``weight``), through the kernels
     (``mips_topk``, or ``mips_lse`` then ``mips_boost``) and through the
     torch route: rows may differ only at near-ties
     (:func:`_assert_routes_agree`)."""
-    gt_u = np.asarray(data.test_ground_truth[0])
-    bu, bi = data.train_pairs[BUYS]
+    gt_u = np.asarray(ground_truth[0])
+    bu, bi = already_bought
     uids = torch.as_tensor(np.unique(gt_u), device=dev)
     ps = build_padded_pair_set(bu, bi, num_src=max(h["user"].shape[0], int(np.max(bu)) + 1,
                                                    int(gt_u.max()) + 1))
@@ -1977,7 +2026,8 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
         raise AssertionError(f"{phase}: the cosine evaluation never launched mips_topk")
     if pred == "cos":
         report["eval_routes"] = eval_routes_check(
-            dev, compute_embeddings(model, g, feats, device=dev), data, k)
+            dev, compute_embeddings(model, g, feats, device=dev), data.test_ground_truth,
+            data.train_pairs[BUYS], k)
     if on_card:
         step = make_full_batch_step(model, cfg, tuple(data.train_pairs))
         inputs = full_batch_inputs(g, g, feats, data.train_pairs, dev)
@@ -2120,12 +2170,11 @@ def hp_trial(dev, data, fixed, hyper, popularity, index, on_card=True) -> tuple:
         torch.cuda.reset_peak_memory_stats(dev)
         report["allocated_bytes_before"] = torch.cuda.memory_allocated(dev)
     tap = GatherTap()
-    at, parts, launches = {}, {}, {}
+    at, launches = {}, {}
 
     def on_stage(stage, run):
         at[stage] = time.perf_counter()
         if stage == "built":
-            parts["run"] = run
             init_model(run.model.to(dev), seed=run.cfg.seed)  # train_minibatch's own weights
             report["initial_weights_recall"] = trial_metrics(
                 trial_embeddings(run.model, g, run.features, fixed, dev), run.model,
@@ -2153,7 +2202,7 @@ def hp_trial(dev, data, fixed, hyper, popularity, index, on_card=True) -> tuple:
                                         on_stage=on_stage)
         if on_card:  # the trial's own peak, before the checks below allocate
             report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
-        run, hist, recall = parts.pop("run"), result.history, result.recall
+        run, hist, recall = result.run, result.history, result.recall
         tap.check_totals({name: launches["train"].get(name, 0) for name in GATHER_KERNELS},
                          "hp_search")
         split = run.split
@@ -2188,8 +2237,8 @@ def hp_trial(dev, data, fixed, hyper, popularity, index, on_card=True) -> tuple:
         # The kernels at this trial's shapes against their plain versions.
         boost = hyper.serve_with_popularity_boost
         report["eval_routes"] = eval_routes_check(
-            dev, run.embeddings, data, fixed.k, popularity=popularity if boost else None,
-            weight=hyper.weight_popularity)
+            dev, run.embeddings, data.test_ground_truth, bought, fixed.k,
+            popularity=popularity if boost else None, weight=hyper.weight_popularity)
         gd = split.train_graph.to(dev)
         feats = {nt: x.to(dev) for nt, x in run.features.items()}
         tables = {et: build_padded_pair_set(g.rels[et].src.numpy(), g.rels[et].dst.numpy(),
@@ -2326,16 +2375,11 @@ def window_rows(df, item_feat) -> dict:
     ``assert_windows_filter``, ``e2e_drift_cli.py:112-149``): each window
     must drop rows."""
     c, fp = ColumnConfig(), FixedParams()
-    empty = {"item_sport": Table({c.specific_item_id: [], c.spt_id: []}),
-             "user_sport": Table({c.ctm_id: [], c.spt_id: []}),
-             "sport_sportg": Table({c.sports_id: [], c.sportsgroup_id: [], c.spt_id: []}),
-             "sport": Table({c.spt_id: []})}
 
     def n_rows(days_p, days_c, lifespan):
-        out = etl.format_dfs(df, df.take([]), empty["item_sport"], empty["user_sport"],
-                             empty["sport_sportg"], item_feat, Table({c.ctm_id: []}),
-                             empty["sport"], empty["sport"], days_of_purchases=days_p,
-                             days_of_clicks=days_c, lifespan_of_items=lifespan, columns=c)
+        out = etl.format_dfs(df, df.take([]), item_feat=item_feat, user_feat=Table({c.ctm_id: []}),
+                             days_of_purchases=days_p, days_of_clicks=days_c,
+                             lifespan_of_items=lifespan, columns=c, **etl.no_sport_tables(c))
         return len(out[0])
 
     rows = {"rows_full": n_rows(10_000, 10_000, 10_000),
@@ -2354,35 +2398,58 @@ class TrialObserver:
     them: it calls the real one with an ``on_stage`` callback and records, a
     trial, the seconds of each ETL stage (``GraphData.seconds``), the
     graph's nodes and edges, the seconds of the split, build, training,
-    evaluation and of saving with the in-loop inference evaluation, and the
-    trial's metrics.  At the first dedup'd trial's ``"trained"`` stage it
-    runs one eager step of that trial's body on a copy of the trained model
-    with ``tap`` capturing its gather-mean calls (the launches of that step
-    are taken off the counters again: they are a check's, not the path's)."""
+    evaluation and of saving with the in-loop inference evaluation, the
+    trial's metrics and each gather-mean kernel's launches by shape in the
+    trial.  For the checks after the path it keeps, a trial, what its
+    evaluation ranked (``evals``: the embeddings, the test and purchase
+    ground truths, the already-bought pairs, and the popularity where the
+    trial serves with the boost) and, for each dedup'd trial, one step's
+    plan (``plans``): at the ``"trained"`` stage one eager step of the
+    trial's body runs on a copy of the trained model with ``tap`` capturing
+    its gather-mean calls (a trial that calls ``gather_mean`` must leave a
+    plan).  That step is a check's, not the path's: its
+    launches are taken off the counters again, and the default generators
+    (which its dropout draws from) are put back as they were."""
 
     def __init__(self, dev, tap):
         self.dev, self.tap, self.trials = dev, tap, []
+        self.evals, self.plans = [], []
+        self.calls = collections.Counter()
 
     def wrap(self, run_trial, label):
         def observed(*args, **kwargs):
-            at, parts = {}, {}
+            self.calls[label] += 1
+            name = f"{label}{self.calls[label]}"
+            fixed, hyper = args[:2]
+            at = {}
+            before = {kernel: collections.Counter(c) for kernel, c in self.tap.launches.items()}
+            calls_before = collections.Counter(self.tap.calls_by_shape)
 
             def on_stage(stage, run):
                 at[stage] = time.perf_counter()
-                parts["run"] = run
-                if stage == "trained" and run.cfg.dedup and not self.tap.captured:
-                    self.capture_plan(run)
+                if stage == "trained" and run.cfg.dedup:
+                    self.capture_plan(name, run)
+                elif stage == "evaluated":
+                    self.keep_evaluation(name, run, fixed, hyper)
                 sync(self.dev)
                 at[stage + "_end"] = time.perf_counter()
 
             t0 = time.perf_counter()
             result = run_trial(*args, on_stage=on_stage, **kwargs)
-            run = parts["run"]
+            by_shape = {kernel: self.tap.launches[kernel] - before[kernel]
+                        for kernel in GATHER_KERNELS}
+            planned = bool(self.plans) and self.plans[-1]["trial"] == name
+            if planned:
+                self.plans[-1]["launches"] = by_shape
+            elif self.tap.calls_by_shape - calls_before:
+                raise AssertionError(f"etl_cli: trial {name} called gather_mean, but no plan "
+                                     "was captured")
+            run = result.run
             gd = run.graph_data
             g = gd.graph
             etl_s = sum(gd.seconds.values())
             report = {
-                "trial": label, "etl_s": gd.seconds, "nodes": gd.num_nodes,
+                "trial": name, "etl_s": gd.seconds, "nodes": gd.num_nodes,
                 "edges": {"/".join(et): g.num_edges(et) for et in g.canonical_etypes},
                 "split_s": at["split"] - t0 - etl_s, "build_s": at["built"] - at["split_end"],
                 "train_s": at["trained"] - at["built_end"],
@@ -2397,33 +2464,84 @@ class TrialObserver:
                 "precision_recall_coverage": (result.precision, result.recall, result.coverage),
                 "recall_purchase": result.recall_purchase,
                 "inference_recall": result.inference_recall, "saved_to": result.saved_to,
-                "hyper": dataclasses.asdict(args[1])}
+                "boosted": self.evals[-1]["popularity"] is not None,
+                "gather_launches_by_shape": {
+                    kernel: {"B{}_K{}_N{}_D{}".format(*shape): n for shape, n in counts.items()}
+                    for kernel, counts in by_shape.items()},
+                "hyper": dataclasses.asdict(hyper)}
             if not np.isfinite(result.history["train_loss"]).all():
-                raise AssertionError(f"etl_cli: trial {label}: a loss is not finite")
+                raise AssertionError(f"etl_cli: trial {name}: a loss is not finite")
             if result.inference_recall is None or not 0.0 <= result.recall <= 1.0:
-                raise AssertionError(f"etl_cli: trial {label}: recall {result.recall}, "
+                raise AssertionError(f"etl_cli: trial {name}: recall {result.recall}, "
                                      f"inference recall {result.inference_recall}")
             self.trials.append(report)
             return result
         return observed
 
-    def capture_plan(self, run) -> None:
+    def keep_evaluation(self, name, run, fixed, hyper) -> None:
+        """What ``run_trial_on_graph`` ranked at the ``"evaluated"`` stage."""
+        gd = run.graph_data
+        item = gd.graph.ndata.get("item", {})
+        popularity = None
+        if hyper.serve_with_popularity_boost and "popularity" in item:
+            popularity = item["popularity"].reshape(-1)
+        self.evals.append({
+            "trial": name, "k": fixed.k, "weight": hyper.weight_popularity,
+            "popularity": popularity, "bought": gd.already_bought,
+            "ground_truths": {"test": gd.ground_truth_test,
+                              "purchase": gd.ground_truth_purchase_test},
+            "h": {nt: x.detach() for nt, x in run.embeddings.items()}})
+
+    def capture_plan(self, name, run) -> None:
         counters = build.launch_counters()
-        held = {name: fn.launches for name, fn in counters.items()}
+        held = {kernel: fn.launches for kernel, fn in counters.items()}
         g = run.graph_data.graph
         feats = {nt: x.to(self.dev) for nt, x in run.features.items()}
         tables = {et: build_padded_pair_set(g.rels[et].src.numpy(), g.rels[et].dst.numpy(),
                                             num_src=g.num_nodes("user")).to(self.dev)
                   for et in run.split.train_eids}
         counting, self.tap.counting = self.tap.counting, False
+        captured, self.tap.captured = self.tap.captured, []
         try:
-            capture_step_plan(self.dev, self.tap, dataclasses.replace(
-                run, model=copy.deepcopy(run.model)), run.split.train_graph.to(self.dev),
-                feats, tables)
+            with torch.random.fork_rng(devices=[self.dev] if self.dev.type == "cuda" else []):
+                capture_step_plan(self.dev, self.tap, dataclasses.replace(
+                    run, model=copy.deepcopy(run.model)), run.split.train_graph.to(self.dev),
+                    feats, tables)
+            if self.tap.captured:  # none where the aggregator is not a mean
+                self.plans.append({"trial": name, "calls": self.tap.captured})
         finally:
-            self.tap.counting = counting
-            for name, fn in counters.items():
-                fn.launches = held[name]
+            self.tap.counting, self.tap.captured = counting, captured
+            for kernel, fn in counters.items():
+                fn.launches = held[kernel]
+
+    def checks(self, dev, on_card) -> tuple:
+        """After the path: each trial's evaluation ranked through the kernels
+        and the torch route (:func:`eval_routes_check`, test and purchase
+        users, boosted where the trial served with the boost), and both
+        gather-mean kernels against their plain versions on each dedup'd
+        trial's plan (rows ``gather_mean_*:etl-<trial>:B…_K…_N…_D…``, each
+        with the trial's launches at its shape).  Returns (the routes by
+        trial, the rows)."""
+        routes = {}
+        for ev in self.evals:
+            routes[ev["trial"]] = {
+                users: eval_routes_check(dev, ev["h"], gt, ev["bought"], ev["k"],
+                                         popularity=ev["popularity"], weight=ev["weight"])
+                for users, gt in ev["ground_truths"].items() if gt is not None and len(gt[0])}
+        rows = []
+        for plan in self.plans:  # each dedup'd trial whose aggregator is a mean
+            self.tap.captured = plan["calls"]
+            trial_rows = phase_gather_steps(
+                dev, self.tap, timed=on_card, bf16=False,
+                label=lambda shape, t=plan["trial"]: "etl-{}:B{}_K{}_N{}_D{}".format(t, *shape))
+            for row in trial_rows:
+                kernel = row["name"].split(":", 1)[0]
+                row["launches"] = plan["launches"][kernel][tuple(row["shape"][x] for x in "BKND")]
+                if on_card and not row["launches"]:
+                    raise AssertionError(f"etl_cli: {row['name']} never launched on the path")
+            rows += trial_rows
+        self.tap.captured = []
+        return routes, rows
 
 
 def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
@@ -2445,10 +2563,12 @@ def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
     more than half the users under ``--all``; then the saved run's
     embeddings (``extras.pkl``) ranked on its test users through the kernels
     and through the torch route, with the boost where the run serves with
-    it (:func:`eval_routes_check`), and both gather-mean kernels against
-    their plain versions on the first dedup'd trial's plan (rows
-    ``gather_mean_*:etl:B…_K…_N…_D…``).  Returns (each kernel's launches on
-    the path, the gather-mean rows)."""
+    it (:func:`eval_routes_check`), and :meth:`TrialObserver.checks`: every
+    trial's evaluation ranked both ways (boosted where the trial served with
+    the boost) and both gather-mean kernels against their plain versions on
+    every dedup'd trial's plan (rows ``gather_mean_*:etl-<trial>:
+    B…_K…_N…_D…``).  Returns (each kernel's launches on the path, the
+    gather-mean rows)."""
     import io
 
     from gnn_recsys_tpu_torch.cli import main_hp, main_inference, main_train
@@ -2541,7 +2661,10 @@ def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
         if not len(all_recs) > num_users // 2 or \
                 len([ln for ln in all_text.splitlines() if ln.startswith("u")]) != len(all_recs):
             raise AssertionError(f"etl_cli: --all gave {len(all_recs)} users")
-        if on_card and not all(launches[name] for name in ("mips_topk",) + GATHER_KERNELS):
+        path_kernels = ("mips_topk",) + GATHER_KERNELS
+        if any(ev["popularity"] is not None for ev in observer.evals):
+            path_kernels += ("mips_lse", "mips_boost")
+        if on_card and not all(launches[name] for name in path_kernels):
             raise AssertionError(f"etl_cli: a kernel of the path never launched: {launches}")
 
         # The kernels at this path's shapes against their plain versions.
@@ -2553,20 +2676,10 @@ def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
         if hyper.serve_with_popularity_boost:
             popularity = run["graph"].ndata["item"]["popularity"].reshape(-1)
         report["routes"] = eval_routes_check(
-            dev, h, types.SimpleNamespace(
-                test_ground_truth=tuple(np.asarray(a, dtype=np.int64)
-                                        for a in extras["ground_truth_test"]),
-                train_pairs={BUYS: extras["already_bought"]}),
-            10, popularity=popularity, weight=hyper.weight_popularity)
-        rows = phase_gather_steps(dev, tap, timed=on_card, bf16=False,
-                                  label=lambda shape: "etl:B{}_K{}_N{}_D{}".format(*shape))
-        for row in rows:  # the launches of the path at the row's shape
-            kernel, label = row["name"].split(":", 1)
-            shape = tuple(int(x[1:]) for x in label.split(":")[1].split("_"))
-            row["launches"] = tap.launches[kernel][shape]
-            if on_card and not row["launches"]:
-                raise AssertionError(f"etl_cli: {row['name']} never launched on the path")
-        tap.captured.clear()
+            dev, h, tuple(np.asarray(a, dtype=np.int64) for a in extras["ground_truth_test"]),
+            extras["already_bought"], 10, popularity=popularity,
+            weight=hyper.weight_popularity)
+        report["trial_routes"], rows = observer.checks(dev, on_card)
     report.update(plots=plots, hp_objectives=[t.objective for t in state.trials],
                   train_recall=result.recall, train_inference_recall=result.inference_recall,
                   named_recs={u: list(v) for u, v in recs.items()}, all_users=len(all_recs),
@@ -2639,6 +2752,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     ptxas = phase_build()
     rows = phase_kernels(dev)
+    phase_profiler_window(dev, "start")
     t0 = time.perf_counter()
     data = bench_data()
     say("graph", seconds=time.perf_counter() - t0,
@@ -2681,6 +2795,7 @@ def main() -> int:
     hp_launches, hp_rows = phase_hp_search(dev)
     # The user's path from raw CSV logs: the ETL, run_trial and the CLIs.
     etl_launches, etl_rows = phase_etl_cli(dev)
+    phase_profiler_window(dev, "end")
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:

@@ -51,6 +51,19 @@ def _as_df(path_or_df) -> Table:
     return as_table(path_or_df)
 
 
+def no_sport_tables(columns: Optional[ColumnConfig] = None) -> Dict[str, Table]:
+    """:func:`format_dfs`'s sport inputs for a graph without sports: empty
+    tables with the columns the ETL reads.  Item-sport files carry the
+    SPECIFIC id only (``format_dfs`` merges the GENERAL one in).  Empty
+    columns are float64, as pandas makes them."""
+    c = columns or ColumnConfig()
+    sport = Table({c.spt_id: []})
+    return dict(item_sport=Table({c.specific_item_id: [], c.spt_id: []}),
+                user_sport=Table({c.ctm_id: [], c.spt_id: []}),
+                sport_sportg=Table({c.sports_id: [], c.sportsgroup_id: [], c.spt_id: []}),
+                sport_feat=sport, sport_onehot=sport)
+
+
 def format_dfs(
     train,
     test,
@@ -385,22 +398,13 @@ class GraphData:
             seconds[stage] = now - t
             t = now
 
-        # Item-sport files carry the SPECIFIC id only (format_dfs merges the
-        # GENERAL one in).  Empty columns are float64, as pandas makes them.
-        empty_item_sport = Table({c.specific_item_id: [], c.spt_id: []})
-        empty_user_sport = Table({c.ctm_id: [], c.spt_id: []})
-        empty_sport_sportg = Table({c.sports_id: [], c.sportsgroup_id: [], c.spt_id: []})
-        empty_sport_feat = Table({c.spt_id: []})
+        sports = dict(item_sport=item_sport, user_sport=user_sport, sport_sportg=sport_sportg,
+                      sport_feat=sport_feat, sport_onehot=sport_onehot)
         (user_item_train, user_item_test, item_sport_interaction, user_sport_interaction,
          sport_sportg_interaction, item_feat_df, user_feat_df, sport_feat_df,
          sport_onehot_df) = format_dfs(
-            train, test,
-            item_sport if include_sport else empty_item_sport,
-            user_sport if include_sport else empty_user_sport,
-            sport_sportg if include_sport else empty_sport_sportg,
-            item_feat, user_feat,
-            sport_feat if include_sport else empty_sport_feat,
-            sport_onehot if include_sport else empty_sport_feat,
+            train, test, item_feat=item_feat, user_feat=user_feat,
+            **(sports if include_sport else no_sport_tables(c)),
             remove=fp.remove, item_id_type=fp.item_id_type,
             days_of_purchases=fp.days_of_purchases, days_of_clicks=fp.days_of_clicks,
             lifespan_of_items=fp.lifespan_of_items,

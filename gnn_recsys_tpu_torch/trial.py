@@ -62,6 +62,9 @@ class TrialResult:
     # (run_inference > 1).
     inference_recall: Optional[float] = None
     inference_recall_all_users: Optional[float] = None
+    # The trial's parts (:class:`TrialRun`): the trained model for
+    # :func:`run_trial`'s inference evaluation and checks.
+    run: Optional["TrialRun"] = dataclasses.field(default=None, repr=False, compare=False)
 
 
 def build_model(graph_data, fixed: FixedParams, hyper: HyperParams,
@@ -191,7 +194,8 @@ def run_trial_on_graph(
     ``on_stage(stage, run)`` is called with ``"split"``, ``"built"`` (model,
     config and features made; not trained), ``"trained"`` and
     ``"evaluated"`` (embeddings and metrics made).  ``id_maps``: saved with
-    the run (``id_maps.pkl``)."""
+    the run (``id_maps.pkl``).  The result's ``run`` holds the trial's
+    parts."""
     stage = on_stage or (lambda name, run: None)
     t0 = time.perf_counter()
     g = graph_data.graph
@@ -260,7 +264,7 @@ def run_trial_on_graph(
         saved_to = save_dir
     return TrialResult(recall=recall, precision=precision, coverage=coverage,
                        recall_purchase=recall_purchase, history=run.history,
-                       train_time_s=time.perf_counter() - t0, saved_to=saved_to)
+                       train_time_s=time.perf_counter() - t0, saved_to=saved_to, run=run)
 
 
 def run_trial(
@@ -297,20 +301,13 @@ def run_trial(
                                    use_popularity=hyper.use_popularity,
                                    days_popularity=hyper.days_popularity,
                                    max_fanout=fixed.max_fanout, **inputs)
-    runs = []
-
-    def stage(name, run):
-        runs[:] = [run]
-        if on_stage is not None:
-            on_stage(name, run)
-
     result = run_trial_on_graph(
         gd, gd.ground_truth_test, gd.already_bought, fixed, hyper,
         ground_truth_purchase_test=gd.ground_truth_purchase_test, save_dir=save_dir,
         save_threshold=save_threshold, dtype=dtype, neg_pool_size=neg_pool_size,
-        verbose=verbose, device=device, on_stage=stage,
+        verbose=verbose, device=device, on_stage=on_stage,
         id_maps={"ctm_id": gd.ctm_id, "pdt_id": gd.pdt_id, "spt_id": gd.spt_id})
-    run = runs[0]
+    run = result.run
 
     # In-loop inference evaluation (reference main.py:418-436): the same
     # weights on the data rebuilt under the inference regime.

@@ -190,9 +190,10 @@ def test_etl_cli_rehearsal(capsys):
     """Phase etl_cli at 200 users and 80 items: raw CSV logs, the windows'
     row counts, the presplit, ``main_hp`` (two trials from the files),
     ``main_train`` and two ``main_inference`` requests, each trial reported
-    with its ETL stages; the saved run's rankings held route against route,
-    and the first dedup'd trial's gather-mean plan held against the plain
-    versions (rows ``gather_mean_*:etl:…``)."""
+    with its ETL stages; the saved run's rankings and every trial's
+    evaluation held route against route, and every dedup'd trial's
+    gather-mean plan held against the plain versions (rows
+    ``gather_mean_*:etl-<trial>:…``)."""
     launches, rows = chip_smoke.phase_etl_cli(torch.device("cpu"), num_users=200, num_items=80,
                                               epochs=2, edge_batch_size=256,
                                               named_users=("u7", "u42", "u123"), on_card=False)
@@ -204,7 +205,7 @@ def test_etl_cli_rehearsal(capsys):
     w = phase["windows"]
     assert w["rows_lifespan"] < w["rows_purchase_window"] < w["rows_full"]
     assert w["rows_click_window"] < w["rows_full"]
-    assert [t["trial"] for t in trials] == ["hp", "hp", "train"]
+    assert [t["trial"] for t in trials] == ["hp1", "hp2", "train1"]
     for t in trials:
         assert sorted(t["etl_s"]) == ["build_graph", "create_ids", "df_to_adjacency_list",
                                       "format_dfs", "import_features"]
@@ -216,10 +217,15 @@ def test_etl_cli_rehearsal(capsys):
     assert phase["all_users"] > 100 and sorted(phase["named_recs"]) == ["u123", "u42", "u7"]
     assert all(len(v) == 10 for v in phase["named_recs"].values())
     assert phase["routes"]["rows_differing"] == 0 and phase["routes"]["users"] > 0
+    assert sorted(phase["trial_routes"]) == ["hp1", "hp2", "train1"]
+    for routes in phase["trial_routes"].values():
+        assert routes["test"]["rows_differing"] == 0 and routes["test"]["users"] > 0
     names = [row["name"] for row in rows]
     assert names and len(set(names)) == len(names)
     assert {n.split(":")[0] for n in names} == set(chip_smoke.GATHER_KERNELS)
-    assert all(n.split(":")[1] == "etl" for n in names)
+    planned = {"etl-" + t["trial"] for t in trials
+               if t["dedup"] and t["hyper"]["aggregator_type"] == "mean_nn"}
+    assert {n.split(":")[1] for n in names} == planned and "etl-hp1" in planned
     assert all(row["max_abs_err"] == 0.0 and row["launches"] == 0 for row in rows)
 
 
@@ -245,26 +251,40 @@ def test_per_call_ms_survives_lost_records():
     assert chip_smoke.per_call_ms(full, 20) == chip_smoke.per_call_ms(lost, 20) == 0.03
 
 
-def test_yardstick_falls_back_to_events_only_when_no_kernel_is_recorded(monkeypatch):
-    """A library yardstick is timed by the profiler; where it recorded none
-    of the call's kernels, by CUDA events, and the row says which.  Any
-    other error propagates."""
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: 2.5)
-    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn: 1.5)
-    assert chip_smoke.yardstick_ms(None) == (1.5, "profiler")
+def test_device_ms_raises_after_its_tries_record_no_kernel(monkeypatch):
+    """A profile with no kernel recorded is taken again; after ``tries`` of
+    them ``device_ms`` raises rather than report another clock."""
+    profiles = []
 
-    def lost(fn):
-        raise chip_smoke.NoKernelRecorded("none")
+    def empty(fn, reps):
+        profiles.append(reps)
+        return 0.0, []
 
-    monkeypatch.setattr(chip_smoke, "device_ms", lost)
-    assert chip_smoke.yardstick_ms(None) == (2.5, "cuda_events")
+    monkeypatch.setattr(chip_smoke, "profiled_kernels", empty)
+    with pytest.raises(RuntimeError, match="recorded no CUDA kernel"):
+        chip_smoke.device_ms(None, reps=7, tries=3)
+    assert profiles == [7, 7, 7]
+    records = iter([[], [("k", 14, 28.0)]])
+    monkeypatch.setattr(chip_smoke, "profiled_kernels", lambda fn, reps: (0.0, next(records)))
+    assert chip_smoke.device_ms(None, reps=7) == pytest.approx(0.004)
 
-    def broken(fn):
-        raise RuntimeError("CUDA error")
 
-    monkeypatch.setattr(chip_smoke, "device_ms", broken)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        chip_smoke.yardstick_ms(None)
+def test_kernel_row_times_the_library_on_the_kernels_clock(monkeypatch):
+    """``ms``, ``plain_ms`` and ``library_ms`` are each the profiler's
+    device time over 20 calls; CUDA events time only ``events_ms``."""
+    calls = []
+
+    def device(fn, reps=20):
+        calls.append((fn, reps))
+        return {"kernel": 1.0, "plain": 2.0, "library": 3.0}[fn]
+
+    monkeypatch.setattr(chip_smoke, "device_ms", device)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: 9.0)
+    row = chip_smoke.kernel_row([], True, "k", ("a.cu", "b.py"), 1, 0.0, "kernel", "plain",
+                                "library", 1e9, 1e9)
+    assert (row["ms"], row["plain_ms"], row["library_ms"], row["events_ms"]) == (1.0, 2.0, 3.0,
+                                                                                9.0)
+    assert calls == [("kernel", 20), ("plain", 20), ("library", 20)]
 
 
 def test_slot_stats_counts_valid_slots_per_source_row():
