@@ -164,11 +164,38 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    route, and the first dedup'd trial's gather-mean plan against the plain
    versions (rows ``gather_mean_*:etl:…``).
 
+15. train_lstm: the Medium model with ``aggregator_type="lstm"`` in bf16
+   (the bench config's computation dtype) through ``train_minibatch`` and
+   its device epochs, the bench step (dense pool of 2560, fanouts (8, 4),
+   2048 edges a batch, batch-edge exclusion, max-margin loss, Adam), three
+   short epochs on edge slices of the bench graph (the 10-step loss-only
+   pass, 20 training steps an epoch, 4 validation steps an epoch): the
+   median replay (CUDA events), edges a second, peak memory, the losses
+   (they must fall), the pool mask's launches (one an etype a step, the
+   captures' warm-ups included; no leaf or gather-mean launch); the eager
+   body against as many replays at the bf16 tolerances, 5 profiled replays
+   (device time by kernel group, idle share); recall@10 after training,
+   which must beat the same model's random weights'; then the run saved
+   and served (``inference_ondemand`` for 128 users, plain and boosted:
+   latency and its ``load_run`` share), its ranking through ``mips_topk``
+   and ``mips_lse`` + ``mips_boost`` held against the torch route.
+16. train_lstm_edge_dedup: the same with ``lstm_edge`` in f32 through the
+   dedup'd block forward (``MinibatchConfig(dedup=True)``), and two
+   gradient computations from the same parameters, batch and draws
+   (whether they are the same bits, and the largest gap).
+17. remat: phase 15's tree step with ``remat_levels`` False and True, from
+   one state and seed, each captured and replayed 10 times: the first
+   replay's loss and gradients against each other (the same bits where
+   they are), each run's peak memory (remat's must be lower) and median
+   replay; then the pair at dropout 0.5 for 2 replays, checked alike.
+
 Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
 gives its launches in phase 9, ``graph_launches``, ``mips_topk``'s its
 launches in phase 11, ``full_batch_launches``, each kernel of phase 13 its
-launches there, ``hp_search_launches``, and of phase 14,
-``etl_cli_launches``), the card's name and power limit,
+launches there, ``hp_search_launches``, of phase 14, ``etl_cli_launches``,
+and the pool mask's and the three MIPS epilogues' rows their launches in
+phases 15 to 17, ``train_lstm_launches``, ``train_lstm_edge_dedup_launches``
+and, the pool mask's, ``remat_launches``), the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device.
 """
@@ -1165,8 +1192,7 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
     num_users, num_items = data.num_users, data.num_items
     g = data.graph
     buys_u, buys_i = data.train_pairs[BUYS]
-    counts = np.bincount(buys_i, minlength=num_items).astype(np.float32)
-    g.ndata["item"]["popularity"] = torch.from_numpy(counts / counts.max())[:, None]
+    item_popularity(data)
     kw = medium_kwargs(g, hidden, out)
     model = ConvModel(**kw, generator=torch.Generator().manual_seed(0))
     model_kwargs = run_model_kwargs(kw)
@@ -2692,6 +2718,316 @@ def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
 
 
 # Kernel-name patterns of the step breakdown, first match wins.
+# ----------------------------------------------------------------------
+# The LSTM aggregators and remat_levels
+# ----------------------------------------------------------------------
+
+def lstm_kwargs(graph, agg, dtype, hidden=256, out=128) -> dict:
+    """The Medium model of ``medium_kwargs`` with an LSTM aggregator, in
+    ``dtype`` (bf16: the bench config of ``bench.py:219-231``)."""
+    return dict(medium_kwargs(graph, hidden, out), aggregator_type=agg, dtype=dtype)
+
+
+def lstm_per_step(etypes) -> dict:
+    """Each training kernel's launches in one LSTM step: the pool mask once
+    an etype; the leaf kernel (the LSTM leaf does not fold) and the
+    gather-mean (the LSTM reads every slot) never."""
+    return {name: (len(etypes) if name == "pool_membership_mask" else 0)
+            for name in REPLAY_KERNELS}
+
+
+def model_recall(dev, model, data, k) -> float:
+    """recall@``k`` of ``model``'s full-graph embeddings on the test pairs."""
+    g = data.graph
+    h = compute_embeddings(model, g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                           device=dev)
+    return get_metrics_at_k(h["user"], h["item"], data.test_ground_truth,
+                            data.train_pairs[BUYS], k, device=dev)[1]
+
+
+def item_popularity(data) -> torch.Tensor:
+    """Each item's purchases over the most any item has, as ``g.ndata["item"]
+    ["popularity"]`` (set there when missing): the boost's popularity."""
+    g = data.graph
+    if "popularity" not in g.ndata["item"]:
+        counts = np.bincount(data.train_pairs[BUYS][1], minlength=data.num_items)
+        counts = counts.astype(np.float32)
+        g.ndata["item"]["popularity"] = torch.from_numpy(counts / counts.max())[:, None]
+    return g.ndata["item"]["popularity"]
+
+
+def serve_run_routes(dev, data, model, kw, users, k) -> dict:
+    """``save_run`` the trained model (served in f32, as the JAX package
+    serves a run), then one ``inference_ondemand`` request for ``users``
+    users plain and one with the popularity boost
+    (latency, and its ``load_run`` share); the run's embeddings ranked for
+    those users through the kernels and the torch route, plain and boosted,
+    which must agree but at near-ties (:func:`eval_routes_check`)."""
+    g = data.graph
+    pop = item_popularity(data).reshape(-1).to(dev)
+    uids = np.random.default_rng(6).choice(data.num_users, users, replace=False)
+    report = {"users": users, "k": k}
+    with tempfile.TemporaryDirectory() as run_dir:
+        # A run's model.json holds no computation dtype: it serves in f32.
+        run_kw = run_model_kwargs({key: v for key, v in kw.items() if key != "dtype"})
+        save_run(run_dir, model.state_dict(), run_kw, hyper_params=HyperParams(), graph=g)
+        t0 = time.perf_counter()
+        run = load_run(run_dir)
+        report["load_run_s"] = time.perf_counter() - t0
+        for boost in (False, True):
+            t0 = time.perf_counter()
+            recs = inference_ondemand(run_dir, uids.tolist(), k=k, use_popularity=boost,
+                                      device=dev)
+            sync(dev)
+            s = time.perf_counter() - t0
+            report["boosted_request_s" if boost else "request_s"] = s
+            if sorted(recs) != sorted(uids.tolist()) or any(len(r) != k for r in recs.values()):
+                raise AssertionError("inference_ondemand answered other users or widths")
+        report["load_run_share"] = report["load_run_s"] / report["request_s"]
+    served = ConvModel(**model_kwargs_to_config(run["model_kwargs"]))
+    served.load_state_dict(run["params"])
+    h = compute_embeddings(served.to(dev), g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                           device=dev)
+    bought = already_bought_from_graph(g)
+    report["routes"] = {("boosted" if p is not None else "plain"):
+                        eval_routes_check(dev, h, (uids, None), bought, k, popularity=p)
+                        for p in (None, pop)}
+    return report
+
+
+def step_grads_twice(dev, model, cfg, g, feats, tables, eids) -> dict:
+    """Two gradient computations of one step from the same parameters,
+    batch and draws (the second replays the first's): whether the
+    gradients are the same bits, and the largest gap relative to each
+    parameter's largest entry (PyTorch's ``index_add_``, the backward of
+    the block forward's row takes, adds with atomics on CUDA)."""
+    etypes = tuple(eids)
+    batch = EdgeStore(g, etypes).batch({et: v[:cfg.edge_batch_size] for et, v in eids.items()},
+                                       True, dev)
+    loss_fn = make_minibatch_loss(model, cfg, etypes, True, {et: True for et in etypes})
+    rec = Draws(torch.Generator(device=dev).manual_seed(2), record=True)
+    out = []
+    for draws in (rec, None):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(g, feats, batch, tables, draws or rec.replay())
+        loss.backward()
+        out.append((float(loss.detach()), _grads(model)))
+    (la_, ga), (lb, gb) = out
+    gaps = {n: float((ga[n] - gb[n]).abs().max()) / max(float(ga[n].abs().max()), 1e-30)
+            for n in ga}
+    worst = max(gaps, key=gaps.get)
+    if la_ != lb or gaps[worst] > STEP_GRAD_RTOL:
+        raise AssertionError(f"two steps from one state: loss {la_} vs {lb}, {worst}'s "
+                             f"gradients {gaps[worst]} apart")
+    return {"bit_identical": all(torch.equal(ga[n], gb[n]) for n in ga),
+            "largest_gap_rel": gaps[worst], "largest_gap_param": worst}
+
+
+def phase_train_lstm(dev, data, phase="train_lstm", agg="lstm", dtype=torch.bfloat16,
+                     dedup=False, hidden=256, out=128, steps=40, valid_steps=4,
+                     batch_size=2048, pool=2560, fanouts=(8, 4), check_steps=6,
+                     serve_users=128, k=10, on_card=True) -> dict:
+    """An LSTM model trained with the bench step through ``train_minibatch``
+    and its device epochs (each step one replay of a CUDA graph on a card):
+    three epochs on edge slices of the bench graph (the 10-step loss-only
+    pass, then ``steps // 2`` training steps an epoch, and ``valid_steps``
+    validation steps each).  Reports the median training replay (CUDA
+    events), edges a second, peak memory, the losses (they must fall), and
+    the launches: each pool-mask launch of the steps run (the captures'
+    warm-ups included), no leaf or gather-mean launch.  Then
+    :func:`graph_route_check` (the eager body against as many replays, at
+    the bf16 tolerances for a bf16 model), 5 profiled replays
+    (:func:`replay_profile`), recall@``k`` against the same model's random
+    weights, which it must beat, and :func:`serve_run_routes`; with
+    ``dedup``, :func:`step_grads_twice`.  Returns the launches of the main
+    path (training, evaluation and serving) by kernel."""
+    from gnn_recsys_tpu_torch.train import graph_step
+
+    g = data.graph
+    kw = lstm_kwargs(g, agg, dtype, hidden, out)
+    model = ConvModel(**kw)
+    etypes = tuple(data.train_pairs)
+    per_epoch = max(1, steps // 2)
+    train_eids = edge_slices(g, etypes, per_epoch * batch_size)
+    valid_eids = edge_slices(g, etypes, valid_steps * batch_size,
+                             skip={et: len(v) for et, v in train_eids.items()})
+    cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
+                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True,
+                          dedup=dedup, num_epochs=3, metrics_every=0, patience=100, seed=0,
+                          device_epoch=True)
+    per_step = lstm_per_step(etypes)
+    widths, nb = _per_etype_batch_sizes({et: len(v) for et, v in train_eids.items()}, batch_size)
+    nb_valid = _per_etype_batch_sizes({et: len(v) for et, v in valid_eids.items()},
+                                      batch_size)[1]
+    warm = graph_step.WARMUP_STEPS if on_card else 0
+    steps_run = warm + 2 * nb + warm + min(10, nb) + warm + 3 * nb_valid
+    want = {name: n * steps_run for name, n in per_step.items()} if on_card else {
+        name: 0 for name in per_step}
+    init_model(model.to(dev), seed=cfg.seed)  # the weights train_minibatch starts from
+    random_recall = model_recall(dev, model, data, k)
+
+    counters = build.launch_counters()
+    for fn in counters.values():  # the main path: counters from 0
+        fn.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with timed_replays() as replays:
+        state, hist = train_minibatch(model, g, g, {nt: g.ndata[nt]["features"] for nt in g.ntypes},
+                                      train_eids, valid_eids, cfg, device=dev)
+        sync(dev)
+    wall_s = time.perf_counter() - t0
+    train_launches = {name: counters[name].launches for name in per_step}
+    if train_launches != want:
+        raise AssertionError(f"{phase}: launches {train_launches}, expected {want}")
+    losses = hist["train_loss"]
+    if not (np.isfinite(losses).all() and np.isfinite(hist["valid_loss"]).all()
+            and losses[2] < losses[1]):
+        raise AssertionError(f"{phase}: the loss is not finite or does not fall: {losses}")
+    report = {"aggregator": agg, "dtype": str(dtype), "dedup": dedup,
+              "route": "cuda_graph" if on_card else "eager_body", "train_steps": 2 * nb,
+              "loss_only_steps": min(10, nb), "valid_steps": 3 * nb_valid,
+              "edges_per_step": sum(widths.values()),
+              "edges_per_s_train_epochs": hist["edges_per_s"][1:], "wall_s": wall_s,
+              "train_loss": losses, "valid_loss": hist["valid_loss"], "updates": state.step,
+              "training_launches": train_launches, "launches_per_step": per_step}
+    if on_card:
+        train_ms = [a.elapsed_time(b) for update, a, b in replays["events"] if update]
+        report.update(step_ms_median=float(np.median(train_ms)),
+                      step_ms_min=float(np.min(train_ms)), step_ms_max=float(np.max(train_ms)),
+                      max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    recall = model_recall(dev, model, data, k)
+    report.update(recall=recall, random_weights_recall=random_recall)
+    if not recall > random_recall:
+        raise AssertionError(f"{phase}: trained recall@{k} {recall} <= random weights' "
+                             f"{random_recall}")
+    report["serve"] = serve_run_routes(dev, data, model, kw, serve_users, k)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if on_card and not all(launches[n] for n in ("mips_topk", "mips_lse", "mips_boost")):
+        raise AssertionError(f"{phase}: a ranking kernel never launched: {launches}")
+    report["launches"] = launches
+    del state, hist
+    gd = g.to(dev)
+    feats = {nt: gd.ndata[nt]["features"] for nt in gd.ntypes}
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    if dedup:
+        report["step_grads_twice"] = step_grads_twice(dev, model, cfg, gd, feats, tables,
+                                                      train_eids)
+    del model
+    report["graph_check"], captured = graph_route_check(
+        dev, gd, feats, kw, cfg, train_eids, tables, per_step, steps=check_steps,
+        on_card=on_card)
+    if on_card:
+        report["profile"] = replay_profile(captured, per_step, bf16=dtype == torch.bfloat16)
+    say(phase, **report)
+    return launches
+
+
+def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fanouts=(8, 4),
+                replays=10, on_card=True) -> dict:
+    """The ``train_lstm`` tree step (bf16 LSTM, the bench config) with
+    ``remat_levels`` False and True, each from one initial state and
+    permutation and one seed, captured as a CUDA graph (on the CPU: the
+    eager body) and replayed: the first replay's loss and gradients of the
+    two (the same bits where they are; else each gradient within
+    ``BF16_ROUTE_GRAD_REL`` of its parameter's largest entry, the loss
+    within ``LOSS_RTOL``: ``index_add_`` adds with atomics), the peak memory
+    of each step's capture and replays (remat's must be lower), and both
+    replay times.  Then the same pair at dropout 0.5 (the search proposes
+    0.5-0.58) for 2 replays, each run after one ``torch.manual_seed``: both
+    draw their keep masks through the layers' one dropout, so the same
+    checks hold.  Returns the pool mask's launches
+    of all four runs."""
+    g = data.graph.to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    etypes = tuple(data.train_pairs)
+    eids = edge_slices(g, etypes, replays * batch_size)
+    counts = {et: len(v) for et, v in eids.items()}
+    store = device_edge_store(g, etypes, dev)
+    eids_dev = {et: torch.as_tensor(v, device=dev) for et, v in eids.items()}
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
+                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True)
+    counters = build.launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    def run_pair(p: float, n: int) -> dict:
+        runs = {}
+        for remat in (False, True):
+            model = ConvModel(**lstm_kwargs(g, "lstm", torch.bfloat16, hidden, out),
+                              dropout=p, remat_levels=remat)
+            init_model(model, seed=0)
+            model.to(dev)
+            state = TrainState.create(model, lr=cfg.lr)
+            perm_fn, chunk_fn = make_epoch_fns(model, cfg, etypes, True, True,
+                                               {et: True for et in etypes}, counts,
+                                               capture=on_card)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            perms = perm_fn(eids_dev, gen)
+            draws = Draws(gen)
+            torch.manual_seed(11)  # the keep masks' generators
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            loss = float(chunk_fn(state, g, feats, tables, store, perms, 0, draws,
+                                  n_steps=1)[1][0])
+            run = {"loss": loss, "grads": _grads(model)}
+            times = []
+            for t in range(1, n):
+                if dev.type == "cuda":
+                    start, end = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                    start.record()
+                chunk_fn(state, g, feats, tables, store, perms, t, draws, n_steps=1)
+                if dev.type == "cuda":
+                    end.record()
+                    times.append((start, end))
+            sync(dev)
+            if on_card:
+                run.update(step_ms_median=float(np.median([a.elapsed_time(b) for a, b in times])),
+                           max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+            runs[remat] = run
+            del model, state, perm_fn, chunk_fn
+        plain, remat = runs[False], runs[True]
+        gaps = {k: float((remat["grads"][k] - g_).abs().max()) / max(float(g_.abs().max()), 1e-30)
+                for k, g_ in plain["grads"].items()}
+        worst = max(gaps, key=gaps.get)
+        if not abs(plain["loss"] - remat["loss"]) <= LOSS_RTOL * abs(plain["loss"]):
+            raise AssertionError(f"remat at dropout {p}: loss {remat['loss']} against "
+                                 f"{plain['loss']} without")
+        if not gaps[worst] <= BF16_ROUTE_GRAD_REL:
+            raise AssertionError(f"remat at dropout {p}: {worst}'s gradients {gaps[worst]} apart")
+        return {"plain": plain, "remat": remat, "loss": plain["loss"],
+                "loss_remat": remat["loss"],
+                "bit_identical": plain["loss"] == remat["loss"] and all(
+                    torch.equal(remat["grads"][k], g_) for k, g_ in plain["grads"].items()),
+                "largest_grad_gap_rel": gaps[worst], "largest_grad_gap_param": worst}
+
+    base = run_pair(0.0, replays)
+    drop = run_pair(0.5, 2)
+    plain, remat = base.pop("plain"), base.pop("remat")
+    report = dict(steps=replays, **base,
+                  dropout={"p": 0.5, "steps": 2,
+                           **{k: v for k, v in drop.items() if k not in ("plain", "remat")}},
+                  pool_mask_launches=counters["pool_membership_mask"].launches)
+    if on_card:
+        report.update({f"{key}{tag}": run[key] for tag, run in (("", plain), ("_remat", remat))
+                       for key in ("step_ms_median", "max_memory_allocated_bytes")})
+        if not remat["max_memory_allocated_bytes"] < plain["max_memory_allocated_bytes"]:
+            raise AssertionError(f"remat: peak memory {remat['max_memory_allocated_bytes']} not "
+                                 f"below {plain['max_memory_allocated_bytes']}")
+    say("remat", **report)
+    return {"pool_membership_mask": counters["pool_membership_mask"].launches}
+
+
+# The kernels the LSTM phases run: the pool mask in every step, the MIPS
+# epilogues in each evaluation and served request.
+LSTM_ROWS = ("pool_membership_mask", "mips_topk", "mips_lse", "mips_boost")
+
 KERNEL_GROUPS = (
     ("gather_mean_fwd", ("gather_mean_fwd",)),
     ("gather_mean_bwd", ("gather_mean_bwd",)),
@@ -2795,6 +3131,13 @@ def main() -> int:
     hp_launches, hp_rows = phase_hp_search(dev)
     # The user's path from raw CSV logs: the ETL, run_trial and the CLIs.
     etl_launches, etl_rows = phase_etl_cli(dev)
+    # The LSTM aggregators, trained through the device epochs and served;
+    # then remat_levels on the LSTM's tree step.
+    lstm_launches = {
+        "train_lstm": phase_train_lstm(dev, data),
+        "train_lstm_edge_dedup": phase_train_lstm(dev, data, phase="train_lstm_edge_dedup",
+                                                  agg="lstm_edge", dtype=None, dedup=True)}
+    lstm_launches["remat"] = phase_remat(dev, data)
     phase_profiler_window(dev, "end")
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -2806,6 +3149,10 @@ def main() -> int:
             row["hp_search_launches"] = hp_launches[row["name"]]
         if row["name"] in etl_launches:
             row["etl_cli_launches"] = etl_launches[row["name"]]
+        if row["name"] in LSTM_ROWS:
+            for phase, counts in lstm_launches.items():
+                if row["name"] in counts:
+                    row[f"{phase}_launches"] = counts[row["name"]]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
     rows += hp_rows + etl_rows  # launches: each phase's training, by shape

@@ -9,9 +9,11 @@ node's embedding; ``full_pass``: the JAX ``__call__``, embeddings and the
 scores of given pairs); ``sampled_repr`` / ``minibatch_forward`` expand static-shape
 sampled trees of global node ids (one independent sample per occurrence,
 the JAX package's ``dedup=False`` tree) or, with ``dedup=True``, the dedup'd
-block forward (each level's unique nodes computed once).  Not ported yet
-(ROADMAP.md): ``remat_levels`` and the sharded hooks
-(``feature_lookup``, ``neighbor_sample``).
+block forward (each level's unique nodes computed once).  The ``lstm``
+aggregators run on all three routes through the layer's masked LSTM;
+``remat_levels`` recomputes each tree level in the backward
+(``torch.utils.checkpoint``).  Not ported yet (ROADMAP.md): the sharded
+hooks (``feature_lookup``, ``neighbor_sample``).
 
 Layer-count rules as in the reference: ``n_layers`` counts the embedding
 layer when present, so there are ``n_layers - 1`` conv layers with
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gnn_recsys_tpu_torch.graph.hetero import CanonicalEtype, HeteroGraph
 from gnn_recsys_tpu_torch.models.layers import (
@@ -36,6 +39,7 @@ from gnn_recsys_tpu_torch.models.layers import (
     NodeEmbedding,
     PredictingLayer,
     dense,
+    dropout_keep_mask,
     l2_normalize,
 )
 from gnn_recsys_tpu_torch.ops.cuda.gather_mean import SlotTranspose, gather_mean
@@ -73,6 +77,44 @@ def _exclusion_kwargs(excl) -> Dict[str, torch.Tensor]:
     return {"nbr_table": excl} if excl.dim() == 2 else {"exclude_flags": excl}
 
 
+class _LevelTape:
+    """The random numbers of one rematerialised tree level.  The forward
+    takes them from ``draws`` and keeps them; each recompute in the backward
+    hands the same ones out again, in the same order, so that the level
+    recomputes the values of its forward: the samplers' uniforms, and the
+    keep masks of its dropouts (:meth:`keep_mask`, drawn by
+    :func:`~gnn_recsys_tpu_torch.models.layers.dropout_keep_mask` as the
+    plain step draws them, from PyTorch's default generator, whose state is
+    never read: a CUDA graph captures the draws).  An inner level's tape
+    takes its numbers from the outer one's."""
+
+    def __init__(self, draws):
+        self.draws = draws
+        self.taken: List[torch.Tensor] = []
+        self.pos: Optional[int] = None  # -1: recording; else the next to replay
+
+    def rewind(self) -> "_LevelTape":
+        """Start a run of the level: the first records, later ones replay."""
+        self.pos = -1 if self.pos is None else 0
+        return self
+
+    def _take(self, make) -> torch.Tensor:
+        if self.pos == -1:
+            out = make()
+            self.taken.append(out)
+            return out
+        out = self.taken[self.pos]
+        self.pos += 1
+        return out
+
+    def uniform(self, shape: Sequence[int]) -> torch.Tensor:
+        return self._take(lambda: self.draws.uniform(shape))
+
+    def keep_mask(self, like: torch.Tensor, p: float) -> torch.Tensor:
+        source = self.draws.keep_mask if isinstance(self.draws, _LevelTape) else dropout_keep_mask
+        return self._take(lambda: source(like, p))
+
+
 class ConvModel(nn.Module):
     """Full hetero message-passing model.
 
@@ -88,6 +130,13 @@ class ConvModel(nn.Module):
     layers.dense`), while the parameters (and so Adam's state) stay f32 and
     the scores leave the model as f32.  The full-graph mean sums in f32
     (``ops/message.py``).
+
+    ``remat_levels`` (the JAX package's ``conv_model.py:454-497``) wraps
+    each sampled-tree level above the leaves in a non-reentrant
+    ``torch.utils.checkpoint`` when autograd records: the backward
+    recomputes a level from its id frontier instead of keeping its
+    activations.  The recompute replays the level's draws and dropout masks
+    (:class:`_LevelTape`), so the loss and gradients are the plain tree's.
 
     ``leaf_kernel`` runs the folded ``*_nn`` mean leaf of the sampled tree
     through the fused :func:`~gnn_recsys_tpu_torch.ops.cuda.leaf_agg.leaf_mean_nn`
@@ -119,12 +168,11 @@ class ConvModel(nn.Module):
             raise KeyError(f"Prediction function {pred} not recognized.")
         if aggregator_hetero not in ("sum", "mean", "max"):
             raise KeyError(f"Cross-etype aggregator {aggregator_hetero} not recognized.")
-        if remat_levels:
-            raise NotImplementedError("remat_levels is not ported yet (ROADMAP.md)")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"computation dtype {dtype} is neither None, f32 nor bf16")
         dtype = None if dtype == torch.float32 else dtype  # one f32 path: nn.Linear's
         self.dtype = dtype
+        self.remat_levels = remat_levels
         self.leaf_kernel = leaf_kernel
         self.leaf_block = leaf_block
         self._leaf_weights: Optional[Dict] = None  # set during a sampled_repr walk
@@ -206,8 +254,16 @@ class ConvModel(nn.Module):
         if (layer.edge_weighted and src_t in ("user", "item")
                 and dst_t in ("user", "item") and "occurrence" in rel.edata):
             edge_weight = rel.edata["occurrence"]
-        segment = coo_segment_max if layer.reducer == "max" else coo_segment_mean
-        agg = segment(h_src, rel.src, rel.dst, graph.num_nodes(dst_t), edge_weight)
+        if layer.reducer == "lstm":
+            # The LSTM reads ordered mailboxes: the padded CSC rows, -1
+            # padding clipped before the gather and zeroed by the mask.
+            msgs = _take_rows(h_src, rel.nbr.clamp(min=0))
+            if edge_weight is not None:
+                msgs = msgs * edge_weight.to(msgs.dtype)[rel.nbr_eid.long()][..., None]
+            agg = self._reduce(layer, msgs, rel.nbr_mask)
+        else:
+            segment = coo_segment_max if layer.reducer == "max" else coo_segment_mean
+            agg = segment(h_src, rel.src, rel.dst, graph.num_nodes(dst_t), edge_weight)
         return layer.combine(h[dst_t], agg)
 
     def _cross_etype_reduce(self, zs: torch.Tensor) -> torch.Tensor:
@@ -293,8 +349,10 @@ class ConvModel(nn.Module):
         if dedup:
             return self._sampled_repr_dedup(graph, features, seeds, tuple(fanouts), draws,
                                             exclude_eids)
-        # Composed leaf weights, once per (layer, etype) for the whole walk.
-        self._leaf_weights = {}
+        # Composed leaf weights, once per (layer, etype) for the whole walk;
+        # a rematerialised level computes its own (its recompute must run
+        # the ops its forward ran).
+        self._leaf_weights = None if self.remat_levels else {}
         try:
             return {nt: self._tree(graph, features, exclude_eids, tuple(fanouts),
                                    len(self.layers), nt, ids, draws)
@@ -303,9 +361,16 @@ class ConvModel(nn.Module):
             self._leaf_weights = None
 
     def _tree(self, graph, features, exclude_eids, fanouts, level, ntype, ids, draws):
-        """One tree level on the flattened frontier, reshaped back."""
-        out = self._tree_level(graph, features, exclude_eids, fanouts, level, ntype,
-                               ids.reshape(-1), draws)
+        """One tree level on the flattened frontier, reshaped back; with
+        ``remat_levels``, above the leaves and while autograd records,
+        through a checkpoint that replays the level's random numbers."""
+        args = (graph, features, exclude_eids, fanouts, level, ntype)
+        if self.remat_levels and level > 0 and torch.is_grad_enabled():
+            tape = _LevelTape(draws)
+            out = checkpoint(lambda flat: self._tree_level(*args, flat, tape.rewind()),
+                             ids.reshape(-1), use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = self._tree_level(*args, ids.reshape(-1), draws)
         return out.reshape(*ids.shape, out.shape[-1])
 
     @staticmethod
@@ -314,7 +379,7 @@ class ConvModel(nn.Module):
         return table[ids.long().clamp(0, table.shape[0] - 1)]
 
     def _no_dropout(self, layer: ConvLayer) -> bool:
-        return layer.dropout.p == 0.0 or not self.training
+        return layer.dropout_p == 0.0 or not self.training
 
     def _can_fold_leaf(self, layer: ConvLayer, src_ntype: str, level: int) -> bool:
         """Whether the leaf's embed + fc_preagg pair folds into one affine
@@ -360,7 +425,8 @@ class ConvModel(nn.Module):
     def _tree_level(self, graph, features, exclude_eids, fanouts, level, ntype, ids, draws):
         """``conv_model.py:566-850``: the self branch first, then each
         in-etype in ``graph.canonical_etypes`` order, sampled and then
-        recursed into; ``ids`` is 1-D."""
+        recursed into; ``ids`` is 1-D.  A :class:`_LevelTape` as ``draws``
+        also supplies the dropout masks."""
         if level == 0:
             x = self._fetch_rows(features, ntype, ids)
             if self.embedding_layer and ntype in self.embed:
@@ -373,6 +439,7 @@ class ConvModel(nn.Module):
         if not in_etypes:
             raise ValueError(f"node type {ntype} has no incoming etypes")
         h_self = self._tree(graph, features, exclude_eids, fanouts, level - 1, ntype, ids, draws)
+        keep_mask = getattr(draws, "keep_mask", None)
         zs = []
         for etype in in_etypes:
             layer = layer_dict[_etype_key(etype)]
@@ -393,7 +460,7 @@ class ConvModel(nn.Module):
                     with_eids=need_eid, **_exclusion_kwargs(excl))
             agg = self._aggregate(graph, features, exclude_eids, fanouts, level, etype, layer,
                                   rel, nbr, eid, mask, need_eid, draws, raw_packed)
-            zs.append(layer.combine(h_self, agg))
+            zs.append(layer.combine(h_self, agg, keep_mask))
         return self._cross_etype_reduce(torch.stack(zs))
 
     def _aggregate(self, graph, features, exclude_eids, fanouts, level, etype, layer, rel,
@@ -402,6 +469,7 @@ class ConvModel(nn.Module):
         [P, K, F] are the leaf's raw features from the packed cache (then
         ``nbr`` is None)."""
         src_t = etype[0]
+        keep_mask = getattr(draws, "keep_mask", None)
 
         def raw_rows():
             if raw_packed is not None:
@@ -443,11 +511,11 @@ class ConvModel(nn.Module):
             x = raw_rows()
             if self.embedding_layer and src_t in self.embed:
                 x = self.embed[src_t](x)
-            msgs = layer.transform_src(x)
+            msgs = layer.transform_src(x, keep_mask)
         else:
             h_nbr = self._tree(graph, features, exclude_eids, fanouts, level - 1, src_t, nbr,
                                draws)
-            msgs = layer.transform_src(h_nbr)
+            msgs = layer.transform_src(h_nbr, keep_mask)
         if need_eid:
             w = rel.edata["occurrence"].to(msgs.dtype)[eid.long()]
             msgs = msgs * w[..., None]
@@ -456,7 +524,14 @@ class ConvModel(nn.Module):
     @staticmethod
     def _reduce(layer: ConvLayer, msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The layer's masked reduction over the slot axis of ``msgs``
-        [..., K, D]: the mean over valid slots, or the max (0 without one)."""
+        [..., K, D]: the mean over valid slots, the max (0 without one), or
+        the LSTM's final state over the slots, masked ones zeroed and
+        skipped."""
+        if layer.reducer == "lstm":
+            k, d = msgs.shape[-2:]
+            flat = torch.where(mask[..., None], msgs, torch.zeros_like(msgs)).reshape(-1, k, d)
+            agg = layer.lstm(flat, mask.reshape(-1, k))
+            return agg.reshape(*msgs.shape[:-2], agg.shape[-1])
         if layer.reducer == "mean":
             total = (msgs * mask[..., None].to(msgs.dtype)).sum(dim=-2)
             count = mask.to(msgs.dtype).sum(dim=-1)

@@ -4,14 +4,16 @@ Port of ``gnn_recsys_tpu/models/layers.py``: a SAGEConv-style update
 
     z = ReLU(W_self . h_self + W_neigh . AGG(neighbours))
 
-for the ``mean``, ``mean_nn`` and ``pool_nn`` aggregators and their
-``*_edge`` variants, with an optional zero-guarded L2 row norm.  As in the
-JAX package, the layer does not aggregate: ``transform_src`` (dropout and
-the optional pre-MLP, once per source node) and ``combine`` (the towers,
-ReLU and norm) surround a reduction that the model runs.
+for the ``mean``, ``mean_nn``, ``pool_nn`` and ``lstm`` aggregators and
+their ``*_edge`` variants, with an optional zero-guarded L2 row norm.  As in
+the JAX package, the layer does not aggregate: ``transform_src`` (dropout
+and the optional pre-MLP, once per source node) and ``combine`` (the
+towers, ReLU and norm) surround a reduction that the model runs; the LSTM's
+reduction is the layer's :class:`MaskedLSTMReducer`.
 
 Linear weights are ``[out, in]`` (PyTorch's layout); ``models/convert.py``
-maps them to and from flax's ``[in, out]`` kernels.
+maps them to and from flax's ``[in, out]`` kernels, and the LSTM's packed
+gate weights to and from flax's eight ``LSTMCell`` Denses.
 
 ``dtype`` is flax's computation dtype (``nn.Dense(dtype=...)``): None keeps
 the inputs' dtype (f32), ``torch.bfloat16`` casts each Linear's input,
@@ -61,6 +63,16 @@ def lecun_normal_(weight: torch.Tensor,
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+def orthogonal_(weight: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> None:
+    """flax's ``initializers.orthogonal()`` on each [H, H] gate block of a
+    packed ``[4H, H]`` recurrent weight: a Haar-random orthogonal matrix
+    per block (QR of a normal matrix, signs fixed by R's diagonal)."""
+    with torch.no_grad():
+        for block in weight.chunk(4, dim=0):
+            nn.init.orthogonal_(block, generator=generator)
+
+
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``lin(x)`` with flax ``Dense(dtype=dtype)`` semantics
     (``gnn_recsys_tpu/models/layers.py:118-123``): with a dtype, the input,
@@ -72,6 +84,16 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) 
     return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
+def gate_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """An LSTM gate's sigmoid as flax computes it (``lax.logistic``): in bf16
+    as XLA expands it, ``1 / (1 + exp(-x))`` with every op rounded to bf16
+    (``torch.sigmoid`` rounds once, and differs in about a third of the
+    values); ``torch.sigmoid`` otherwise."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
 def row_norm(x: torch.Tensor) -> torch.Tensor:
     """The L2 norm of each row, keepdim (``jnp.linalg.norm(x, ord=2,
     axis=-1, keepdims=True)``).  In bf16 as JAX takes it: the squares
@@ -80,6 +102,40 @@ def row_norm(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return torch.sqrt((x * x).sum(dim=-1, keepdim=True))
     return torch.linalg.vector_norm(x, ord=2, dim=-1, keepdim=True)
+
+
+def dropout_keep_mask(like: torch.Tensor, p: float) -> torch.Tensor:
+    """Dropout's keep mask for ``like``: a bool Bernoulli(1 - ``p``) draw an
+    element, one kernel, from PyTorch's default generator on ``like``'s
+    device."""
+    return torch.empty_like(like, dtype=torch.bool).bernoulli_(1.0 - p)
+
+
+class _MaskedScale(torch.autograd.Function):
+    """``x * keep * scale`` and its gradient, each one kernel: ATen's own
+    dropout arithmetic (``native_dropout_backward``, the scale applied in
+    f32 as ``nn.Dropout``'s fused kernel applies it).  Autograd through
+    that op would scale the gradient by ``keep * scale`` rounded to the
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, keep: torch.Tensor, scale: float) -> torch.Tensor:
+        ctx.save_for_backward(keep)
+        ctx.scale = scale
+        return torch.ops.aten.native_dropout_backward(x, keep, scale)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (keep,) = ctx.saved_tensors
+        return torch.ops.aten.native_dropout_backward(grad, keep, ctx.scale), None, None
+
+
+def dropout(x: torch.Tensor, p: float, keep_mask=dropout_keep_mask) -> torch.Tensor:
+    """Inverted dropout, the model's only one: ``x / (1 - p)`` where
+    ``keep_mask(x, p)`` holds, else 0.  A rematerialised tree level passes a
+    ``keep_mask`` that records the masks in its forward and hands the same
+    ones out in its recompute, so both draw as the plain step does."""
+    return _MaskedScale.apply(x, keep_mask(x, p), 1.0 / (1.0 - p))
 
 
 class NodeEmbedding(nn.Module):
@@ -98,6 +154,59 @@ class NodeEmbedding(nn.Module):
         return dense(self.proj_feats, node_feats, self.dtype)
 
 
+class MaskedLSTMReducer(nn.Module):
+    """An LSTM over the slot axis of padded messages; returns the final
+    hidden state (``MaskedLSTMReducer``, ``gnn_recsys_tpu/models/
+    layers.py:79-109``; reference ``src/model.py:107-121``).
+
+    The cell is flax's ``LSTMCell`` with a zero carry ``(c, h)``::
+
+        i = sigmoid(x W_ii + h W_hi + b_hi)   f = sigmoid(x W_if + h W_hf + b_hf)
+        g = tanh(x W_ig + h W_hg + b_hg)      o = sigmoid(x W_io + h W_ho + b_ho)
+        c' = f c + i g                        h' = o tanh(c')
+
+    and the carry keeps its old value on every slot whose mask is False
+    (``_MaskedLSTMStep``), so holes in the mask are skipped.  The gates are
+    packed in the order i, f, g, o: ``ih`` is the ``[4H, in]`` input weight
+    (no bias), ``hh`` the ``[4H, H]`` recurrent weight with its bias.  Each
+    product goes through :func:`dense`, so in bf16 it rounds where flax's
+    ``Dense(dtype=...)`` rounds; the carry takes the messages' dtype.
+
+    The K steps are a Python loop of static length with no host sync, so a
+    CUDA graph captures it.  cuDNN's LSTM is not used: it assumes the valid
+    slots form a prefix, and the sampled tree's exclusion leaves holes."""
+
+    def __init__(self, in_feats: int, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.features = features
+        self.dtype = dtype
+        self.ih = nn.Linear(in_feats, 4 * features, bias=False)
+        self.hh = nn.Linear(features, 4 * features)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """flax's ``LSTMCell`` defaults: ``lecun_normal`` input kernels,
+        ``orthogonal`` recurrent kernels, zero biases."""
+        lecun_normal_(self.ih.weight, generator)
+        orthogonal_(self.hh.weight, generator)
+        nn.init.zeros_(self.hh.bias)
+
+    def forward(self, msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """msgs [N, K, D], mask [N, K] bool -> the final h [N, H]."""
+        n = msgs.shape[0]
+        c = msgs.new_zeros((n, self.features))
+        h = msgs.new_zeros((n, self.features))
+        # One slot a step; the input product too, so that no [K, N, 4H]
+        # tensor is ever held (``unbind``'s backward stacks the slots once).
+        for x, m in zip(msgs.unbind(1), mask.unbind(1)):
+            gates = dense(self.ih, x, self.dtype) + dense(self.hh, h, self.dtype)
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c_new = gate_sigmoid(f) * c + gate_sigmoid(i) * torch.tanh(g)
+            h_new = gate_sigmoid(o) * torch.tanh(c_new)
+            m = m[:, None]
+            c, h = torch.where(m, c_new, c), torch.where(m, h_new, h)
+        return h
+
+
 class ConvLayer(nn.Module):
     """One message-passing layer for one canonical edge type."""
 
@@ -114,44 +223,54 @@ class ConvLayer(nn.Module):
         super().__init__()
         if aggregator_type not in AGGREGATOR_TYPES:
             raise KeyError(f"Aggregator type {aggregator_type} not recognized.")
-        if aggregator_type.startswith("lstm"):
-            raise NotImplementedError(
-                "the lstm aggregator is not ported yet (ROADMAP.md, queue 1)"
-            )
         self.aggregator_type = aggregator_type
         self.norm = norm
         self.dtype = dtype  # the computation dtype (None: the inputs')
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_p = dropout
         self.fc_self = nn.Linear(in_self_feats, out_feats, bias=False)
         self.fc_neigh = nn.Linear(in_neigh_feats, out_feats, bias=False)
         if aggregator_type in _PREAGG:
             self.fc_preagg = nn.Linear(in_neigh_feats, in_neigh_feats, bias=False)
+        if self.reducer == "lstm":
+            self.lstm = MaskedLSTMReducer(in_neigh_feats, in_neigh_feats, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         for lin in (self.fc_self, self.fc_neigh, getattr(self, "fc_preagg", None)):
             if lin is not None:
                 xavier_uniform_relu_(lin.weight, generator)
+        if self.reducer == "lstm":
+            self.lstm.reset_parameters(generator)
 
     @property
     def reducer(self) -> str:
-        """'mean' or 'max': which reduction the model runs."""
-        return "max" if self.aggregator_type.startswith("pool") else "mean"
+        """'mean', 'max' or 'lstm': which reduction the model runs."""
+        if self.aggregator_type.startswith("pool"):
+            return "max"
+        return "lstm" if self.aggregator_type.startswith("lstm") else "mean"
 
     @property
     def edge_weighted(self) -> bool:
         return self.aggregator_type.endswith("_edge")
 
-    def transform_src(self, h_neigh: torch.Tensor) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, keep_mask=None) -> torch.Tensor:
+        """:func:`dropout` in train mode, with the masks from ``keep_mask``
+        where a caller supplies them (a rematerialised tree level)."""
+        if not self.training or self.dropout_p == 0.0:
+            return x
+        return dropout(x, self.dropout_p, keep_mask or dropout_keep_mask)
+
+    def transform_src(self, h_neigh: torch.Tensor, keep_mask=None) -> torch.Tensor:
         """Dropout + optional ReLU(pre-MLP), applied on source-node states."""
-        h = self.dropout(h_neigh)
+        h = self._drop(h_neigh, keep_mask)
         if self.aggregator_type in _PREAGG:
             h = torch.relu(dense(self.fc_preagg, h, self.dtype))
         return h
 
-    def combine(self, h_self: torch.Tensor, h_neigh_agg: torch.Tensor) -> torch.Tensor:
+    def combine(self, h_self: torch.Tensor, h_neigh_agg: torch.Tensor,
+                keep_mask=None) -> torch.Tensor:
         """Self/neighbour towers, ReLU, optional L2 row norm whose zero rows
         stay zero (reference src/model.py:226-235); in the computation dtype."""
-        z = torch.relu(dense(self.fc_self, self.dropout(h_self), self.dtype)
+        z = torch.relu(dense(self.fc_self, self._drop(h_self, keep_mask), self.dtype)
                        + dense(self.fc_neigh, h_neigh_agg, self.dtype))
         if self.norm:
             z_norm = row_norm(z)

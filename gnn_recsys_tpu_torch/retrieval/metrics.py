@@ -7,7 +7,10 @@ Port of ``gnn_recsys_tpu/retrieval/metrics.py`` (the reference's
   recommended entries (-1 "no recommendation" slots excluded);
 * recall = ground-truth pairs whose item is among that user's recs / all
   ground-truth pairs;
-* coverage = distinct recommended items / catalog size.
+* coverage = distinct recommended items / catalog size;
+
+and the mean reciprocal rank of positive edges among their negatives
+(:func:`mrr_neg_edges`).
 """
 
 from __future__ import annotations
@@ -109,3 +112,13 @@ def get_metrics_at_k(
         backend=backend, device=dev,
     )
     return recs_to_metrics(recs, user_ids, gt_users, gt_items, int(item_emb.shape[0]))
+
+
+def mrr_neg_edges(pos_score: torch.Tensor, neg_score: torch.Tensor) -> torch.Tensor:
+    """Mean reciprocal rank of each positive among its negatives (reference
+    ``MRR_neg_edges``, src/metrics.py:137-157; the JAX package's
+    ``metrics.py:177``): a positive ranks one below every negative that
+    scores at least as high, ties included.  pos_score [B], neg_score
+    [B, S] -> a 0-d f32 tensor on their device."""
+    rankings = (neg_score >= pos_score[:, None]).sum(dim=1) + 1
+    return (1.0 / rankings.float()).mean()

@@ -48,6 +48,7 @@ from gnn_recsys_tpu_torch.ops.sampling import Draws, _rows
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import model_score_fn
 from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings, init_model
+from gnn_recsys_tpu_torch.utils.profiling import ThroughputMeter, profiler_trace
 
 # Reference reverse-etype names (src/utils_data.py:96-99).
 REVERSE_NAMES = {
@@ -483,14 +484,22 @@ def train_minibatch(
     state: Optional[TrainState] = None,
     start_epoch: int = 0,
     device="cuda",
+    host_edges: Optional[Dict] = None,
+    profile_logdir: Optional[str] = None,
 ):
     """Run the training regime end to end on ``device``; returns (state,
     history).  ``train_eids`` index ``train_graph``'s relations,
     ``valid_eids`` ``full_graph``'s (held-out edges, sampled over the train
-    graph).  False negatives are masked against the full graph's edges.
-    Without ``state`` the model's parameters are drawn from ``cfg.seed``.
-    Every epoch's draws and batch order are a function of (seed, epoch), so
-    ``start_epoch`` with a saved ``state`` resumes exactly."""
+    graph).  False negatives are masked against the full graph's edges,
+    whose pair sets are built from ``host_edges`` where it gives an etype
+    (``{etype: (src, dst[, recency])}``, host numpy copies of the full
+    graph's COO arrays; the JAX package's ``minibatch.py:671-676``) and
+    otherwise from the graph's own arrays.  Without ``state`` the model's
+    parameters are drawn from ``cfg.seed``.  Every epoch's draws and batch
+    order are a function of (seed, epoch), so ``start_epoch`` with a saved
+    ``state`` resumes exactly.  ``profile_logdir``: a ``torch.profiler``
+    trace of the epochs is written there (:func:`~gnn_recsys_tpu_torch.
+    utils.profiling.profiler_trace`)."""
     dev = torch.device(device)
     model.to(dev)
     if state is None:
@@ -507,12 +516,14 @@ def train_minibatch(
     has_reverse = {et: _reverse(et) in train_graph.rels for et in train_etypes}
 
     num_users = full_graph.num_nodes("user")
-    edge_tables = {
-        et: build_padded_pair_set(full_graph.rels[et].src.cpu().numpy(),
-                                  full_graph.rels[et].dst.cpu().numpy(),
-                                  num_src=num_users).to(dev)
-        for et in set(train_etypes) | set(valid_etypes)
-    }
+
+    def full_coo(et):
+        if host_edges is not None and et in host_edges:
+            return host_edges[et][0], host_edges[et][1]
+        return full_graph.rels[et].src.cpu().numpy(), full_graph.rels[et].dst.cpu().numpy()
+
+    edge_tables = {et: build_padded_pair_set(*full_coo(et), num_src=num_users).to(dev)
+                   for et in set(train_etypes) | set(valid_etypes)}
     graph = train_graph.to(dev)
     feats = {nt: x.to(dev) for nt, x in features.items()}
 
@@ -561,72 +572,74 @@ def train_minibatch(
     history = {"train_loss": [], "valid_loss": [], "recall": [], "precision": [],
                "coverage": [], "subtrain_recall": [], "epoch_time": [], "edges_per_s": []}
     best_val, best_epoch = np.inf, 0
-    for epoch in range(start_epoch, cfg.num_epochs):
-        t0 = time.perf_counter()
-        if cfg.device_epoch:
-            if epoch == 0:  # the loss-only pass (run.py:136-142)
-                losses, epoch_edges = run_pass(smoke_pass, 0, epoch,
-                                               min(10, smoke_pass["batches"]))
-            else:
-                losses, epoch_edges = run_pass(train_pass, 0, epoch, train_pass["batches"])
-        else:
-            host_rng = np.random.default_rng((cfg.seed, epoch))
-            draws = draws_for(0, epoch)
-            losses, epoch_edges = [], 0
-            for bi, batch_np in enumerate(iter_edge_batches(host_rng, train_eids,
-                                                            cfg.edge_batch_size)):
-                if epoch == 0 and bi >= 10:
-                    break  # epoch-0 loss-only pass (run.py:136-142)
-                step = smoke_step if epoch == 0 else train_step
-                _, loss = step(state, graph, feats, train_store.batch(batch_np, True, dev),
-                               edge_tables, draws)
-                losses.append(loss)
-                epoch_edges += sum(len(v) for v in batch_np.values())
-            losses = torch.stack(losses)
-        history["train_loss"].append(float(losses.mean()))  # the host's one read
-        elapsed = time.perf_counter() - t0
-        history["edges_per_s"].append(epoch_edges / max(elapsed, 1e-9))
-
-        val_loss = None
-        if valid_eids:
+    meter = ThroughputMeter()
+    with profiler_trace(profile_logdir):
+        for epoch in range(start_epoch, cfg.num_epochs):
+            t0 = time.perf_counter()
+            meter.start()
             if cfg.device_epoch:
-                vlosses = run_pass(valid_pass, 1, epoch, valid_pass["batches"])[0]
+                if epoch == 0:  # the loss-only pass (run.py:136-142)
+                    losses, epoch_edges = run_pass(smoke_pass, 0, epoch,
+                                                   min(10, smoke_pass["batches"]))
+                else:
+                    losses, epoch_edges = run_pass(train_pass, 0, epoch, train_pass["batches"])
             else:
-                draws = draws_for(1, epoch)
-                vlosses = torch.stack([
-                    valid_step(state, graph, feats, valid_store.batch(b, False, dev),
-                               edge_tables, draws)[1]
-                    for b in iter_edge_batches(host_rng, valid_eids, cfg.edge_batch_size)])
-            val_loss = float(vlosses.mean())
-            history["valid_loss"].append(val_loss)
-        history["epoch_time"].append(time.perf_counter() - t0)
+                host_rng = np.random.default_rng((cfg.seed, epoch))
+                draws = draws_for(0, epoch)
+                losses, epoch_edges = [], 0
+                for bi, batch_np in enumerate(iter_edge_batches(host_rng, train_eids,
+                                                                cfg.edge_batch_size)):
+                    if epoch == 0 and bi >= 10:
+                        break  # epoch-0 loss-only pass (run.py:136-142)
+                    step = smoke_step if epoch == 0 else train_step
+                    _, loss = step(state, graph, feats, train_store.batch(batch_np, True, dev),
+                                   edge_tables, draws)
+                    losses.append(loss)
+                    epoch_edges += sum(len(v) for v in batch_np.values())
+                losses = torch.stack(losses)
+            history["train_loss"].append(float(losses.mean()))  # the host's one read
+            history["edges_per_s"].append(meter.stop(epoch_edges))
 
-        if test_ground_truth is not None and cfg.metrics_every and \
-                epoch % cfg.metrics_every == 1:
-            h = infer_embeddings(model, graph, feats, mode=cfg.inference_mode,
-                                 ntypes=("user", "item"), device=dev)
-            score_fn = model_score_fn(model.pred, model)
-            precision, recall, coverage = get_metrics_at_k(
-                h["user"], h["item"], test_ground_truth, already_bought, cfg.k,
-                score_fn=score_fn, device=dev)
-            history["recall"].append(recall)
-            history["precision"].append(precision)
-            history["coverage"].append(coverage)
-            if subtrain_ground_truth is not None and len(subtrain_ground_truth[0]):
-                history["subtrain_recall"].append(get_metrics_at_k(
-                    h["user"], h["item"], subtrain_ground_truth, already_bought, cfg.k,
-                    score_fn=score_fn, device=dev)[1])
-        if verbose:
-            extra = f" recall@{cfg.k}={history['recall'][-1]:.4f}" if history["recall"] else ""
-            print(f"epoch {epoch}: train_loss={history['train_loss'][-1]:.4f} "
-                  f"val_loss={val_loss}{extra}")
+            val_loss = None
+            if valid_eids:
+                if cfg.device_epoch:
+                    vlosses = run_pass(valid_pass, 1, epoch, valid_pass["batches"])[0]
+                else:
+                    draws = draws_for(1, epoch)
+                    vlosses = torch.stack([
+                        valid_step(state, graph, feats, valid_store.batch(b, False, dev),
+                                   edge_tables, draws)[1]
+                        for b in iter_edge_batches(host_rng, valid_eids, cfg.edge_batch_size)])
+                val_loss = float(vlosses.mean())
+                history["valid_loss"].append(val_loss)
+            history["epoch_time"].append(time.perf_counter() - t0)
 
-        # Early stopping on validation loss (run.py:285-291).
-        if val_loss is not None and epoch > 0:
-            if val_loss < best_val:
-                best_val, best_epoch = val_loss, epoch
-            elif epoch - best_epoch >= cfg.patience:
-                if verbose:
-                    print(f"early stop at epoch {epoch}")
-                break
+            if test_ground_truth is not None and cfg.metrics_every and \
+                    epoch % cfg.metrics_every == 1:
+                h = infer_embeddings(model, graph, feats, mode=cfg.inference_mode,
+                                     ntypes=("user", "item"), device=dev)
+                score_fn = model_score_fn(model.pred, model)
+                precision, recall, coverage = get_metrics_at_k(
+                    h["user"], h["item"], test_ground_truth, already_bought, cfg.k,
+                    score_fn=score_fn, device=dev)
+                history["recall"].append(recall)
+                history["precision"].append(precision)
+                history["coverage"].append(coverage)
+                if subtrain_ground_truth is not None and len(subtrain_ground_truth[0]):
+                    history["subtrain_recall"].append(get_metrics_at_k(
+                        h["user"], h["item"], subtrain_ground_truth, already_bought, cfg.k,
+                        score_fn=score_fn, device=dev)[1])
+            if verbose:
+                extra = f" recall@{cfg.k}={history['recall'][-1]:.4f}" if history["recall"] else ""
+                print(f"epoch {epoch}: train_loss={history['train_loss'][-1]:.4f} "
+                      f"val_loss={val_loss}{extra}")
+
+            # Early stopping on validation loss (run.py:285-291).
+            if val_loss is not None and epoch > 0:
+                if val_loss < best_val:
+                    best_val, best_epoch = val_loss, epoch
+                elif epoch - best_epoch >= cfg.patience:
+                    if verbose:
+                        print(f"early stop at epoch {epoch}")
+                    break
     return state, history

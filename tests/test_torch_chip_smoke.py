@@ -437,3 +437,41 @@ def test_kernel_probe_patches_apply_to_the_sources():
         assert kernel_probe.patch(src, edits) != src
     with pytest.raises(RuntimeError, match="no longer has one"):
         kernel_probe.patch(pool, kernel_probe.SCORE_ONLY)
+
+
+@pytest.mark.parametrize("agg,dtype,dedup", [("lstm", torch.bfloat16, False),
+                                             ("lstm_edge", None, True)])
+def test_train_lstm_rehearsal(data, capsys, agg, dtype, dedup):
+    """Phases train_lstm (bf16, tree) and train_lstm_edge_dedup (f32, dedup'd
+    forward) through the device epochs' eager body: the losses fall, the
+    trained model beats its random weights, the served run ranks alike
+    through both routes, no kernel launches on the CPU; the dedup phase's
+    two steps from one state agree."""
+    phase = "train_lstm_edge_dedup" if dedup else "train_lstm"
+    launches = chip_smoke.phase_train_lstm(
+        torch.device("cpu"), data, phase=phase, agg=agg, dtype=dtype, dedup=dedup, hidden=32,
+        out=16, steps=16, valid_steps=2, batch_size=128, pool=48, check_steps=3,
+        serve_users=16, on_card=False)
+    assert not any(launches.values())
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["phase"] == phase and report["aggregator"] == agg
+    assert report["launches_per_step"] == {
+        "leaf_mean_nn_fwd": 0, "leaf_mean_nn_bwd": 0, "pool_membership_mask": 2,
+        "gather_mean_fwd": 0, "gather_mean_bwd": 0}
+    assert report["recall"] > report["random_weights_recall"]
+    assert set(report["serve"]["routes"]) == {"plain", "boosted"}
+    assert ("step_grads_twice" in report) == dedup
+    if dedup:
+        assert report["step_grads_twice"]["bit_identical"]
+
+
+def test_remat_rehearsal(data, capsys):
+    """Phase remat on the CPU: the remat step's loss and gradients are the
+    plain step's bits, at dropout 0 and at the phase's dropout."""
+    launches = chip_smoke.phase_remat(torch.device("cpu"), data, hidden=32, out=16,
+                                      batch_size=128, pool=48, replays=3, on_card=False)
+    assert launches == {"pool_membership_mask": 0}
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["phase"] == "remat" and report["bit_identical"]
+    assert report["dropout"]["p"] == 0.5 and report["dropout"]["bit_identical"]
+    assert report["dropout"]["loss"] != report["loss"]

@@ -362,8 +362,6 @@ def test_unported_options_raise():
     draws = Draws(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
         model.sampled_repr(g, feats, seeds, (2, 2), draws, feature_lookup=lambda *a: None)
-    with pytest.raises(NotImplementedError):
-        ConvModel(g.canonical_etypes, model.dims, remat_levels=True)
     with pytest.raises(ValueError):
         model.sampled_repr(g, feats, seeds, (2,), draws)
     with pytest.raises(KeyError):

@@ -42,6 +42,8 @@ def _pair(agg, hetero, n_layers, emb, seed=0, pred="cos"):
     ("mean_nn", "max", 2, False),
     ("mean", "sum", 3, False),
     ("pool_nn_edge", "mean", 2, True),
+    ("lstm", "sum", 3, True),
+    ("lstm_edge", "mean", 2, False),
 ])
 def test_embeddings_match_jax(agg, hetero, n_layers, emb):
     jd, td, jm, tm, jfeats, params = _pair(agg, hetero, n_layers, emb)
@@ -64,10 +66,13 @@ def test_params_round_trip():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("agg,emb", [("mean_nn", True), ("pool_nn", False)])
+@pytest.mark.parametrize("agg,emb", [("mean_nn", True), ("pool_nn", False), ("lstm", True),
+                                     ("lstm_edge", False)])
 def test_own_init_mirrors_jax(agg, emb):
     """Same parameter tree and shapes as JAX; xavier-relu bounds on the conv
-    towers; zero embedding bias."""
+    towers; zero embedding bias; the LSTM cell as flax's ``LSTMCell``
+    initialises it: input kernels ``lecun_normal`` (truncated at two
+    standard deviations), recurrent kernels orthogonal, zero biases."""
     jd, *_, params = _pair(agg, "sum", 3, emb)
     tree = jax.tree.map(np.asarray, params)
     tm = ConvModel(canonical_etypes=jd.graph.canonical_etypes,
@@ -83,6 +88,11 @@ def test_own_init_mirrors_jax(agg, emb):
         assert leaf.shape == ref.shape
         if names[-1] == "bias":
             assert (leaf == 0).all()
+        elif names[-4:-2] == ["scan", "cell"] and names[-2].startswith("h"):
+            np.testing.assert_allclose(leaf.T @ leaf, np.eye(leaf.shape[0]), atol=1e-5)
+        elif names[-4:-2] == ["scan", "cell"]:
+            std = np.sqrt(1.0 / leaf.shape[0]) / 0.87962566103423978
+            assert np.abs(leaf).max() <= 2 * std and 0.7 * std < leaf.std() < 1.3 * std
         elif names[-2] != "proj_feats":
             fan_in, fan_out = leaf.shape
             assert np.abs(leaf).max() <= np.sqrt(2.0) * np.sqrt(6.0 / (fan_in + fan_out))
@@ -110,8 +120,6 @@ def test_pred_layer_mirrors_jax():
 
 def test_unported_options_raise():
     et = (("user", "buys", "item"), ("item", "bought-by", "user"))
-    with pytest.raises(NotImplementedError):
-        ConvModel(et, DIMS, aggregator_type="lstm")
     with pytest.raises(KeyError):
         ConvModel(et, DIMS, aggregator_type="bogus")
     with pytest.raises(KeyError):
