@@ -52,6 +52,25 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    versions.  The kernels' launch counters must grow, every rec is a catalog
    id or -1, no already-bought item is recommended, and the kernel route
    agrees with the ``torch`` route.
+4b. sharded_serving: the same Medium model and graph served with the
+   catalog split over meshes of 4 and 7 shards that all sit on the card (7
+   leaves a padded last shard): every user ranked through
+   ``get_recs_sharded`` on the kernel route, plain and boosted, against
+   single-device ``get_recs`` (plain: every row equal; boosted: against the
+   torch route with the near-tie rule), each MIPS kernel's launches grown
+   by exactly the shard count a call; one 4,096-user ``inference_ondemand``
+   request with a mesh of 4 against the request without one, and its
+   seconds by part; ``infer_embeddings_sharded`` of the whole graph against
+   ``compute_embeddings`` within the JAX package's tolerance (rtol 2e-5,
+   atol 2e-6), once more with a ``leaf_kernel=True`` copy of the model, whose
+   leaf-forward launches must equal the count from the tree's shape;
+   ``main_inference --mesh 1`` in a process of its own against the CLI run
+   without it; then each mesh's ranking, each shard's ``mips_topk`` and the
+   merge timed alone.  Where the host has several cards, the same ranking and
+   embedding pass over all of them (one shard a card), and whether the
+   shards overlapped (the call's wall time against the sum of the shards'
+   kernel times).  ``python3 chip_smoke.py --only sharded_serving`` runs the
+   build and this phase alone.
 5. train: the ``bench.py`` training step (dense pool of 2560, fanouts (8, 4),
    2048 edges a batch, batch-edge exclusion, max-margin loss, Adam) with the
    leaf and pool-mask kernels, about 200 steps on the same graph and model:
@@ -195,7 +214,9 @@ launches in phase 11, ``full_batch_launches``, each kernel of phase 13 its
 launches there, ``hp_search_launches``, of phase 14, ``etl_cli_launches``,
 and the pool mask's and the three MIPS epilogues' rows their launches in
 phases 15 to 17, ``train_lstm_launches``, ``train_lstm_edge_dedup_launches``
-and, the pool mask's, ``remat_launches``), the card's name and power limit,
+and, the pool mask's, ``remat_launches``; the three MIPS epilogues' and the
+leaf forward's rows their launches in phase 4b, ``sharded_serving_launches``),
+the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device.
 """
@@ -207,6 +228,7 @@ import contextlib
 import copy
 import dataclasses
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -218,6 +240,7 @@ import warnings
 import numpy as np
 import torch
 
+from gnn_recsys_tpu_torch.cli import main_inference
 from gnn_recsys_tpu_torch.config import ColumnConfig, FixedParams, HyperParams
 from gnn_recsys_tpu_torch.data import etl
 from gnn_recsys_tpu_torch.data.io import read_data, write_csv
@@ -237,7 +260,15 @@ from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, scatter_row_mask
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k, recs_to_metrics
+from gnn_recsys_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs, make_mlp_score_fn, model_score_fn
+from gnn_recsys_tpu_torch.retrieval.sharded import (
+    catalog_axis,
+    get_recs_sharded,
+    infer_embeddings_sharded,
+    merge_candidates,
+    shard_catalog,
+)
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config, save_run
 from gnn_recsys_tpu_torch.train.full_batch import (
     FullBatchConfig,
@@ -253,6 +284,7 @@ from gnn_recsys_tpu_torch.train.minibatch import (
     MinibatchConfig,
     _per_etype_batch_sizes,
     device_edge_store,
+    infer_embeddings,
     iter_edge_batches,
     make_epoch_fns,
     make_minibatch_loss,
@@ -1130,9 +1162,10 @@ def _assert_routes_agree(a: torch.Tensor, b: torch.Tensor, score, gaps=None) -> 
     return int(diff.numel())
 
 
-def request_breakdown(run_dir, dev, uids, k) -> dict:
+def request_breakdown(run_dir, dev, uids, k, mesh=None) -> dict:
     """Host-clock seconds of the steps of one ``inference_ondemand`` request,
-    run one by one (each ends in a device synchronize)."""
+    run one by one (each ends in a device synchronize); with a ``mesh``, the
+    sharded embedding pass and ranking (the catalog over axis ``model``)."""
     out = {}
 
     def step(name, fn):
@@ -1152,12 +1185,18 @@ def request_breakdown(run_dir, dev, uids, k) -> dict:
 
     model = step("build_model", make_model)
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
-    h = step("embed", lambda: compute_embeddings(model, g, feats, device=dev))
+    h = step("embed", lambda: infer_embeddings(model, g, feats, ntypes=("user", "item"),
+                                                device=dev, mesh=mesh))
     ab_u, ab_i = already_bought_from_graph(g)
     ps = step("bought_table",
               lambda: build_padded_pair_set(ab_u, ab_i, num_src=g.num_nodes("user")))
-    step("rank", lambda: get_recs(h["user"], h["item"], uids, k, already_bought=ps,
-                                  device=dev).cpu())
+    if mesh is None:
+        step("rank", lambda: get_recs(h["user"], h["item"], uids, k, already_bought=ps,
+                                      device=dev).cpu())
+    else:
+        step("rank", lambda: get_recs_sharded(mesh, h["user"], h["item"], uids, k,
+                                              already_bought=ps,
+                                              axis=catalog_axis(mesh)).cpu())
     return out
 
 
@@ -1297,6 +1336,328 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
         report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
     say("slice", **report)
     return launches, metrics[1]
+
+
+# The kernels of phase sharded_serving's path: the MIPS epilogues on each
+# catalog shard, the leaf forward in the sharded embedding pass.
+SHARDED_ROWS = ("mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd")
+# A sharded embedding pass against the full-graph pass: the JAX package's
+# tolerance (tests/test_sharded_serving.py:196-198).
+EMB_RTOL, EMB_ATOL = 2e-5, 2e-6
+
+
+def sharded_counts() -> dict:
+    return {"mips_topk": tm.mips_topk.launches, "mips_lse": tm.mips_lse.launches,
+            "mips_boost": tm.mips_boost.launches,
+            "leaf_mean_nn_fwd": la.leaf_mean_nn_fwd.launches}
+
+
+def card_mesh(dev, shards: int) -> Mesh:
+    """``shards`` catalog shards on one device: a ('data'=1, 'model'=shards)
+    mesh whose entries all name ``dev``."""
+    return make_mesh(shards, data_axis=1, devices=[dev] * shards)
+
+
+def sync_all(devices) -> None:
+    for d in dict.fromkeys(devices):
+        sync(d)
+
+
+def embedding_gap(out: dict, ref: dict) -> float:
+    """Largest |out - ref| over both node types; raises where an entry lies
+    beyond EMB_ATOL + EMB_RTOL * |ref|."""
+    err = 0.0
+    for nt in ("user", "item"):
+        a, b = out[nt].to(ref[nt].device), ref[nt]
+        if a.shape != b.shape or not ((a - b).abs() <= EMB_ATOL + EMB_RTOL * b.abs()).all():
+            raise AssertionError(f"sharded {nt} embeddings beyond rtol {EMB_RTOL}, atol {EMB_ATOL}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def recs_tensor(recs: dict, uids) -> torch.Tensor:
+    return torch.tensor([recs[u] for u in uids], dtype=torch.int64)
+
+
+def cli_recs(text: str) -> dict:
+    """``main_inference``'s printed lines, ``uid: [items]``, as a dict."""
+    out = {}
+    for line in text.strip().splitlines():
+        uid, items = line.split(": ", 1)
+        out[uid] = json.loads(items)
+    return out
+
+
+def boosted_score(h, pop):
+    """f64 boosted scores of user ``r`` (row ``r`` ranks node ``r``) at
+    ``items`` (-1 dropped): the softmax over the whole catalog plus the
+    popularity, for :func:`_assert_routes_agree`."""
+    ue, ie = l2_normalize(h["user"]).double(), l2_normalize(h["item"]).double()
+
+    def score(r, items):
+        items = items[items >= 0]
+        s = ue[r] @ ie.T
+        return torch.exp(s[items] - torch.logsumexp(s, 0)) + pop[items].double()
+
+    return score
+
+
+def tree_leaf_launches(graph, ntypes, shards: int, node_chunk: int, levels: int) -> int:
+    """Leaf-kernel launches of a sharded embedding pass: each shard's chunks
+    of each node type (ids padded to shards x chunks), one launch a leaf
+    branch of a seed's tree."""
+    total = 0
+    for nt in ntypes:
+        n = graph.num_nodes(nt)
+        chunk = min(node_chunk, n)
+        per_shard = -(-n // shards)
+        total += shards * -(-per_shard // chunk) * leaf_branches(graph, nt, levels)
+    return total
+
+
+def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k=10,
+                          request_users=4096, cli_users=64, node_chunk=1024, on_card=True) -> dict:
+    """Serve the Medium model of phase ``slice`` over meshes whose catalog
+    shards all sit on ``dev``, then over the real cards where there are
+    several; returns the launch counts of the phase's main path."""
+    t_phase = time.perf_counter()
+    num_users, num_items = data.num_users, data.num_items
+    g = data.graph
+    pop = item_popularity(data).reshape(-1).to(dev)
+    kw = medium_kwargs(g, hidden, out)
+    model = ConvModel(**kw, generator=torch.Generator().manual_seed(0))
+    leaf_model = ConvModel(**kw, leaf_kernel=True)
+    leaf_model.load_state_dict(model.state_dict())
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    ps = build_padded_pair_set(*already_bought_from_graph(g), num_src=num_users).to(dev)
+    bought_rows = ps.rows.cpu().numpy()
+    rng = np.random.default_rng(3)
+    req_ids = rng.choice(num_users, request_users, replace=False).tolist()
+    cli_ids = rng.choice(num_users, cli_users, replace=False).tolist()
+    meshes = {m: card_mesh(dev, m) for m in shard_counts}
+    request_mesh = meshes[shard_counts[0]]
+    uids = torch.arange(num_users, device=dev)
+    report = {"shard_counts": list(shard_counts), "node_chunk": node_chunk,
+              "fetch": k + ps.max_row}
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        save_run(run_dir, model.state_dict(), run_model_kwargs(kw), hyper_params=HyperParams(),
+                 graph=g)
+        model.to(dev)
+        leaf_model.to(dev)
+        # The references, before the counted path: the full-graph embeddings,
+        # single-device ranking of every user, the requests and the CLI.
+        h = compute_embeddings(model, g, feats, device=dev)
+        ranked = dict(already_bought=ps, device=dev, chunk_size=1024)
+        ref = {False: get_recs(h["user"], h["item"], uids, k, backend="cuda", **ranked),
+               True: get_recs(h["user"], h["item"], uids, k, popularity=pop, backend="torch",
+                              **ranked)}
+        ref_request = inference_ondemand(run_dir, req_ids, k=k, device=dev)
+        argv = ["--run-dir", run_dir, "--k", str(k), "--device", str(dev)]
+        argv += [a for u in cli_ids for a in ("--user-ids", str(u))]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main_inference.main(argv)
+        cli_ref = buf.getvalue()
+
+        # The main path: counts from 0, read right after.
+        tm.reset_launch_counts()
+        la.leaf_mean_nn_fwd.launches = 0
+        runs = {}
+        for m, mesh in meshes.items():
+            for boost in (False, True):
+                before = sharded_counts()
+                t0 = time.perf_counter()
+                recs = get_recs_sharded(mesh, h["user"], h["item"], uids, k, already_bought=ps,
+                                        popularity=pop if boost else None, backend="cuda")
+                sync(dev)
+                secs = time.perf_counter() - t0
+                grown = {n: c - before[n] for n, c in sharded_counts().items()}
+                runs[m, boost] = (recs, secs, grown)
+        before = sharded_counts()
+        t0 = time.perf_counter()
+        request = inference_ondemand(run_dir, req_ids, k=k, device=dev, mesh=request_mesh)
+        sync(dev)
+        report["request"] = {"users": request_users, "shards": shard_counts[0],
+                             "s": time.perf_counter() - t0,
+                             "launches": {n: c - before[n] for n, c in sharded_counts().items()}}
+        embeds = {}
+        for name, mdl in (("mean_nn", model), ("mean_nn_leaf_kernel", leaf_model)):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = sharded_counts()
+            t0 = time.perf_counter()
+            emb = infer_embeddings_sharded(mdl, g, feats, request_mesh, node_chunk=node_chunk)
+            sync(dev)
+            embeds[name] = {
+                "s": time.perf_counter() - t0,
+                "max_memory_allocated_bytes": (torch.cuda.max_memory_allocated(dev)
+                                               if dev.type == "cuda" else None),
+                "leaf_launches": la.leaf_mean_nn_fwd.launches - before["leaf_mean_nn_fwd"],
+                "max_abs_err": embedding_gap(emb, h)}
+        launches = sharded_counts()
+
+        # The CLI with --mesh 1 in a process of its own, against the one above.
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gnn_recsys_tpu_torch.cli.main_inference", *argv, "--mesh", "1"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode:
+            raise RuntimeError(f"main_inference --mesh 1 exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        cli_s = time.perf_counter() - t0
+        report["request_breakdown_s"] = request_breakdown(run_dir, dev, req_ids, k,
+                                                          mesh=request_mesh)
+
+    # Checks.  Unboosted: the same kernel on the same normalised rows, so
+    # every row equal; boosted: the shards' statistics combine in another
+    # order than one pass's, so rows may differ at near-ties.
+    ue, ie = l2_normalize(h["user"]).double(), l2_normalize(h["item"]).double()
+    boost_score = boosted_score(h, pop)
+
+    def cos_score(users):
+        return lambda r, items: ue[users[r]] @ ie[items[items >= 0]].T
+
+    report["rank_all_users"] = []
+    for (m, boost), (recs, secs, grown) in runs.items():
+        want = {"mips_topk": 0 if boost else m, "mips_lse": m if boost else 0,
+                "mips_boost": m if boost else 0, "leaf_mean_nn_fwd": 0}
+        if grown != (want if on_card else dict.fromkeys(want, 0)):
+            raise AssertionError(f"{m} shards, boost {boost}: launches {grown}, not {want}")
+        _assert_recs_valid(dict(enumerate(recs.cpu().tolist())), bought_rows, num_items)
+        gaps = []
+        if boost:
+            differing = _assert_routes_agree(recs, ref[True], boost_score, gaps)
+        else:
+            differing = int((recs != ref[False]).any(dim=1).sum())
+            if differing:
+                raise AssertionError(f"{m} shards: {differing} rows differ from get_recs")
+        report["rank_all_users"].append({
+            "users": num_users, "shards": m, "boost": boost, "s": secs, "launches": grown,
+            "rows_differing": differing, "largest_score_gap": max(gaps, default=0.0)})
+
+    # The mesh's embeddings are the full-graph pass's up to the order of
+    # sums, so a request's rows may differ from mesh=None's at near-ties only.
+    report["request"]["rows_differing"] = _assert_routes_agree(
+        recs_tensor(request, req_ids).to(dev), recs_tensor(ref_request, req_ids).to(dev),
+        cos_score(torch.as_tensor(req_ids, device=dev)))
+    want_leaf = tree_leaf_launches(g, g.ntypes, shard_counts[0], node_chunk,
+                                   model.num_conv_layers)
+    if on_card and (embeds["mean_nn"]["leaf_launches"]
+                    or embeds["mean_nn_leaf_kernel"]["leaf_launches"] != want_leaf):
+        raise AssertionError(f"leaf launches {embeds}, not 0 and {want_leaf}")
+    report["embeddings"] = embeds
+    report["embeddings_expected_leaf_launches"] = want_leaf
+
+    mesh_cli, plain_cli = cli_recs(proc.stdout), cli_recs(cli_ref)
+    if sorted(mesh_cli) != sorted(plain_cli):
+        raise AssertionError("main_inference --mesh 1 answered other users")
+    cli_users_t = torch.as_tensor(cli_ids, device=dev)
+    report["cli_mesh_1"] = {"s": cli_s, "users": cli_users, "identical": proc.stdout == cli_ref,
+                            "rows_differing": _assert_routes_agree(
+                                recs_tensor(mesh_cli, [str(u) for u in cli_ids]).to(dev),
+                                recs_tensor(plain_cli, [str(u) for u in cli_ids]).to(dev),
+                                cos_score(cli_users_t))}
+
+    if on_card:
+        report["timed"] = sharded_times(dev, meshes, h, ps, pop, k)
+        if torch.cuda.device_count() > 1:
+            report["cards"] = sharded_over_cards(h, ps, pop, k, ref, g, feats, model, node_chunk,
+                                                 embeds["mean_nn"]["s"])
+    report.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    say("sharded_serving", **report)
+    return launches
+
+
+def shard_topk_inputs(mesh, h, fetch):
+    """Each shard's device, normalised users, real catalog rows and width
+    ``min(fl, rows)``, as the ``cuda`` route lays them out."""
+    devices = mesh.shard_devices("model")
+    blocks, _, n = shard_catalog(mesh, h["item"], axis="model")
+    per = blocks[0].shape[0]
+    fl = min(fetch, per)
+    users = {d: l2_normalize(h["user"].to(d)) for d in dict.fromkeys(devices)}
+    out = []
+    for j, (d, b) in enumerate(zip(devices, blocks)):
+        rows = max(0, min(per, n - j * per))
+        out.append((d, users[d], l2_normalize(b[:rows]), min(fl, rows), j * per))
+    return out, fl
+
+
+def sharded_times(dev, meshes, h, ps, pop, k) -> list:
+    """On one card: each mesh's sharded ranking of every user (CUDA events,
+    3 calls), plain and boosted, beside single-device ``get_recs``; each
+    shard's ``mips_topk`` alone and the merge alone."""
+    uids = torch.arange(h["user"].shape[0], device=dev)
+    fetch = k + ps.max_row
+    rows = []
+    single = {boost: time_ms(lambda boost=boost: get_recs(
+        h["user"], h["item"], uids, k, already_bought=ps, popularity=pop if boost else None,
+        backend="cuda", device=dev), reps=3, warmup=1) for boost in (False, True)}
+    for m, mesh in meshes.items():
+        shards, fl = shard_topk_inputs(mesh, h, fetch)
+        shard_ms, vals, idx = [], [], []
+        for d, ue, ie, kj, lo in shards:
+            shard_ms.append(time_ms(lambda ue=ue, ie=ie, kj=kj: tm.mips_topk(ue, ie, kj),
+                                    reps=3, warmup=1))
+            v, i = tm.mips_topk(ue, ie, kj)
+            vals.append(torch.nn.functional.pad(v, (0, fl - kj), value=float("-inf")))
+            idx.append(torch.nn.functional.pad(i + lo, (0, fl - kj), value=-1))
+        row = {"shards": m, "fl": fl, "shard_mips_topk_ms": shard_ms,
+               "merge_ms": time_ms(lambda: merge_candidates(vals, idx, fetch, dev), reps=3,
+                                   warmup=1)}
+        for boost in (False, True):
+            row["boosted_ms" if boost else "ms"] = time_ms(
+                lambda boost=boost, mesh=mesh: get_recs_sharded(
+                    mesh, h["user"], h["item"], uids, k, already_bought=ps,
+                    popularity=pop if boost else None, backend="cuda"), reps=3, warmup=1)
+            row["single_device_boosted_ms" if boost else "single_device_ms"] = single[boost]
+        rows.append(row)
+    return rows
+
+
+def sharded_over_cards(h, ps, pop, k, ref, g, feats, model, node_chunk, one_card_embed_s) -> dict:
+    """The same ranking and embedding pass over every card (one shard a
+    card): the same checks, and whether the shards overlapped (the sharded
+    call's wall time against the sum of the shards' ``mips_topk`` times,
+    each alone on its card)."""
+    n = torch.cuda.device_count()
+    mesh = make_mesh(n, data_axis=1)
+    devices = mesh.shard_devices("model")
+    home = devices[0]
+    uids = torch.arange(h["user"].shape[0], device=home)
+    out = {"cards": n, "devices": [torch.cuda.get_device_name(d) for d in devices]}
+    for boost in (False, True):
+        recs = get_recs_sharded(mesh, h["user"], h["item"], uids, k, already_bought=ps,
+                                popularity=pop if boost else None, backend="cuda")
+        sync_all(devices)
+        if boost:
+            out["boosted_rows_differing"] = _assert_routes_agree(recs, ref[True],
+                                                                 boosted_score(h, pop))
+        elif not torch.equal(recs, ref[False]):
+            raise AssertionError("ranking over the cards differs from get_recs")
+    walls = []
+    for _ in range(3):
+        sync_all(devices)
+        t0 = time.perf_counter()
+        get_recs_sharded(mesh, h["user"], h["item"], uids, k, already_bought=ps, backend="cuda")
+        sync_all(devices)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    shards, _ = shard_topk_inputs(mesh, h, k + ps.max_row)
+    shard_ms = []
+    for d, ue, ie, kj, _ in shards:
+        with torch.cuda.device(d):
+            shard_ms.append(time_ms(lambda ue=ue, ie=ie, kj=kj: tm.mips_topk(ue, ie, kj),
+                                    reps=3, warmup=1))
+    out.update(wall_ms=walls, shard_mips_topk_ms=shard_ms,
+               overlapped=min(walls) < sum(shard_ms))
+    t0 = time.perf_counter()
+    emb = infer_embeddings_sharded(model, g, feats, mesh, node_chunk=node_chunk)
+    sync_all(devices)
+    out["embeddings"] = {"s": time.perf_counter() - t0, "one_card_4_shards_s": one_card_embed_s,
+                         "max_abs_err": embedding_gap(emb, h)}
+    return out
 
 
 def leaf_branches(graph, ntype: str, level: int) -> int:
@@ -3081,12 +3442,25 @@ def step_breakdown(wall_ms, kernels, n, top_n=8) -> dict:
                             for key, c, us in top]}
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on the CUDA card(s).")
+    parser.add_argument("--only", choices=["sharded_serving"],
+                        help="build, then run this phase alone on the bench graph (for a "
+                             "host with several cards); the full run takes no argument")
+    args = parser.parse_args(list(argv))
     kind = phase_device()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ptxas = phase_build()
+    if args.only:
+        phase_sharded_serving(dev, bench_data())
+        print(smi(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     rows = phase_kernels(dev)
     phase_profiler_window(dev, "start")
     t0 = time.perf_counter()
@@ -3094,6 +3468,9 @@ def main() -> int:
     say("graph", seconds=time.perf_counter() - t0,
         edges={"/".join(et): data.graph.num_edges(et) for et in data.graph.canonical_etypes})
     launches, random_recall = phase_slice(dev, data)
+    # Catalog-sharded serving: meshes whose shards share the card, then
+    # the cards themselves where there are several.
+    sharded_launches = phase_sharded_serving(dev, data)
     train_launches, _ = phase_train(dev, data, random_recall=random_recall)
     launches.update(train_launches)
     # Each kernel's launches are counted on the path that runs it: the
@@ -3153,6 +3530,8 @@ def main() -> int:
             for phase, counts in lstm_launches.items():
                 if row["name"] in counts:
                     row[f"{phase}_launches"] = counts[row["name"]]
+        if row["name"] in SHARDED_ROWS:
+            row["sharded_serving_launches"] = sharded_launches[row["name"]]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
     rows += hp_rows + etl_rows  # launches: each phase's training, by shape
@@ -3164,4 +3543,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

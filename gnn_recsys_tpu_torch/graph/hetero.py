@@ -261,6 +261,22 @@ def attach_leaf_features(graph: HeteroGraph, features: Mapping[str, torch.Tensor
     return dataclasses.replace(graph, rels=rels)
 
 
+def uncap(graph: HeteroGraph) -> HeteroGraph:
+    """``graph`` with each relation whose padded rows dropped edges (a
+    ``max_fanout`` cap) rebuilt on the host with all of them; the others
+    kept as they are.  A full-fanout tree over it reads every in-edge of a
+    node, as the full-graph pass does."""
+    rels = {}
+    for etype, rel in graph.rels.items():
+        if int(rel.deg.sum()) == rel.num_edges:
+            rels[etype] = rel
+            continue
+        rels[etype] = build_relation(
+            rel.src.cpu().numpy(), rel.dst.cpu().numpy(), num_dst=graph.num_nodes(etype[2]),
+            edata={k: v.cpu().numpy() for k, v in rel.edata.items()})
+    return dataclasses.replace(graph, rels=rels)
+
+
 def remove_edges(
     graph: HeteroGraph,
     eids_to_remove: Mapping[CanonicalEtype, np.ndarray],

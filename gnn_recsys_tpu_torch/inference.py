@@ -21,7 +21,9 @@ from gnn_recsys_tpu_torch.config import FixedParams, HyperParams
 from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.ops.membership import PaddedPairSet, build_padded_pair_set
+from gnn_recsys_tpu_torch.parallel.mesh import Mesh
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs, model_score_fn
+from gnn_recsys_tpu_torch.retrieval.sharded import catalog_axis, get_recs_sharded
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config
 from gnn_recsys_tpu_torch.train.minibatch import infer_embeddings
 
@@ -73,6 +75,7 @@ def inference_ondemand(
     weight_popularity: float = 1.0,
     rebuild_dataframes: Optional[Dict] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict:
     """Recommendations for external user ids from a saved run directory.
 
@@ -86,8 +89,21 @@ def inference_ondemand(
     ``use_popularity=None`` resolves from the saved run's hyperparameters
     (``HyperParams.serve_with_popularity_boost``); pass True/False to
     override.
+
+    ``mesh``: serve over the devices of a
+    :class:`~gnn_recsys_tpu_torch.parallel.mesh.Mesh` (``inference.py:
+    159-175``): the sampled-tree embedding pass data-parallel over every
+    device, retrieval with the catalog split over the ``model`` axis where
+    it is above 1, else ``data`` (:mod:`~gnn_recsys_tpu_torch.retrieval.sharded`).
+    The recommendations are the single-device ones.  ``device`` must then be
+    of the mesh's device type.
     """
     dev = torch.device(device)
+    if mesh is not None:
+        if mesh.first_device.type != dev.type:
+            raise ValueError(f"device={device!r}, but the mesh's devices are "
+                             f"{mesh.first_device.type}")
+        dev = mesh.first_device
     run = load_run(run_dir)
     graph = run["graph"]
     id_maps = run["id_maps"] or {}
@@ -117,7 +133,8 @@ def inference_ondemand(
 
     features = {nt: graph.ndata[nt]["features"] for nt in graph.ntypes}
     h = infer_embeddings(model, graph, features, mode=inference_mode,
-                         node_batch_size=node_batch_size, ntypes=("user", "item"), device=dev)
+                         node_batch_size=node_batch_size, ntypes=("user", "item"), device=dev,
+                         mesh=mesh)
 
     already: Optional[PaddedPairSet] = None
     if remove_already_bought:
@@ -132,12 +149,15 @@ def inference_ondemand(
     if use_popularity and "popularity" in graph.ndata.get("item", {}):
         popularity = graph.ndata["item"]["popularity"].reshape(-1)
 
-    recs = get_recs(
-        h["user"], h["item"], user_node_ids, k,
-        already_bought=already, remove_already_bought=remove_already_bought,
-        score_fn=model_score_fn(model.pred, model), popularity=popularity,
-        weight_popularity=weight_popularity, backend="auto", device=dev,
-    ).cpu().numpy()
+    route = dict(already_bought=already, remove_already_bought=remove_already_bought,
+                 score_fn=model_score_fn(model.pred, model), popularity=popularity,
+                 weight_popularity=weight_popularity, backend="auto")
+    if mesh is not None:
+        recs = get_recs_sharded(mesh, h["user"], h["item"], user_node_ids, k,
+                                axis=catalog_axis(mesh), **route)
+    else:
+        recs = get_recs(h["user"], h["item"], user_node_ids, k, device=dev, **route)
+    recs = recs.cpu().numpy()
     if pdt_id_df is not None and ctm_id_df is not None:
         return postprocess_recs(recs, user_node_ids, pdt_id_df, ctm_id_df)
     return {int(u): row.tolist() for u, row in zip(user_node_ids, recs)}

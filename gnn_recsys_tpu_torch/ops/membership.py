@@ -74,12 +74,14 @@ def pair_set_contains_pool(ps: PaddedPairSet, u: torch.Tensor, pool: torch.Tenso
     return pool_mask.pool_membership_mask_reference(rows, pool)
 
 
-def scatter_row_mask(ps: PaddedPairSet, u: torch.Tensor, num_dst: int) -> torch.Tensor:
-    """Dense [len(u), num_dst] membership mask for the given sources: each
-    source's row scattered into a boolean row; padding lands in a dropped
-    overflow column."""
-    rows = _rows_of(ps, u).long()  # [C, K]
-    cols = torch.where(rows >= 0, rows, torch.full_like(rows, num_dst))
+def scatter_row_mask(ps: PaddedPairSet, u: torch.Tensor, num_dst: int,
+                     lo: int = 0) -> torch.Tensor:
+    """Dense [len(u), num_dst] membership mask for the given sources over
+    destinations ``lo .. lo + num_dst - 1`` (a catalog shard's columns):
+    each source's row scattered into a boolean row; padding and destinations
+    outside the range land in a dropped overflow column."""
+    rows = _rows_of(ps, u).long() - lo  # [C, K]
+    cols = torch.where((rows >= 0) & (rows < num_dst), rows, torch.full_like(rows, num_dst))
     out = torch.zeros((rows.shape[0], num_dst + 1), dtype=torch.bool, device=rows.device)
     out.scatter_(1, cols, torch.ones_like(cols, dtype=torch.bool))
     return out[:, :num_dst]

@@ -22,6 +22,7 @@ import torch
 
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, pair_set_contains
 from gnn_recsys_tpu_torch.retrieval.recs import as_device_tensor, get_recs, resolve_device
+from gnn_recsys_tpu_torch.retrieval.sharded import catalog_axis, get_recs_sharded
 
 
 def recs_to_metrics(
@@ -79,6 +80,7 @@ def get_metrics_at_k(
     backend: str = "auto",
     already_bought_cap: Optional[int] = None,
     device=None,
+    mesh=None,
 ) -> Tuple[float, float, float]:
     """Recs for the unique ground-truth users, then (precision, recall,
     coverage) (reference ``get_metrics_at_k``, src/metrics.py:110-134).
@@ -89,8 +91,12 @@ def get_metrics_at_k(
     ``user_emb`` (CUDA when it is not a tensor).
     already_bought_cap: bound on the padded already-bought row width (each
     user keeps its ``cap`` most recent purchases); None is exact.
+    mesh: rank with the catalog split over the mesh
+    (:func:`~gnn_recsys_tpu_torch.retrieval.sharded.get_recs_sharded`, axis
+    ``model`` where it is above 1, else ``data``; ``metrics.py:149-160``):
+    the same results, on the mesh's first device.
     """
-    dev = resolve_device(device, user_emb)
+    dev = mesh.first_device if mesh is not None else resolve_device(device, user_emb)
     gt_users, gt_items = (np.asarray(a) for a in ground_truth)
     uniq = np.unique(gt_users)
     already_table = None
@@ -105,12 +111,14 @@ def get_metrics_at_k(
             already_bought[0], already_bought[1], num_src=n_src, cap=already_bought_cap,
         )
     user_ids = torch.as_tensor(uniq, dtype=torch.int64, device=dev)
-    recs = get_recs(
-        user_emb, item_emb, user_ids, k,
-        already_bought=already_table, remove_already_bought=remove_already_bought,
-        score_fn=score_fn, popularity=popularity, weight_popularity=weight_popularity,
-        backend=backend, device=dev,
-    )
+    route = dict(already_bought=already_table, remove_already_bought=remove_already_bought,
+                 score_fn=score_fn, popularity=popularity,
+                 weight_popularity=weight_popularity, backend=backend)
+    if mesh is not None:
+        recs = get_recs_sharded(mesh, user_emb, item_emb, user_ids, k,
+                                axis=catalog_axis(mesh), **route)
+    else:
+        recs = get_recs(user_emb, item_emb, user_ids, k, device=dev, **route)
     return recs_to_metrics(recs, user_ids, gt_users, gt_items, int(item_emb.shape[0]))
 
 

@@ -69,15 +69,20 @@ def make_mlp_score_fn(params: Union[nn.Module, Mapping[str, torch.Tensor]],
     broadcast add and the 128 -> 32 -> 1 towers run per item tile of ``T =
     item_tile`` items.  ``params``: a ``pred='nn'`` model or its state_dict.
     Products in full f32.  Returns a ``ScoreFn`` for :func:`get_recs`
-    (``torch`` route)."""
+    (``torch`` route), which moves the weights to a device at its first call
+    there."""
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     w1, b1, w2, b2, w3, b3 = (sd[f"pred_layer.{lin}.{leaf}"].detach().float()
                               for lin in ("hidden_1", "hidden_2", "output")
                               for leaf in ("weight", "bias"))
 
+    on_device = {}  # the weights moved once a device (a mesh's shards call from several)
+
     def score_fn(u_chunk: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
         dev, d = u_chunk.device, u_chunk.shape[-1]
-        w1d, b1d, w2d, b2d, w3d, b3d = (t.to(dev) for t in (w1, b1, w2, b2, w3, b3))
+        if dev not in on_device:
+            on_device[dev] = tuple(t.to(dev) for t in (w1, b1, w2, b2, w3, b3))
+        w1d, b1d, w2d, b2d, w3d, b3d = on_device[dev]
         with full_f32_matmul():
             uh = u_chunk @ w1d[:, :d].T + b1d  # [C, 128]
             ih = item_emb @ w1d[:, d:].T  # [I, 128]

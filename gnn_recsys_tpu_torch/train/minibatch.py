@@ -47,6 +47,7 @@ from gnn_recsys_tpu_torch.ops.membership import (
 from gnn_recsys_tpu_torch.ops.sampling import Draws, _rows
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import model_score_fn
+from gnn_recsys_tpu_torch.retrieval.sharded import infer_embeddings_sharded
 from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings, init_model
 from gnn_recsys_tpu_torch.utils.profiling import ThroughputMeter, profiler_trace
 
@@ -455,11 +456,21 @@ def infer_embeddings(
     node_batch_size: int = 128,
     ntypes: Optional[Tuple[str, ...]] = None,
     device=None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Embeddings of every node.  ``mode='full_graph'`` is one layer-wise
     pass over the whole graph (:func:`compute_embeddings`);
     ``'node_batches'`` the sampled-tree forward over node chunks
-    (:func:`compute_embeddings_minibatch`)."""
+    (:func:`compute_embeddings_minibatch`).  With a ``mesh``, whatever
+    ``mode`` says, the sampled-tree forward data-parallel over every device
+    of the mesh, chunks of ``node_batch_size``
+    (:func:`~gnn_recsys_tpu_torch.retrieval.sharded.infer_embeddings_sharded`;
+    ``minibatch.py:563-572``)."""
+    if mesh is not None:
+        return infer_embeddings_sharded(model, graph, features, mesh,
+                                        axis=tuple(a for a in ("data", "model")
+                                                   if a in mesh.shape),
+                                        node_chunk=node_batch_size, ntypes=ntypes)
     if mode == "full_graph":
         return compute_embeddings(model, graph, features, device=device)
     if mode == "node_batches":

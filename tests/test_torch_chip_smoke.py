@@ -475,3 +475,35 @@ def test_remat_rehearsal(data, capsys):
     assert report["phase"] == "remat" and report["bit_identical"]
     assert report["dropout"]["p"] == 0.5 and report["dropout"]["bit_identical"]
     assert report["dropout"]["loss"] != report["loss"]
+
+
+def test_sharded_serving_rehearsal(data, capsys):
+    """Phase sharded_serving on the CPU with meshes of 3 and 7 CPU entries
+    (7 leaves a padded last shard): every ranking equals single-device
+    ``get_recs`` (the boosted ones within the near-tie rule), the mesh
+    request equals the single-device one, the sharded embeddings are within
+    JAX's tolerance of the full-graph pass (the bench graph's rows are capped
+    at 32: the pass reads them whole), ``main_inference --mesh 1`` in
+    its own process prints what the run without it prints; no kernel
+    launches on the CPU."""
+    launches = chip_smoke.phase_sharded_serving(
+        torch.device("cpu"), data, hidden=32, out=16, shard_counts=(3, 7), request_users=64,
+        cli_users=8, node_chunk=32, on_card=False)
+    assert launches == dict.fromkeys(chip_smoke.SHARDED_ROWS, 0)
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["phase"] == "sharded_serving" and report["node_chunk"] == 32
+    ranks = report["rank_all_users"]
+    assert [(r["shards"], r["boost"]) for r in ranks] == [(3, False), (3, True), (7, False),
+                                                         (7, True)]
+    assert all(r["users"] == 300 and not r["rows_differing"] for r in ranks)
+    assert report["request"]["rows_differing"] == 0
+    assert report["cli_mesh_1"]["identical"] and report["cli_mesh_1"]["users"] == 8
+    for emb in report["embeddings"].values():
+        assert emb["max_abs_err"] <= 1e-5 and emb["leaf_launches"] == 0
+    g = data.graph
+    assert any(int(rel.deg.sum()) < rel.num_edges for rel in g.rels.values())  # capped rows
+    # 300 users over 3 shards: 100 ids a shard, 4 chunks of 32; 120 items: 2 chunks.
+    assert report["embeddings_expected_leaf_launches"] == 3 * (
+        4 * chip_smoke.leaf_branches(g, "user", 2) + 2 * chip_smoke.leaf_branches(g, "item", 2))
+    assert set(report["request_breakdown_s"]) == {"load_run", "build_model", "embed",
+                                                  "bought_table", "rank"}

@@ -274,10 +274,10 @@ def _argparse_options(parser: argparse.ArgumentParser):
 @pytest.mark.parametrize("name", ["main_hp", "main_train", "main_inference"])
 def test_cli_options_match_jax(name):
     """Every option of the JAX package's click command, with its default,
-    requiredness and flag form, is the port's argparse option, but
-    ``main_inference --mesh`` (not ported; its help says so); the port adds
-    ``--device`` (default cuda) and ``main_train --plots-dir`` (default
-    ``plots``, JAX ``main_train.py:96``)."""
+    requiredness and flag form, is the port's argparse option
+    (``main_inference --mesh`` too, default 0); the port adds ``--device``
+    (default cuda) and ``main_train --plots-dir`` (default ``plots``, JAX
+    ``main_train.py:96``)."""
     jcmd = {"main_hp": jmain_hp, "main_train": jmain_train,
             "main_inference": jmain_inference}[name].main
     port = {"main_hp": main_hp, "main_train": main_train,
@@ -287,8 +287,6 @@ def test_cli_options_match_jax(name):
     if name == "main_train":
         added["--plots-dir"] = ("plots", False, False)
     if name == "main_inference":
-        assert want.pop("--mesh")[0] == 0
-        assert "--mesh" in port.format_help()
         want["--use-popularity"] = want["--no-use-popularity"] = (None, False, True)
         got["--no-use-popularity"] = (None, False, True)
         want["--user-ids"] = ([], False, False)  # click's multiple=True: a tuple
