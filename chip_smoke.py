@@ -56,11 +56,12 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    catalog split over meshes of 4 and 7 shards that all sit on the card (7
    leaves a padded last shard): every user ranked through
    ``get_recs_sharded`` on the kernel route, plain and boosted, against
-   single-device ``get_recs`` (plain: every row equal; boosted: against the
-   torch route with the near-tie rule), each MIPS kernel's launches grown
-   by exactly the shard count a call; one 4,096-user ``inference_ondemand``
-   request with a mesh of 4 against the request without one, and its
-   seconds by part; ``infer_embeddings_sharded`` of the whole graph against
+   single-device ``get_recs`` (plain: every row equal to the kernel
+   route's; both: against the torch route with the near-tie rule), each
+   MIPS kernel's launches grown by exactly the shard count a call; one
+   4,096-user ``inference_ondemand`` request with a mesh of 4 against the
+   request without one, and its seconds by part (the rebuild of capped
+   rows among them); ``infer_embeddings_sharded`` of the whole graph against
    ``compute_embeddings`` within the JAX package's tolerance (rtol 2e-5,
    atol 2e-6), once more with a ``leaf_kernel=True`` copy of the model, whose
    leaf-forward launches must equal the count from the tree's shape;
@@ -69,7 +70,7 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    merge timed alone.  Where the host has several cards, the same ranking and
    embedding pass over all of them (one shard a card), and whether the
    shards overlapped (the call's wall time against the sum of the shards'
-   kernel times).  ``python3 chip_smoke.py --only sharded_serving`` runs the
+   kernel times).  ``python3 phase_compare.py sharded_serving .`` runs the
    build and this phase alone.
 5. train: the ``bench.py`` training step (dense pool of 2560, fanouts (8, 4),
    2048 edges a batch, batch-edge exclusion, max-margin loss, Adam) with the
@@ -246,7 +247,7 @@ from gnn_recsys_tpu_torch.data import etl
 from gnn_recsys_tpu_torch.data.io import read_data, write_csv
 from gnn_recsys_tpu_torch.data.presplit import presplit_data
 from gnn_recsys_tpu_torch.data.table import Table
-from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features
+from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features, uncap
 from gnn_recsys_tpu_torch.hpsearch import run_search
 from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_ondemand
 from gnn_recsys_tpu_torch.models import conv_model
@@ -1185,6 +1186,9 @@ def request_breakdown(run_dir, dev, uids, k, mesh=None) -> dict:
 
     model = step("build_model", make_model)
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    if mesh is not None:
+        # What the sharded pass does first (then a no-op there): capped rows rebuilt whole.
+        g = step("uncap", lambda: uncap(g))
     h = step("embed", lambda: infer_embeddings(model, g, feats, ntypes=("user", "item"),
                                                 device=dev, mesh=mesh))
     ab_u, ab_i = already_bought_from_graph(g)
@@ -1404,14 +1408,14 @@ def boosted_score(h, pop):
 
 def tree_leaf_launches(graph, ntypes, shards: int, node_chunk: int, levels: int) -> int:
     """Leaf-kernel launches of a sharded embedding pass: each shard's chunks
-    of each node type (ids padded to shards x chunks), one launch a leaf
-    branch of a seed's tree."""
+    of each node type (the ids split into ``shards`` runs, the first ``n %
+    shards`` one longer), one launch a leaf branch of a seed's tree."""
     total = 0
     for nt in ntypes:
         n = graph.num_nodes(nt)
-        chunk = min(node_chunk, n)
-        per_shard = -(-n // shards)
-        total += shards * -(-per_shard // chunk) * leaf_branches(graph, nt, levels)
+        sizes = [n // shards + (j < n % shards) for j in range(shards)]
+        chunks = sum(-(-size // node_chunk) for size in sizes)
+        total += chunks * leaf_branches(graph, nt, levels)
     return total
 
 
@@ -1448,10 +1452,12 @@ def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k
         # The references, before the counted path: the full-graph embeddings,
         # single-device ranking of every user, the requests and the CLI.
         h = compute_embeddings(model, g, feats, device=dev)
+        full = uncap(g).to(dev)  # the graph the sharded pass reads, rebuilt once
         ranked = dict(already_bought=ps, device=dev, chunk_size=1024)
         ref = {False: get_recs(h["user"], h["item"], uids, k, backend="cuda", **ranked),
                True: get_recs(h["user"], h["item"], uids, k, popularity=pop, backend="torch",
                               **ranked)}
+        ref_torch = get_recs(h["user"], h["item"], uids, k, backend="torch", **ranked)
         ref_request = inference_ondemand(run_dir, req_ids, k=k, device=dev)
         argv = ["--run-dir", run_dir, "--k", str(k), "--device", str(dev)]
         argv += [a for u in cli_ids for a in ("--user-ids", str(u))]
@@ -1487,7 +1493,7 @@ def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k
                 torch.cuda.reset_peak_memory_stats(dev)
             before = sharded_counts()
             t0 = time.perf_counter()
-            emb = infer_embeddings_sharded(mdl, g, feats, request_mesh, node_chunk=node_chunk)
+            emb = infer_embeddings_sharded(mdl, full, feats, request_mesh, node_chunk=node_chunk)
             sync(dev)
             embeds[name] = {
                 "s": time.perf_counter() - t0,
@@ -1511,13 +1517,16 @@ def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k
                                                           mesh=request_mesh)
 
     # Checks.  Unboosted: the same kernel on the same normalised rows, so
-    # every row equal; boosted: the shards' statistics combine in another
-    # order than one pass's, so rows may differ at near-ties.
+    # every row equal to the kernel route's, and against the torch route
+    # with the near-tie rule; boosted: the shards' statistics combine in
+    # another order than one pass's, so rows may differ at near-ties.
     ue, ie = l2_normalize(h["user"]).double(), l2_normalize(h["item"]).double()
     boost_score = boosted_score(h, pop)
 
     def cos_score(users):
         return lambda r, items: ue[users[r]] @ ie[items[items >= 0]].T
+
+    all_cos = cos_score(uids)
 
     report["rank_all_users"] = []
     for (m, boost), (recs, secs, grown) in runs.items():
@@ -1533,6 +1542,7 @@ def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k
             differing = int((recs != ref[False]).any(dim=1).sum())
             if differing:
                 raise AssertionError(f"{m} shards: {differing} rows differ from get_recs")
+            differing = _assert_routes_agree(recs, ref_torch, all_cos, gaps)
         report["rank_all_users"].append({
             "users": num_users, "shards": m, "boost": boost, "s": secs, "launches": grown,
             "rows_differing": differing, "largest_score_gap": max(gaps, default=0.0)})
@@ -1563,8 +1573,8 @@ def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k
     if on_card:
         report["timed"] = sharded_times(dev, meshes, h, ps, pop, k)
         if torch.cuda.device_count() > 1:
-            report["cards"] = sharded_over_cards(h, ps, pop, k, ref, g, feats, model, node_chunk,
-                                                 embeds["mean_nn"]["s"])
+            report["cards"] = sharded_over_cards(h, ps, pop, k, ref, ref_torch, full, feats, model,
+                                                 node_chunk, embeds["mean_nn"]["s"])
     report.update(launches=launches, seconds=time.perf_counter() - t_phase)
     say("sharded_serving", **report)
     return launches
@@ -1617,11 +1627,12 @@ def sharded_times(dev, meshes, h, ps, pop, k) -> list:
     return rows
 
 
-def sharded_over_cards(h, ps, pop, k, ref, g, feats, model, node_chunk, one_card_embed_s) -> dict:
-    """The same ranking and embedding pass over every card (one shard a
-    card): the same checks, and whether the shards overlapped (the sharded
-    call's wall time against the sum of the shards' ``mips_topk`` times,
-    each alone on its card)."""
+def sharded_over_cards(h, ps, pop, k, ref, ref_torch, full, feats, model, node_chunk,
+                       one_card_embed_s) -> dict:
+    """The same ranking and embedding pass (of the uncapped graph ``full``)
+    over every card (one shard a card): the same checks, and whether the
+    shards overlapped (the sharded call's wall time against the sum of the
+    shards' ``mips_topk`` times, each alone on its card)."""
     n = torch.cuda.device_count()
     mesh = make_mesh(n, data_axis=1)
     devices = mesh.shard_devices("model")
@@ -1635,8 +1646,13 @@ def sharded_over_cards(h, ps, pop, k, ref, g, feats, model, node_chunk, one_card
         if boost:
             out["boosted_rows_differing"] = _assert_routes_agree(recs, ref[True],
                                                                  boosted_score(h, pop))
-        elif not torch.equal(recs, ref[False]):
+            continue
+        if not torch.equal(recs, ref[False]):
             raise AssertionError("ranking over the cards differs from get_recs")
+        ue, ie = l2_normalize(h["user"]).double(), l2_normalize(h["item"]).double()
+        out["rows_differing_from_torch_route"] = _assert_routes_agree(
+            recs.to(ref_torch.device), ref_torch,
+            lambda r, items: ue[r] @ ie[items[items >= 0]].T)
     walls = []
     for _ in range(3):
         sync_all(devices)
@@ -1653,7 +1669,7 @@ def sharded_over_cards(h, ps, pop, k, ref, g, feats, model, node_chunk, one_card
     out.update(wall_ms=walls, shard_mips_topk_ms=shard_ms,
                overlapped=min(walls) < sum(shard_ms))
     t0 = time.perf_counter()
-    emb = infer_embeddings_sharded(model, g, feats, mesh, node_chunk=node_chunk)
+    emb = infer_embeddings_sharded(model, full, feats, mesh, node_chunk=node_chunk)
     sync_all(devices)
     out["embeddings"] = {"s": time.perf_counter() - t0, "one_card_4_shards_s": one_card_embed_s,
                          "max_abs_err": embedding_gap(emb, h)}
@@ -3442,25 +3458,12 @@ def step_breakdown(wall_ms, kernels, n, top_n=8) -> dict:
                             for key, c, us in top]}
 
 
-def main(argv=()) -> int:
-    import argparse
-
-    parser = argparse.ArgumentParser(description="Smoke run of the port on the CUDA card(s).")
-    parser.add_argument("--only", choices=["sharded_serving"],
-                        help="build, then run this phase alone on the bench graph (for a "
-                             "host with several cards); the full run takes no argument")
-    args = parser.parse_args(list(argv))
+def main() -> int:
     kind = phase_device()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ptxas = phase_build()
-    if args.only:
-        phase_sharded_serving(dev, bench_data())
-        print(smi(), flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
-        return 0
     rows = phase_kernels(dev)
     phase_profiler_window(dev, "start")
     t0 = time.perf_counter()
@@ -3543,4 +3546,4 @@ def main(argv=()) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

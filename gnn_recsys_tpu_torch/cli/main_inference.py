@@ -4,7 +4,8 @@ reference ``main_inference.py:179-222``).
 The options are the JAX package's (argparse in place of click), plus
 ``--device``.  ``--mesh N`` serves over N devices: the cards, or with
 ``--device cpu`` a mesh of N CPU entries (embedding inference data-parallel,
-catalog-sharded retrieval; the recommendations are the single-device ones).
+catalog-sharded retrieval; the recommendations are the single-device ones
+up to near-ties: the sharded embedding pass sums in another order).
 
 Usage:
     python -m gnn_recsys_tpu_torch.cli.main_inference --run-dir models/run1 \\
@@ -45,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", dest="mesh_devices", type=int, default=0,
                    help="Distribute serving over N devices (embedding inference "
                         "data-parallel + catalog-sharded retrieval; 0 = single device). "
-                        "Results are identical.")
+                        "Results equal the single-device ones up to near-ties from the "
+                        "embeddings' summation order.")
     p.add_argument("--device", default="cuda",
                    help="Where the model embeds and ranks (default: the CUDA device).")
     return p

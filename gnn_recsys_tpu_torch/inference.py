@@ -95,8 +95,9 @@ def inference_ondemand(
     159-175``): the sampled-tree embedding pass data-parallel over every
     device, retrieval with the catalog split over the ``model`` axis where
     it is above 1, else ``data`` (:mod:`~gnn_recsys_tpu_torch.retrieval.sharded`).
-    The recommendations are the single-device ones.  ``device`` must then be
-    of the mesh's device type.
+    The recommendations are the single-device ones up to near-ties: the
+    sharded pass's embeddings are the full-graph pass's summed in another
+    order.  ``device`` must then be of the mesh's device type.
     """
     dev = torch.device(device)
     if mesh is not None:

@@ -47,7 +47,6 @@ from gnn_recsys_tpu_torch.graph.hetero import uncap
 from gnn_recsys_tpu_torch.models.layers import l2_normalize
 from gnn_recsys_tpu_torch.ops.cuda.topk_mips import mips_boost, mips_lse, mips_topk, stable_topk
 from gnn_recsys_tpu_torch.ops.membership import PaddedPairSet, scatter_row_mask
-from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.parallel.mesh import Axes, Mesh
 from gnn_recsys_tpu_torch.retrieval.recs import (
     OVERFETCH_MAX_ROW,
@@ -303,47 +302,33 @@ def infer_embeddings_sharded(
 ) -> Dict[str, torch.Tensor]:
     """Embeddings of every node, data-parallel over the devices of ``axis``
     (by default every device of the mesh; ``sharded.py:312-383``): the node
-    ids of each type padded to shards x chunks of ``node_chunk`` (the
-    padding clamped to the last real id), each shard's chunks through the
-    full-fanout sampled-tree forward (``ConvModel.sampled_repr``, eval mode,
-    no autograd) on its device, the outputs concatenated: one ``[n,
-    out_dim]`` table per node type on the mesh's first device, equal to
+    ids of each type split into one contiguous run a shard, each run through
+    :func:`~gnn_recsys_tpu_torch.train.minibatch.compute_embeddings_minibatch`
+    on its shard's device (chunks of ``node_chunk``), the outputs
+    concatenated: one ``[n, out_dim]`` table per node type on the mesh's
+    first device, equal to
     :func:`~gnn_recsys_tpu_torch.train.full_batch.compute_embeddings` up to
     the order of sums.  Rows capped by ``max_fanout`` are read whole
-    (:func:`~gnn_recsys_tpu_torch.graph.hetero.uncap`).  The model, graph and
-    features are copied once a distinct device."""
-    if fanouts is None:
-        fanouts = (-1,) * model.num_conv_layers
+    (:func:`~gnn_recsys_tpu_torch.graph.hetero.uncap`, which keeps a graph
+    with none as it is: a caller that embeds one graph again can uncap it
+    once).  The model, graph and features are copied once a distinct
+    device."""
+    # Imported here: the trainer's module imports this one.
+    from gnn_recsys_tpu_torch.train.minibatch import compute_embeddings_minibatch
+
     graph = uncap(graph)
     devices = mesh.shard_devices(axis)
-    m = len(devices)
     at = next(model.parameters()).device
-
-    def replica(d):
-        mdl = model if at == d else copy.deepcopy(model).to(d)
-        return (mdl, graph.to(d), {nt: x.to(d) for nt, x in features.items()},
-                Draws(torch.Generator(device=d).manual_seed(0)))
-
-    replicas = _per_device(devices, replica)
-    was_training = model.training
-    out = {}
-    try:
-        for mdl, *_ in replicas.values():
-            mdl.eval()
-        with torch.no_grad():
-            for nt in ntypes or graph.ntypes:
-                n = graph.num_nodes(nt)
-                chunk = max(1, min(node_chunk, n))
-                per = -(-n // m)
-                per = -(-per // chunk) * chunk
-                ids = torch.arange(m * per).clamp(max=n - 1).reshape(m, -1, chunk)
-                parts = []
-                for j, d in enumerate(devices):
-                    mdl, g, feats, draws = replicas[d]
-                    parts.append(torch.cat([
-                        mdl.sampled_repr(g, feats, {nt: c}, fanouts, draws)[nt]
-                        for c in ids[j].to(d)]))
-                out[nt] = torch.cat([p.to(devices[0]) for p in parts])[:n]
-    finally:
-        model.train(was_training)
-    return out
+    replicas = _per_device(devices, lambda d: (
+        model if at == d else copy.deepcopy(model).to(d), graph.to(d),
+        {nt: x.to(d) for nt, x in features.items()}))
+    splits = {nt: torch.arange(graph.num_nodes(nt)).tensor_split(len(devices))
+              for nt in ntypes or graph.ntypes}
+    parts = []
+    for j, d in enumerate(devices):
+        mdl, g, feats = replicas[d]
+        ids = {nt: s[j] for nt, s in splits.items() if s[j].numel()}
+        parts.append(compute_embeddings_minibatch(mdl, g, feats, node_batch_size=node_chunk,
+                                                  fanouts=fanouts, device=d, ids=ids))
+    home = devices[0]
+    return {nt: torch.cat([p[nt].to(home) for p in parts if nt in p]) for nt in splits}

@@ -421,14 +421,20 @@ def compute_embeddings_minibatch(model: ConvModel, graph: HeteroGraph,
                                  features: Dict[str, torch.Tensor], node_batch_size: int = 128,
                                  fanouts: Optional[Tuple[int, ...]] = None,
                                  ntypes: Optional[Tuple[str, ...]] = None,
-                                 device=None, seed: int = 0) -> Dict[str, torch.Tensor]:
+                                 device=None, seed: int = 0,
+                                 ids: Optional[Dict[str, torch.Tensor]] = None,
+                                 ) -> Dict[str, torch.Tensor]:
     """Node-loader embedding inference (reference ``get_embeddings``,
     src/train/run.py:311-349): the sampled-tree forward over chunks of node
     ids, full fanouts by default, in eval mode and without autograd.
-    ``device``: by default the device of ``features``."""
+    ``device``: by default the device of ``features``.  ``ids``: the node
+    ids to embed, by node type (by default every node of each of
+    ``ntypes``); the output has a row for each, in their order."""
     dev = torch.device(device) if device is not None else next(iter(features.values())).device
     if fanouts is None:
         fanouts = (-1,) * model.num_conv_layers
+    if ids is None:
+        ids = {nt: torch.arange(graph.num_nodes(nt)) for nt in ntypes or graph.ntypes}
     graph = graph.to(dev)
     features = {nt: x.to(dev) for nt, x in features.items()}
     draws = Draws(torch.Generator(device=dev).manual_seed(seed))
@@ -437,11 +443,10 @@ def compute_embeddings_minibatch(model: ConvModel, graph: HeteroGraph,
     out = {}
     try:
         with torch.no_grad():
-            for nt in ntypes or graph.ntypes:
-                ids = torch.arange(graph.num_nodes(nt), device=dev)
+            for nt, nodes in ids.items():
                 out[nt] = torch.cat([
                     model.sampled_repr(graph, features, {nt: chunk}, fanouts, draws)[nt]
-                    for chunk in ids.split(max(1, node_batch_size))
+                    for chunk in nodes.to(dev).split(max(1, node_batch_size))
                 ])
     finally:
         model.train(was_training)

@@ -502,8 +502,8 @@ def test_sharded_serving_rehearsal(data, capsys):
         assert emb["max_abs_err"] <= 1e-5 and emb["leaf_launches"] == 0
     g = data.graph
     assert any(int(rel.deg.sum()) < rel.num_edges for rel in g.rels.values())  # capped rows
-    # 300 users over 3 shards: 100 ids a shard, 4 chunks of 32; 120 items: 2 chunks.
+    # 300 users over 3 shards: 100 ids a shard, 4 chunks of 32; 120 items: 40, 2 chunks.
     assert report["embeddings_expected_leaf_launches"] == 3 * (
         4 * chip_smoke.leaf_branches(g, "user", 2) + 2 * chip_smoke.leaf_branches(g, "item", 2))
-    assert set(report["request_breakdown_s"]) == {"load_run", "build_model", "embed",
+    assert set(report["request_breakdown_s"]) == {"load_run", "build_model", "uncap", "embed",
                                                   "bought_table", "rank"}
