@@ -232,6 +232,7 @@ import importlib.util
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -261,7 +262,15 @@ from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, scatter_row_mask
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k, recs_to_metrics
+from gnn_recsys_tpu_torch.parallel import distributed
 from gnn_recsys_tpu_torch.parallel.mesh import Mesh, make_mesh
+from gnn_recsys_tpu_torch.parallel.sharded import (
+    hash_shard_table,
+    make_shardmap_dp_step,
+    make_shardmap_tp_dp_step,
+    shard_adjacency,
+    strip_adjacency,
+)
 from gnn_recsys_tpu_torch.retrieval.recs import get_recs, make_mlp_score_fn, model_score_fn
 from gnn_recsys_tpu_torch.retrieval.sharded import (
     catalog_axis,
@@ -280,6 +289,7 @@ from gnn_recsys_tpu_torch.train.full_batch import (
     make_full_batch_step,
     train_full_batch,
 )
+from gnn_recsys_tpu_torch.train.graph_step import WARMUP_STEPS
 from gnn_recsys_tpu_torch.train.minibatch import (
     EdgeStore,
     MinibatchConfig,
@@ -3417,6 +3427,472 @@ KERNEL_GROUPS = (
 )
 
 
+# ----------------------------------------------------------------------
+# Phase train_sharded: the multi-device training steps
+# ----------------------------------------------------------------------
+# The training kernels' wrappers, by the names of the kernels line.
+def train_counters() -> dict:
+    return {"leaf_mean_nn_fwd": la.leaf_mean_nn_fwd, "leaf_mean_nn_bwd": la.leaf_mean_nn_bwd,
+            "pool_membership_mask": pm.pool_membership_mask,
+            "gather_mean_fwd": gm.gather_mean_fwd, "gather_mean_bwd": gm.gather_mean_bwd}
+
+
+def zero_counts() -> None:
+    for fn in train_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in train_counters().items()}
+
+
+def data_mesh(devices) -> Mesh:
+    """A ('data',) mesh with one entry a device of ``devices`` (repeats allowed)."""
+    return make_mesh(len(devices), data_axis=len(devices), axis_names=("data",),
+                     devices=list(devices))
+
+
+def shard_draws(devices, seed: int, record: bool = False) -> list:
+    """One draw source a data shard, seeded ``seed + shard``."""
+    return [Draws(torch.Generator(device=d).manual_seed(seed + i), record=record)
+            for i, d in enumerate(devices)]
+
+
+def sharded_world(dev, data, hidden, out, batch_size, pool, fanouts):
+    g = data.graph.to(dev)
+    feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
+    kw = medium_kwargs(g, hidden, out)
+    etypes = tuple(data.train_pairs)
+    tables = {et: build_padded_pair_set(u, i, num_src=data.num_users).to(dev)
+              for et, (u, i) in data.train_pairs.items()}
+    cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
+                          neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True)
+    store = EdgeStore(data.graph, etypes)
+
+    def batches():  # epoch after epoch
+        rng = np.random.default_rng(0)
+        while True:
+            yield from iter_edge_batches(rng, {et: np.arange(g.num_edges(et)) for et in etypes},
+                                         batch_size)
+
+    return g, feats, kw, etypes, tables, cfg, store, batches()
+
+
+def fresh_model(dev, kw, **extra) -> ConvModel:
+    model = ConvModel(**kw, **extra)
+    init_model(model, seed=0)  # the slice phase's random weights
+    return model.to(dev)
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def check_same_step(what, la_, ga, lb, gb) -> dict:
+    """Two steps' losses within LOSS_RTOL and gradients within
+    STEP_GRAD_RTOL + STEP_GRAD_ATOL (phase ``train``'s rule)."""
+    if not abs(la_ - lb) <= LOSS_RTOL * abs(lb):
+        raise AssertionError(f"{what}: loss {la_} vs {lb}")
+    worst = 0.0
+    for name, a in ga.items():
+        excess = ((a - gb[name]).abs() - STEP_GRAD_RTOL * gb[name].abs()).max()
+        worst = max(worst, float(excess))
+    if not worst <= STEP_GRAD_ATOL:
+        raise AssertionError(f"{what}: gradients differ by {worst} beyond rtol {STEP_GRAD_RTOL}")
+    return {"loss": la_, "loss_other": lb, "grad_excess_over_rtol": worst}
+
+
+def dp_timed_run(dev, world, devices, steps, on_card, dtype=torch.bfloat16) -> dict:
+    """``steps`` dp steps over a ('data',) mesh of ``devices`` with the leaf
+    and pool-mask kernels, each shard's loss and backward one CUDA graph on
+    a card: step times, edges a second, peak memory, launches (checked
+    against the count from the tree's shape), the loss."""
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    model = fresh_model(dev, kw, leaf_kernel=True, dtype=dtype)
+    state = TrainState.create(model, lr=cfg.lr)
+    mesh = data_mesh(devices)
+    step = make_shardmap_dp_step(model, cfg, etypes, mesh)
+    draws = shard_draws(mesh.shard_devices("data"), 10)
+    if dev.type == "cuda":
+        for d in dict.fromkeys(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+    zero_counts()
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        if dev.type == "cuda":  # the window holds the batch's assembly too
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+        batch = store.batch(next(batches), True, dev)
+        _, loss = step(state, g, feats, batch, tables, draws)
+        if dev.type == "cuda":
+            events[-1][1].record()
+        losses.append(loss)
+    sync_all(devices)
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    per_step = step_counts(g, model, etypes, dedup=False)
+    warm = WARMUP_STEPS if on_card else 0  # the captures' eager warm-up steps ran too
+    for name, n in per_step.items():
+        want = len(devices) * n * (steps + warm) if on_card else 0
+        if launches[name] != want:
+            raise AssertionError(f"dp over {len(devices)}: {name}: {launches[name]} launches, "
+                                 f"expected {want}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    window = max(1, min(10, steps // 5))
+    first, last = float(losses[:window].mean()), float(losses[-window:].mean())
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"dp over {len(devices)}: the loss does not fall: {first} -> {last}")
+    edges = sum(len(v["u"]) for v in batch.values())
+    out = {"shards": len(devices), "steps": steps, "edges_per_step": edges,
+           "edges_per_s_with_capture": steps * edges / train_s, "loss_first_mean": first,
+           "loss_last_mean": last, "launches": launches,
+           "launches_per_step_per_shard": per_step}
+    if events:
+        # The first step captures the shards' graphs; the rate is the rest's.
+        ms = [a.elapsed_time(b) for a, b in events]
+        out.update(step_ms_median=float(np.median(ms)), step_ms_min=float(np.min(ms)),
+                   step_ms_max=float(np.max(ms)), step_ms_first=ms[0],
+                   edges_per_s=(steps - 1) * edges / (sum(ms[1:]) / 1e3),
+                   max_memory_allocated_bytes=max(torch.cuda.max_memory_allocated(d)
+                                                  for d in dict.fromkeys(devices)))
+    return out
+
+
+def dp_route_checks(dev, world, shards=2) -> dict:
+    """One f32 step of the dp step through the kernels against the same step
+    through their plain versions (the model without the leaf kernel, the
+    config without the pool-mask kernel), on the same recorded draws; then
+    the dedup'd forward through the dp step, its gather-means through a
+    :class:`GatherTap` (launches counted per shard), against the tap's plain
+    route."""
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    devices = [dev] * shards
+    mesh = data_mesh(devices)
+    batch = store.batch(next(batches), True, dev)
+    runs = {}
+    for name, leaf, c in (("kernels", True, cfg),
+                          ("plain", False, dataclasses.replace(cfg, pool_mask_kernel=False))):
+        model = fresh_model(dev, kw, leaf_kernel=leaf)
+        step = make_shardmap_dp_step(model, c, etypes, mesh, capture=False)
+        if name == "kernels":
+            draws = shard_draws(devices, 7, record=True)
+            zero_counts()
+        else:
+            draws = [d.replay() for d in rec]
+        _, loss = step(TrainState.create(model, lr=c.lr), g, feats, batch, tables, draws)
+        if name == "kernels":
+            rec, counts = draws, read_counts()
+        runs[name] = (float(loss), grads_of(model))
+    per_step = step_counts(g, model, etypes, dedup=False)
+    for kname in ("leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "pool_membership_mask"):
+        if dev.type == "cuda" and counts[kname] != shards * per_step[kname]:
+            raise AssertionError(f"dp check: {kname} {counts[kname]} launches")
+    out = {"kernels_vs_plain": check_same_step("dp step, kernels vs plain", *runs["kernels"],
+                                               *runs["plain"]),
+           "kernel_check_launches": {k: counts[k] for k in per_step}}
+
+    tap = GatherTap()
+    conv_model.gather_mean = tap
+    try:
+        cfg_d = dataclasses.replace(cfg, dedup=True)
+        runs = {}
+        for name in ("kernels", "plain"):
+            model = fresh_model(dev, kw)
+            step = make_shardmap_dp_step(model, cfg_d, etypes, mesh, capture=False)
+            if name == "kernels":
+                draws = shard_draws(devices, 8, record=True)
+                zero_counts()
+                tap.counting = True
+            else:
+                draws = [d.replay() for d in rec]
+                tap.fn = plain_gather_mean
+            _, loss = step(TrainState.create(model, lr=cfg.lr), g, feats, batch, tables, draws)
+            if name == "kernels":
+                tap.counting = False
+                rec, counts = draws, read_counts()
+            runs[name] = (float(loss), grads_of(model))
+        means = block_means(g, ("user", "item"), model.num_conv_layers)
+        for kname in GATHER_KERNELS:
+            want = shards * means if dev.type == "cuda" else 0
+            if counts[kname] != want:
+                raise AssertionError(f"dedup dp check: {kname} {counts[kname]} launches, "
+                                     f"expected {want}")
+        out["dedup_vs_plain_gather"] = check_same_step("dedup dp step, kernels vs plain",
+                                                       *runs["kernels"], *runs["plain"])
+        out["dedup_launches"] = {k: counts[k] for k in GATHER_KERNELS}
+        out["dedup_calls_by_shape"] = {str(k): v for k, v in tap.calls_by_shape.items()}
+    finally:
+        conv_model.gather_mean = gm.gather_mean
+    return out
+
+
+def tp_dp_phase(dev, world, steps, on_card, adj_capacity=2560) -> dict:
+    """The ('data' 2, 'model' 2) step on ``dev``: the item table hash-sharded,
+    a capacity factor of 2.0, the tensor-parallel leaf, and the
+    item-destination relations' adjacency sharded with ``adj_capacity``.
+    One f32 step against the dp step on the same draws; then ``steps`` bf16
+    steps, timed, with their drops and exchange bytes."""
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    mesh = make_mesh(4, data_axis=2, devices=[dev] * 4)
+    item_etypes = tuple(et for et in g.canonical_etypes if et[2] == "item")
+    hashed, log = hash_shard_table(feats["item"], 2)
+    feats_h = dict(feats, item=hashed)
+    adj = shard_adjacency(g, item_etypes, 2)
+    g_strip = strip_adjacency(g, item_etypes)
+
+    def tp_step(model):
+        return make_shardmap_tp_dp_step(model, cfg, etypes, mesh, row_shard_ntypes=("item",),
+                                        a2a_capacity_factor=2.0, hash_mix_logs={"item": log},
+                                        tp_transform=True, graph_shard_etypes=item_etypes,
+                                        adj_capacity=adj_capacity)
+
+    batch = store.batch(next(batches), True, dev)
+    dp_model = fresh_model(dev, kw, leaf_kernel=True)
+    dp = make_shardmap_dp_step(dp_model, cfg, etypes, data_mesh([dev] * 2), capture=False)
+    rec = shard_draws([dev] * 2, 9, record=True)
+    _, dp_loss = dp(TrainState.create(dp_model, lr=cfg.lr), g, feats, batch, tables, rec)
+    tp_model = fresh_model(dev, kw, leaf_kernel=True)
+    tp = tp_step(tp_model)
+    _, tp_loss, dropped = tp(TrainState.create(tp_model, lr=cfg.lr), g_strip, feats_h, batch,
+                             tables, adj, [d.replay() for d in rec])
+    drops = {k: int(v) for k, v in tp.drops.items()}
+    if int(dropped) or any(drops.values()):
+        raise AssertionError(f"tp-dp step lost ids: {drops}")
+    out = {"f32_vs_dp": check_same_step("tp-dp step vs dp step", float(tp_loss),
+                                        grads_of(tp_model), float(dp_loss), grads_of(dp_model)),
+           "drops_f32_step": drops, "exchange_bytes_per_step": dict(tp.exchange_bytes),
+           "adj_capacity": adj_capacity, "capacity_factor": 2.0, "n2_log": log}
+
+    model = fresh_model(dev, kw, leaf_kernel=True, dtype=torch.bfloat16)
+    state = TrainState.create(model, lr=cfg.lr)
+    step = tp_step(model)
+    draws = shard_draws([dev] * 2, 20)
+    zero_counts()
+    losses, events, lost = [], [], []
+    for _ in range(steps):
+        if dev.type == "cuda":
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+        batch = store.batch(next(batches), True, dev)
+        _, loss, dropped = step(state, g_strip, feats_h, batch, tables, adj, draws)
+        if dev.type == "cuda":
+            events[-1][1].record()
+        losses.append(loss)
+        lost.append(dropped)
+    sync(dev)
+    launches = read_counts()
+    if int(torch.stack(lost).sum()):
+        raise AssertionError("tp-dp bf16 steps lost ids")
+    # The lookup hook bypasses the leaf kernel (as in the JAX package); the
+    # pool mask runs once an etype a data shard.
+    want = {"leaf_mean_nn_fwd": 0, "leaf_mean_nn_bwd": 0,
+            "pool_membership_mask": 2 * len(etypes) * steps if on_card else 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"tp-dp: {name}: {launches[name]} launches, expected {n}")
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("tp-dp bf16 loss not finite")
+    out.update(bf16_steps=steps, launches=launches, loss_first=float(losses[0]),
+               loss_last=float(losses[-1]), exchange_bytes_bf16_step=dict(step.exchange_bytes))
+    if events:
+        ms = [a.elapsed_time(b) for a, b in events]
+        out.update(step_ms_median=float(np.median(ms)), step_ms_min=float(np.min(ms)))
+    return out
+
+
+def mesh_training_check(dev, data, world, epoch_steps=20) -> dict:
+    """``train_minibatch(mesh=(2, 2), row_shard_ntypes=("item",))`` through the
+    device epochs, cut in depth (the 10-step loss-only epoch 0, then one
+    epoch of about ``epoch_steps`` steps), against the replicated run."""
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    mesh = make_mesh(4, data_axis=2, devices=[dev] * 4)
+    eids = edge_slices(g, etypes, epoch_steps * cfg.edge_batch_size)
+    c = dataclasses.replace(cfg, pool_mask_kernel=False, num_epochs=2, metrics_every=0,
+                            patience=100)
+    runs = {}
+    for name, rows in (("row_sharded", ("item",)), ("replicated", ())):
+        model = fresh_model(dev, kw)
+        t0 = time.perf_counter()
+        _, hist = train_minibatch(model, g, g, feats, eids, None, c, mesh=mesh,
+                                  row_shard_ntypes=rows)
+        sync(dev)
+        runs[name] = (hist, model, time.perf_counter() - t0)
+    (ha, ma, sa), (hb, mb, sb) = runs["row_sharded"], runs["replicated"]
+    la_, lb = np.asarray(ha["train_loss"]), np.asarray(hb["train_loss"])
+    if not (np.isfinite(la_).all() and np.allclose(la_, lb, rtol=1e-4, atol=1e-6)):
+        raise AssertionError(f"row-sharded losses {la_} vs replicated {lb}")
+    worst = 0.0
+    for (n, p), q in zip(ma.named_parameters(), mb.parameters()):
+        excess = ((p - q).detach().abs() - 2e-4 * q.detach().abs()).max()
+        worst = max(worst, float(excess))
+    if not worst <= 2e-5:
+        raise AssertionError(f"row-sharded parameters differ by {worst} beyond rtol 2e-4")
+    return {"epochs": 2, "train_loss_row_sharded": la_.tolist(),
+            "train_loss_replicated": lb.tolist(), "param_excess_over_rtol": worst,
+            "seconds": {"row_sharded": sa, "replicated": sb},
+            "edges_per_s_epoch1": {"row_sharded": ha["edges_per_s"][-1],
+                                   "replicated": hb["edges_per_s"][-1]}}
+
+
+DP_WORKER_SEED = 40
+SHARDED_SHAPES = (256, 128, 2048, 2560, (8, 4))  # hidden, out, batch, pool, fanouts
+
+
+def dp_worker_step(dev, data, mesh, hidden, out, batch_size, pool, fanouts) -> float:
+    """One f32 dp step with the kernels over ``mesh`` (a process's local
+    entries), the first bench batch, draws seeded ``DP_WORKER_SEED + shard``
+    (global shard index): the loss."""
+    world = sharded_world(dev, data, hidden, out, batch_size, pool, fanouts)
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    model = fresh_model(dev, kw, leaf_kernel=True)
+    step = make_shardmap_dp_step(model, cfg, etypes, mesh, capture=False)
+    first = distributed.first_shard(mesh, "data")
+    draws = [Draws(torch.Generator(device=d).manual_seed(DP_WORKER_SEED + first + i))
+             for i, d in enumerate(mesh.shard_devices("data"))]
+    _, loss = step(TrainState.create(model, lr=cfg.lr), g, feats,
+                   store.batch(next(batches), True, dev), tables, draws)
+    return float(loss)
+
+
+def dp_worker(argv) -> int:
+    """``chip_smoke.py --dp-worker PORT RANK BACKEND``: one of two processes
+    of phase ``train_sharded``'s two-process check (one card a process
+    with NCCL, the shared first card with gloo)."""
+    port, rank, backend = argv[0], int(argv[1]), argv[2]
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend=backend,
+                                     timeout_s=300)
+    mesh = distributed.global_mesh(axis_names=("data",), devices=[dev])
+    loss = dp_worker_step(dev, bench_data(), mesh, *SHARDED_SHAPES)
+    print(f"BACKEND {mesh.backend}", flush=True)
+    print(f"LOSS {loss!r}", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_process_check(dev, data) -> dict:
+    """The dp step over two processes: NCCL with a card each where the host
+    has two, else gloo, both on this card (NCCL refuses two ranks on one
+    GPU).  Both losses equal, and equal the one-process step over a mesh of
+    two entries on this card with the same draws."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    with socket.socket() as s:  # a free local port for the group's store
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"),
+                               "--dp-worker", str(port), str(r), backend],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=here) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            if p.returncode:
+                raise AssertionError(f"dp worker failed ({p.returncode}):\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    seconds = time.perf_counter() - t0
+    losses = [float(next(line.split()[1] for line in o.splitlines() if line.startswith("LOSS ")))
+              for o in outs]
+    used = {line.split()[1] for o in outs for line in o.splitlines()
+            if line.startswith("BACKEND ")}
+    print(f"train_sharded two processes: backend {backend}", flush=True)
+    one = dp_worker_step(dev, data, data_mesh([dev] * 2), *SHARDED_SHAPES)
+    if used != {backend} or losses[0] != losses[1] or not abs(losses[0] - one) <= \
+            LOSS_RTOL * abs(one):
+        raise AssertionError(f"two processes ({used}): losses {losses}, one process {one}")
+    return {"backend": backend, "losses": losses, "one_process": one, "seconds": seconds}
+
+
+def dp_over_cards(dev, world, steps=10) -> dict:
+    """The bf16 dp step over every card (one shard a card), eager and as one
+    CUDA graph a shard: each design's wall time a step (host clock, every
+    card synced) against the sum of the shards' device times, each shard's
+    replay timed alone on its card (CUDA events)."""
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(n)]
+    mesh = data_mesh(devices)
+    batch = store.batch(next(batches), True, dev)
+    out = {"cards": n}
+    for design, capture in (("eager", False), ("cuda_graph_a_shard", True)):
+        model = fresh_model(dev, kw, leaf_kernel=True, dtype=torch.bfloat16)
+        state = TrainState.create(model, lr=cfg.lr)
+        step = make_shardmap_dp_step(model, cfg, etypes, mesh, capture=capture)
+        draws = shard_draws(devices, 30)
+        for _ in range(3):
+            step(state, g, feats, batch, tables, draws)
+        walls = []
+        for _ in range(steps):
+            sync_all(devices)
+            t0 = time.perf_counter()
+            step(state, g, feats, batch, tables, draws)
+            sync_all(devices)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[design] = {"wall_ms_median": float(np.median(walls)),
+                       "wall_ms_min": float(np.min(walls))}
+        if capture:
+            shard_ms = []
+            for d, s in zip(devices, step.captured):
+                with torch.cuda.device(d):
+                    shard_ms.append(time_ms(s.replay, reps=5, warmup=1))
+            out["shard_replay_ms"] = shard_ms
+    total = sum(out["shard_replay_ms"])
+    for design in ("eager", "cuda_graph_a_shard"):
+        out[design]["overlapped"] = out[design]["wall_ms_min"] < total
+    out["sum_shard_replay_ms"] = total
+    return out
+
+
+def phase_train_sharded(dev, data, steps=50, tp_steps=50, on_card=True,
+                        shapes=SHARDED_SHAPES, epoch_steps=20, adj_capacity=2560,
+                        cards_only=False) -> dict:
+    """Phase ``train_sharded``: the multi-device training steps on the bench
+    graph and the Medium model at the bench step (``shapes``: hidden 256,
+    out 128, 2048 edges a step over every shard, dense pool of 2560 a
+    shard, fanouts (8, 4); exclusion, max-margin, Adam).  Returns the main
+    path's launches: the dp runs' (bf16 leaf and pool mask) and the dedup'd
+    dp check's (gather mean, f32).  ``cards_only``: only the two-process
+    check and the dp step over every card (a host with several)."""
+    t_phase = time.perf_counter()
+    world = sharded_world(dev, data, *shapes)
+    report, launches = {}, {name: 0 for name in train_counters()}
+    if cards_only:  # the parts that run across cards, alone
+        report["two_processes"] = two_process_check(dev, data)
+        report["over_cards"] = dp_over_cards(dev, world)
+        report["seconds"] = time.perf_counter() - t_phase
+        say("train_sharded", **report)
+        return launches
+    for shards in (1, 2, 4):
+        run = dp_timed_run(dev, world, [dev] * shards, steps, on_card)
+        report[f"dp_{shards}"] = run
+        for name, n in run["launches"].items():
+            launches[name] += n
+    report["route_checks"] = dp_route_checks(dev, world)
+    for name in GATHER_KERNELS:
+        launches[name] = report["route_checks"]["dedup_launches"][name]
+    report["tp_dp"] = tp_dp_phase(dev, world, tp_steps, on_card, adj_capacity)
+    report["train_minibatch_mesh"] = mesh_training_check(dev, data, world, epoch_steps)
+    if on_card:
+        report["two_processes"] = two_process_check(dev, data)
+        if torch.cuda.device_count() > 1:
+            report["over_cards"] = dp_over_cards(dev, world)
+    report["seconds"] = time.perf_counter() - t_phase
+    say("train_sharded", **report)
+    return launches
+
+
 def event_step_ms(run_step, n) -> list:
     """Device milliseconds of each of ``n`` steps, between CUDA events."""
     times = []
@@ -3474,6 +3950,8 @@ def main() -> int:
     # Catalog-sharded serving: meshes whose shards share the card, then
     # the cards themselves where there are several.
     sharded_launches = phase_sharded_serving(dev, data)
+    # Multi-device training: the dp, tp-dp and mesh steps on the card.
+    sharded_train_launches = phase_train_sharded(dev, data)
     train_launches, _ = phase_train(dev, data, random_recall=random_recall)
     launches.update(train_launches)
     # Each kernel's launches are counted on the path that runs it: the
@@ -3535,6 +4013,11 @@ def main() -> int:
                     row[f"{phase}_launches"] = counts[row["name"]]
         if row["name"] in SHARDED_ROWS:
             row["sharded_serving_launches"] = sharded_launches[row["name"]]
+        # The dp runs train in bf16; the dedup'd check runs the f32 gather.
+        base = row["name"].removesuffix(":bf16")
+        if base in sharded_train_launches and (
+                row["name"].endswith(":bf16") == base.startswith("leaf_")):
+            row["sharded_train_launches"] = sharded_train_launches[base]
         if row["name"] in ptxas:
             row["ptxas"] = ptxas[row["name"]]
     rows += hp_rows + etl_rows  # launches: each phase's training, by shape
@@ -3546,4 +4029,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -12,8 +12,9 @@ the JAX package's ``dedup=False`` tree) or, with ``dedup=True``, the dedup'd
 block forward (each level's unique nodes computed once).  The ``lstm``
 aggregators run on all three routes through the layer's masked LSTM;
 ``remat_levels`` recomputes each tree level in the backward
-(``torch.utils.checkpoint``).  Not ported yet (ROADMAP.md): the sharded
-hooks (``feature_lookup``, ``neighbor_sample``).
+(``torch.utils.checkpoint``).  The tree takes the sharded hooks of the
+multi-device steps (``feature_lookup``, ``neighbor_sample``;
+``parallel/sharded.py``).
 
 Layer-count rules as in the reference: ``n_layers`` counts the embedding
 layer when present, so there are ``n_layers - 1`` conv layers with
@@ -77,6 +78,22 @@ def _exclusion_kwargs(excl) -> Dict[str, torch.Tensor]:
     return {"nbr_table": excl} if excl.dim() == 2 else {"exclude_flags": excl}
 
 
+class RowTransform:
+    """A per-row map of the tree (a leaf's embed, or its composed embed and
+    ``fc_preagg``) handed to a ``feature_lookup`` hook, which applies it
+    where the rows are: ``fn(model, rows)``.  :meth:`on` binds the same map
+    to another copy of the model (a replica on the rows' owner device)."""
+
+    def __init__(self, model: "ConvModel", fn):
+        self.model, self.fn = model, fn
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        return self.fn(self.model, rows)
+
+    def on(self, model: "ConvModel") -> "RowTransform":
+        return RowTransform(model, self.fn)
+
+
 class _LevelTape:
     """The random numbers of one rematerialised tree level.  The forward
     takes them from ``draws`` and keeps them; each recompute in the backward
@@ -111,7 +128,7 @@ class _LevelTape:
         return self._take(lambda: self.draws.uniform(shape))
 
     def keep_mask(self, like: torch.Tensor, p: float) -> torch.Tensor:
-        source = self.draws.keep_mask if isinstance(self.draws, _LevelTape) else dropout_keep_mask
+        source = getattr(self.draws, "keep_mask", None) or dropout_keep_mask
         return self._take(lambda: source(like, p))
 
 
@@ -176,6 +193,7 @@ class ConvModel(nn.Module):
         self.leaf_kernel = leaf_kernel
         self.leaf_block = leaf_block
         self._leaf_weights: Optional[Dict] = None  # set during a sampled_repr walk
+        self._hooks = (None, None)  # (feature_lookup, neighbor_sample) of a walk
         self.canonical_etypes = tuple(tuple(e) for e in canonical_etypes)
         self.dims = tuple((str(k), int(v)) for k, v in dims)
         self.n_layers = n_layers
@@ -327,45 +345,70 @@ class ConvModel(nn.Module):
         graph and feature tables.
 
         seeds: ntype -> int ids of any shape; ``draws`` gives the uniform
-        draws of every sampler call, in walk order (:mod:`.ops.sampling`).
+        draws of every sampler call, in walk order (:mod:`.ops.sampling`); a
+        draw source with a ``for_seeds(ntype)`` method hands each seed
+        type's tree its own view of the draws.
         exclude_eids: etype -> edge ids kept out of the sampled
         neighbourhoods (translated once into sign-marked tables), or an
         already translated table / flag array.  ``dedup``: the dedup'd block
         forward (:meth:`_sampled_repr_dedup`) instead of the tree.  Dropout
         follows ``self.training``.  Returns ntype -> [*seed_shape, out_dim].
+
+        The hooks of the multi-device steps (``parallel/sharded.py``; tree
+        route only, and they bypass ``remat_levels``):
+
+        * ``feature_lookup(ntype, flat_ids[, row_transform])`` replaces every
+          raw feature read.  For the node types in its attribute
+          ``transform_ntypes`` (a set; none by default) the tree hands it the
+          per-row map that follows the read (a :class:`RowTransform`: the
+          leaf's embed, or the composed leaf transform), and the hook must
+          return the transformed rows.  The leaf kernel and the packed leaf
+          cache read local tables and are not used with it.
+        * ``neighbor_sample(etype, ids, fanout, u, mode, with_eids, excl)``
+          replaces ``sample_neighbors`` for the etypes in its attribute
+          ``etypes``; ``u`` are the draws the local sampler would have taken
+          (None at fanout -1), ``excl`` the exclusion entry untranslated (the
+          batch's edge ids: marking its own rows is the hook's job).
         """
         if len(fanouts) != len(self.layers):
             raise ValueError(f"fanouts has {len(fanouts)} entries, model has "
                              f"{len(self.layers)} conv layers")
-        if feature_lookup is not None or neighbor_sample is not None:
-            raise NotImplementedError("the sharded lookup / sampler hooks are not ported yet "
-                                      "(ROADMAP.md)")
+        hook_etypes = (frozenset(getattr(neighbor_sample, "etypes", ()))
+                       if neighbor_sample is not None else frozenset())
         if exclude_eids is not None:
             exclude_eids = {
                 et: (exclusion_table(graph.rels[et], v)
-                     if v.dim() == 1 and v.dtype != torch.bool and et in graph.rels else v)
+                     if v.dim() == 1 and v.dtype != torch.bool and et in graph.rels
+                     and et not in hook_etypes else v)
                 for et, v in exclude_eids.items()
             }
         if dedup:
+            if feature_lookup is not None or neighbor_sample is not None:
+                raise ValueError("feature_lookup/neighbor_sample are supported on the tree path only")
             return self._sampled_repr_dedup(graph, features, seeds, tuple(fanouts), draws,
                                             exclude_eids)
         # Composed leaf weights, once per (layer, etype) for the whole walk;
         # a rematerialised level computes its own (its recompute must run
         # the ops its forward ran).
         self._leaf_weights = None if self.remat_levels else {}
+        self._hooks = (feature_lookup, neighbor_sample)
+        views = getattr(draws, "for_seeds", None)
         try:
             return {nt: self._tree(graph, features, exclude_eids, tuple(fanouts),
-                                   len(self.layers), nt, ids, draws)
+                                   len(self.layers), nt, ids,
+                                   draws if views is None else views(nt))
                     for nt, ids in seeds.items()}
         finally:
             self._leaf_weights = None
+            self._hooks = (None, None)
 
     def _tree(self, graph, features, exclude_eids, fanouts, level, ntype, ids, draws):
         """One tree level on the flattened frontier, reshaped back; with
         ``remat_levels``, above the leaves and while autograd records,
         through a checkpoint that replays the level's random numbers."""
         args = (graph, features, exclude_eids, fanouts, level, ntype)
-        if self.remat_levels and level > 0 and torch.is_grad_enabled():
+        hooked = self._hooks != (None, None)
+        if self.remat_levels and level > 0 and torch.is_grad_enabled() and not hooked:
             tape = _LevelTape(draws)
             out = checkpoint(lambda flat: self._tree_level(*args, flat, tape.rewind()),
                              ids.reshape(-1), use_reentrant=False, preserve_rng_state=False)
@@ -373,10 +416,19 @@ class ConvModel(nn.Module):
             out = self._tree_level(*args, ids.reshape(-1), draws)
         return out.reshape(*ids.shape, out.shape[-1])
 
-    @staticmethod
-    def _fetch_rows(features, ntype: str, ids: torch.Tensor) -> torch.Tensor:
+    def _fetch_rows(self, features, ntype: str, ids: torch.Tensor) -> torch.Tensor:
+        """Raw feature rows of the 1-D ``ids``, through the walk's
+        ``feature_lookup`` hook where there is one."""
+        lookup = self._hooks[0]
+        if lookup is not None:
+            return lookup(ntype, ids)
         table = features[ntype]
         return table[ids.long().clamp(0, table.shape[0] - 1)]
+
+    def _pushes_transform(self, ntype: str) -> bool:
+        """Whether the walk's lookup hook applies the row maps of ``ntype``."""
+        lookup = self._hooks[0]
+        return lookup is not None and ntype in getattr(lookup, "transform_ntypes", ())
 
     def _no_dropout(self, layer: ConvLayer) -> bool:
         return layer.dropout_p == 0.0 or not self.training
@@ -428,6 +480,9 @@ class ConvModel(nn.Module):
         recursed into; ``ids`` is 1-D.  A :class:`_LevelTape` as ``draws``
         also supplies the dropout masks."""
         if level == 0:
+            if self.embedding_layer and ntype in self.embed and self._pushes_transform(ntype):
+                return self._hooks[0](ntype, ids, RowTransform(
+                    self, lambda m, x, nt=ntype: m.embed[nt](x)))
             x = self._fetch_rows(features, ntype, ids)
             if self.embedding_layer and ntype in self.embed:
                 x = self.embed[ntype](x)
@@ -440,6 +495,8 @@ class ConvModel(nn.Module):
             raise ValueError(f"node type {ntype} has no incoming etypes")
         h_self = self._tree(graph, features, exclude_eids, fanouts, level - 1, ntype, ids, draws)
         keep_mask = getattr(draws, "keep_mask", None)
+        lookup, sampler = self._hooks
+        hook_etypes = getattr(sampler, "etypes", ()) if sampler is not None else ()
         zs = []
         for etype in in_etypes:
             layer = layer_dict[_etype_key(etype)]
@@ -447,8 +504,14 @@ class ConvModel(nn.Module):
             excl = None if exclude_eids is None else exclude_eids.get(etype)
             need_eid = self._edge_weighted(layer, etype, rel)
             raw_packed = None
-            if (level == 1 and fanout == -1 and rel.nbr_feat is not None and not need_eid
-                    and (excl is None or excl.dim() == 2)):
+            if etype in hook_etypes:
+                # Sharded adjacency: the hook fetches the frontier's rows from
+                # their owners and samples them with the same draws.
+                u = None if fanout == -1 else draws.uniform((*ids.shape, fanout))
+                nbr, eid, mask = sampler(etype, ids, max(fanout, 1), u,
+                                         "full" if fanout == -1 else "uniform", need_eid, excl)
+            elif (level == 1 and fanout == -1 and rel.nbr_feat is not None and not need_eid
+                    and (excl is None or excl.dim() == 2) and lookup is None):
                 # The packed leaf cache: every neighbour's raw features in one
                 # row read a node (``conv_model.py:645-678``).
                 raw_packed, mask = full_neighbors_packed(rel, ids, nbr_table=excl)
@@ -486,13 +549,14 @@ class ConvModel(nn.Module):
             s = (raw * mask[..., None].to(raw.dtype)).sum(dim=-2) / count.clamp(min=1.0)[..., None]
             agg = self.embed[src_t](s)
             return agg * (count > 0)[..., None].to(agg.dtype)
-        fdim = features[src_t].shape[-1]
+        lookup = self._hooks[0]
         if (self.leaf_kernel and raw_packed is None and not need_eid and layer.reducer == "mean"
-                and self._can_fold_leaf(layer, src_t, level) and leaf_kernel_supported(fdim)):
+                and lookup is None and self._can_fold_leaf(layer, src_t, level)
+                and leaf_kernel_supported(features[src_t].shape[-1])):
             # The fused leaf: gather k-major, then one kernel computes the
             # masked mean of relu(x @ W_eff + b_eff) without the [P, K, H]
             # per-message activations (``conv_model.py:718-759``).
-            w_eff, b_eff = self._composed_leaf_weights(layer, src_t, fdim,
+            w_eff, b_eff = self._composed_leaf_weights(layer, src_t, features[src_t].shape[-1],
                                                        self.dtype or torch.float32)
             kf = nbr.shape[-1]
             pkids = nbr.reshape(-1, kf)  # [P, K] parent-major ids
@@ -504,7 +568,15 @@ class ConvModel(nn.Module):
             agg = leaf_mean_nn(x_km, mask_scaled, w_eff, b_eff, self.leaf_block)
             return agg.reshape(*nbr.shape[:-1], agg.shape[-1])
         if self._can_fold_leaf(layer, src_t, level):
-            msgs = self._leaf_transform_composed(layer, src_t, raw_rows())
+            if raw_packed is None and self._pushes_transform(src_t):
+                # The composed leaf transform applied where the rows are.
+                key = _etype_key(etype)
+                msgs = lookup(src_t, nbr.reshape(-1), RowTransform(
+                    self, lambda m, x, lvl=level, key=key, nt=src_t:
+                    m._leaf_transform_composed(m.layers[lvl - 1][key], nt, x)))
+                msgs = msgs.reshape(*nbr.shape, msgs.shape[-1])
+            else:
+                msgs = self._leaf_transform_composed(layer, src_t, raw_rows())
         elif level == 1:
             # The leaf's rows, from the packed cache or gathered: the level-0
             # chain (embed if any), then transform_src.
@@ -639,6 +711,7 @@ class ConvModel(nn.Module):
             tables[lvl - 1] = lower
             plans[lvl - 1] = plan
 
+        keep_mask = getattr(draws, "keep_mask", None)
         h = {}
         for nt, table in tables[0].items():
             x = self._fetch_rows(features, nt, table.uniq)
@@ -651,7 +724,7 @@ class ConvModel(nn.Module):
                 zs = []
                 for et, ed in entry["etypes"].items():
                     layer, rel = layer_dict[_etype_key(et)], graph.rels[et]
-                    src_table = layer.transform_src(h[et[0]])
+                    src_table = layer.transform_src(h[et[0]], keep_mask)
                     nbr_pos, mask = ed["nbr_pos"], ed["mask"]
                     if ed["gather"]:
                         agg = gather_mean(src_table, nbr_pos, mask, ed["transpose"])
@@ -661,7 +734,7 @@ class ConvModel(nn.Module):
                             w = rel.edata["occurrence"].to(msgs.dtype)[ed["eid"].long()]
                             msgs = msgs * w[..., None]
                         agg = self._reduce(layer, msgs, mask)
-                    zs.append(layer.combine(h_self, agg))
+                    zs.append(layer.combine(h_self, agg, keep_mask))
                 h_next[nt] = self._cross_etype_reduce(torch.stack(zs))
             h = h_next
         return {nt: _take_rows(h[nt], tables[n_layers][nt].inv.reshape(seeds[nt].shape))

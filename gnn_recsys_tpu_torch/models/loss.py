@@ -10,7 +10,9 @@ Port of ``gnn_recsys_tpu/models/loss.py``:
   the JAX package (not in the reference).
 
 ``pair_mask`` (per-positive validity) excludes padded batch rows from the
-mean; all-valid masks reproduce the plain mean.
+mean; all-valid masks reproduce the plain mean.  ``parts=True`` returns the
+mean's numerator and denominator, ``(total, count)``, so that a step split
+over data shards can add the shards' parts before it divides.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def max_margin_loss(
     negative_mask: Optional[Scores] = None,
     recency_scores: Optional[Scores] = None,
     pair_mask: Optional[Scores] = None,
-) -> torch.Tensor:
+    parts: bool = False,
+):
     """pos_score[et]: [B]; neg_score[et]: [B, S]; negative_mask[et]: [B, S]
     f32 (1.0 cancels a false negative, the reference's subtract-the-mask
     trick); recency_scores[et]: [B] divisors; pair_mask[et]: [B] bool."""
@@ -62,7 +65,10 @@ def max_margin_loss(
         total = scores.sum() if total is None else total + scores.sum()
         count = n if count is None else count + n
     if total is None:
-        return _zero(pos_score, negative_mask, recency_scores, pair_mask)
+        zero = _zero(pos_score, negative_mask, recency_scores, pair_mask)
+        return (zero, zero) if parts else zero
+    if parts:
+        return total, count
     return total / count.clamp(min=1.0)
 
 
@@ -73,7 +79,8 @@ def sampled_softmax_loss(
     negative_mask: Optional[Scores] = None,
     recency_scores: Optional[Scores] = None,
     pair_mask: Optional[Scores] = None,
-) -> torch.Tensor:
+    parts: bool = False,
+):
     """Per positive, ``-log softmax([pos, neg_1..neg_S] / tau)[0]``; a false
     negative (``negative_mask`` > 0) leaves the partition function.  The
     per-positive weight is 1/recency (and 0 on padded rows)."""
@@ -93,5 +100,8 @@ def sampled_softmax_loss(
         total = (nll * w).sum() if total is None else total + (nll * w).sum()
         wsum = w.sum() if wsum is None else wsum + w.sum()
     if total is None:
-        return _zero(pos_score, negative_mask, recency_scores, pair_mask)
+        zero = _zero(pos_score, negative_mask, recency_scores, pair_mask)
+        return (zero, zero) if parts else zero
+    if parts:
+        return total, wsum
     return total / wsum.clamp(min=1e-9)

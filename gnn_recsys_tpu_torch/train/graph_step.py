@@ -49,6 +49,10 @@ WARMUP_STEPS = 2
 # life of the process, so a new stream a capture would keep more device
 # memory for every model a search trains.
 _WARMUP_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+# One capture stream a device: ``torch.cuda.graph`` otherwise captures on one
+# stream of the card that was current at its first use, and a capture on
+# another card would record nothing.
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 
 
 def _warmup_stream(dev: torch.device) -> torch.cuda.Stream:
@@ -56,6 +60,12 @@ def _warmup_stream(dev: torch.device) -> torch.cuda.Stream:
     if dev not in _WARMUP_STREAMS:
         _WARMUP_STREAMS[dev] = torch.cuda.Stream(dev)
     return _WARMUP_STREAMS[dev]
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
 
 
 class DeviceUpdate:
@@ -129,10 +139,16 @@ class CapturedStep:
 
     def __init__(self, body: Callable, draws: Draws, state: Optional[TrainState] = None,
                  warmup: int = WARMUP_STEPS):
-        generator = draws.generator
-        dev = generator.device
+        dev = draws.generator.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
+        with torch.cuda.device(dev):  # the capture and its streams on the generator's card
+            self._capture(body, draws, state, warmup)
+
+    def _capture(self, body: Callable, draws: Draws, state: Optional[TrainState],
+                 warmup: int) -> None:
+        generator = draws.generator
+        dev = generator.device
         self.state, self.generator, self.lrs = state, generator, []
         # The graph reads the tensors of ``body``'s closure by address: the
         # step keeps them alive, so a replay never reads freed memory after
@@ -159,7 +175,7 @@ class CapturedStep:
         before = {name: fn.launches for name, fn in counters.items()}
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, stream=_capture_stream(dev)):
             body(update, draws)
         torch.cuda.synchronize(dev)
         self.launches = take_launches(counters, before)

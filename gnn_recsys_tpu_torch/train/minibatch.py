@@ -141,80 +141,114 @@ def _reverse(et: CanonicalEtype) -> CanonicalEtype:
     return (et[2], REVERSE_NAMES.get(et[1], et[1]), et[0])
 
 
+def draw_negatives(cfg: MinibatchConfig, train_etypes: Tuple[CanonicalEtype, ...],
+                   sizes: Dict[CanonicalEtype, int], num_items: int, draws, device):
+    """The step's negatives (``minibatch.py:239-273``): the pool (``per_edge``:
+    every positive's own ``neg_sample_size`` draws, etype after etype) and,
+    per etype, the positives' indices into it ([B, S]; None for the dense
+    pool, which every positive scores whole).  Draw order: the pool, then the
+    shared-pool picks etype by etype."""
+    if cfg.neg_mode not in NEG_MODES:
+        raise KeyError(f"unknown neg_mode {cfg.neg_mode!r}")
+    if cfg.neg_mode == "per_edge":
+        pool = draws.randint((sum(sizes.values()) * cfg.neg_sample_size,), num_items)
+    else:
+        pool = draws.randint((cfg.neg_pool_size,), num_items)
+    neg_idx, offset = {}, 0
+    for et in train_etypes:
+        b = sizes[et]
+        if cfg.neg_mode == "dense_pool":
+            neg_idx[et] = None
+        elif cfg.neg_mode == "shared_pool":
+            neg_idx[et] = draws.randint((b, cfg.neg_sample_size), cfg.neg_pool_size)
+        else:
+            s = cfg.neg_sample_size
+            neg_idx[et] = torch.arange(offset, offset + b * s, device=device).reshape(b, s)
+            offset += b * s
+    return pool, neg_idx
+
+
+def scored_loss(cfg: MinibatchConfig, train_etypes: Tuple[CanonicalEtype, ...], batch, pool,
+                scores, edge_tables, parts: bool = False):
+    """The loss of :meth:`ConvModel.minibatch_forward`'s ``scores`` (pos,
+    neg, neg_dst): false negatives masked against ``edge_tables``, the
+    positives' recency where ``cfg.use_recency``.  ``parts``: the mean's
+    ``(total, count)`` (``models/loss.py``)."""
+    pos_s, neg_s, neg_dst = scores
+    users = {et: batch[et]["u"] for et in train_etypes}
+    neg_mask = None
+    if cfg.remove_false_negative:
+        if cfg.neg_mode == "dense_pool":  # every positive probes the same pool
+            neg_mask = {et: pair_set_contains_pool(edge_tables[et], users[et], pool,
+                                                   use_kernel=cfg.pool_mask_kernel)
+                        for et in train_etypes}
+        else:
+            neg_mask = {et: pair_set_contains(edge_tables[et], users[et], neg_dst[et]).float()
+                        for et in train_etypes}
+    recency = ({et: batch[et]["recency"] for et in train_etypes} if cfg.use_recency else None)
+    if cfg.loss == "sampled_softmax":
+        return sampled_softmax_loss(pos_s, neg_s, tau=cfg.softmax_tau, negative_mask=neg_mask,
+                                    recency_scores=recency, parts=parts)
+    return max_margin_loss(pos_s, neg_s, delta=cfg.delta, negative_mask=neg_mask,
+                           recency_scores=recency, parts=parts)
+
+
+def batch_exclusion(batch, train_etypes, has_reverse) -> Dict:
+    """etype -> the batch's edge ids to keep out of the neighbourhoods: each
+    training etype's own, and its reverse's (reverse relations share edge
+    ids)."""
+    exclude = {}
+    for et in train_etypes:
+        exclude[et] = batch[et]["eids"]
+        if has_reverse[et]:
+            exclude[_reverse(et)] = batch[et]["eids"]
+    return exclude
+
+
 def make_minibatch_loss(model: ConvModel, cfg: MinibatchConfig,
                         train_etypes: Tuple[CanonicalEtype, ...], with_exclusion: bool,
-                        has_reverse: Dict[CanonicalEtype, bool]) -> Callable:
+                        has_reverse: Dict[CanonicalEtype, bool], feature_lookup=None,
+                        neighbor_sample=None) -> Callable:
     """The step's loss: ``(graph, features, batch, edge_tables, draws) ->
     loss``, where batch maps etype -> dict of 'u' [B], 'i' [B], 'recency'
     [B] and (with exclusion) 'eids' [B] edge ids of the sampling graph, and
     ``edge_tables`` maps etype -> the full edge set's
     :class:`~gnn_recsys_tpu_torch.ops.membership.PaddedPairSet` (on the
     graph's device).  Draw order: the pool, the shared-pool picks per
-    etype, then the tree walk (``minibatch.py:221-329``)."""
+    etype, then the tree walk (``minibatch.py:221-329``).  The hooks go to
+    the tree forward (:meth:`ConvModel.sampled_repr`)."""
     if cfg.loss not in ("max_margin", "sampled_softmax"):
         raise KeyError(f"unknown loss {cfg.loss!r} (expected 'max_margin' or 'sampled_softmax')")
     if cfg.neg_mode not in NEG_MODES:
         raise KeyError(f"unknown neg_mode {cfg.neg_mode!r}")
 
     def loss_fn(graph, features, batch, edge_tables, draws) -> torch.Tensor:
-        num_items = graph.num_nodes("item")
         pairs = {et: (batch[et]["u"], batch[et]["i"]) for et in train_etypes}
-        exclude = None
-        if with_exclusion:
-            exclude = {}
-            for et in train_etypes:
-                exclude[et] = batch[et]["eids"]
-                if has_reverse[et]:
-                    exclude[_reverse(et)] = batch[et]["eids"]
-        if cfg.neg_mode == "per_edge":  # the "pool" holds every drawn negative
-            total = sum(int(pairs[et][0].shape[0]) for et in train_etypes)
-            pool = draws.randint((total * cfg.neg_sample_size,), num_items)
-        else:
-            pool = draws.randint((cfg.neg_pool_size,), num_items)
-        neg_idx, offset = {}, 0
-        for et in train_etypes:
-            b = int(pairs[et][0].shape[0])
-            if cfg.neg_mode == "dense_pool":
-                neg_idx[et] = None
-            elif cfg.neg_mode == "shared_pool":
-                neg_idx[et] = draws.randint((b, cfg.neg_sample_size), cfg.neg_pool_size)
-            else:
-                s = cfg.neg_sample_size
-                neg_idx[et] = torch.arange(offset, offset + b * s,
-                                           device=pool.device).reshape(b, s)
-                offset += b * s
-        pos_s, neg_s, neg_dst = model.minibatch_forward(
+        exclude = batch_exclusion(batch, train_etypes, has_reverse) if with_exclusion else None
+        pool, neg_idx = draw_negatives(
+            cfg, train_etypes, {et: int(pairs[et][0].shape[0]) for et in train_etypes},
+            graph.num_nodes("item"), draws, pairs[train_etypes[0]][0].device)
+        scores = model.minibatch_forward(
             graph, features, pairs, pool, neg_idx, cfg.fanouts, draws,
-            exclude_eids=exclude, dedup=cfg.dedup)
-        neg_mask = None
-        if cfg.remove_false_negative:
-            if cfg.neg_mode == "dense_pool":  # every positive probes the same pool
-                neg_mask = {et: pair_set_contains_pool(edge_tables[et], pairs[et][0], pool,
-                                                       use_kernel=cfg.pool_mask_kernel)
-                            for et in train_etypes}
-            else:
-                neg_mask = {et: pair_set_contains(edge_tables[et], pairs[et][0],
-                                                  neg_dst[et]).float()
-                            for et in train_etypes}
-        recency = ({et: batch[et]["recency"] for et in train_etypes}
-                   if cfg.use_recency else None)
-        if cfg.loss == "sampled_softmax":
-            return sampled_softmax_loss(pos_s, neg_s, tau=cfg.softmax_tau,
-                                        negative_mask=neg_mask, recency_scores=recency)
-        return max_margin_loss(pos_s, neg_s, delta=cfg.delta, negative_mask=neg_mask,
-                               recency_scores=recency)
+            exclude_eids=exclude, dedup=cfg.dedup, feature_lookup=feature_lookup,
+            neighbor_sample=neighbor_sample)
+        return scored_loss(cfg, train_etypes, batch, pool, scores, edge_tables)
 
     return loss_fn
 
 
 def make_minibatch_step(model: ConvModel, cfg: MinibatchConfig,
                         train_etypes: Tuple[CanonicalEtype, ...], with_update: bool,
-                        with_exclusion: bool, has_reverse: Dict[CanonicalEtype, bool]) -> Callable:
+                        with_exclusion: bool, has_reverse: Dict[CanonicalEtype, bool],
+                        feature_lookup=None, neighbor_sample=None) -> Callable:
     """``(state, graph, features, batch, edge_tables, draws) -> (state,
     loss)``: the loss of :func:`make_minibatch_loss` and, ``with_update``,
     its gradients and one optimizer update of ``state`` (in place).  Without
-    update the model runs in eval mode (no dropout) and without autograd."""
-    loss_fn = make_minibatch_loss(model, cfg, train_etypes, with_exclusion, has_reverse)
+    update the model runs in eval mode (no dropout) and without autograd.
+    ``feature_lookup`` / ``neighbor_sample``: the tree forward's hooks
+    (``minibatch.py:207-208``)."""
+    loss_fn = make_minibatch_loss(model, cfg, train_etypes, with_exclusion, has_reverse,
+                                  feature_lookup, neighbor_sample)
 
     def step(state: TrainState, graph, features, batch, edge_tables, draws):
         model.train(with_update)
@@ -282,7 +316,7 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
                    train_etypes: Tuple[CanonicalEtype, ...], with_update: bool,
                    with_exclusion: bool, has_reverse: Dict[CanonicalEtype, bool],
                    counts: Dict[CanonicalEtype, int],
-                   capture: Optional[bool] = None) -> Tuple[Callable, Callable]:
+                   capture: Optional[bool] = None, mesh=None) -> Tuple[Callable, Callable]:
     """Device epochs (``gnn_recsys_tpu/train/minibatch.py:363-461``).
 
     Returns ``(perm_fn, chunk_fn)``:
@@ -305,10 +339,28 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
     permutation from its own buffers, which ``perm_fn`` then fills in place.
     Otherwise the same body runs eagerly, with any draw source (replayed
     draws too).  ``chunk_fn.captured`` is the :class:`CapturedStep`, once
-    made.  A captured chunk takes at most an epoch's steps."""
-    step = make_minibatch_step(model, cfg, train_etypes, with_update=with_update,
-                               with_exclusion=with_exclusion, has_reverse=has_reverse)
-    per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size)
+    made.  A captured chunk takes at most an epoch's steps.
+
+    ``mesh``: each step is :func:`~gnn_recsys_tpu_torch.parallel.sharded.
+    make_gspmd_minibatch_step`'s over the mesh's data axis, the slice widths
+    rounded up to the data extent (``minibatch.py:396-410``); the batch is
+    sliced on the device of ``store`` and split by the step.  It is captured
+    by default only where every entry of the mesh is one device."""
+    if mesh is None:
+        step = make_minibatch_step(model, cfg, train_etypes, with_update=with_update,
+                                   with_exclusion=with_exclusion, has_reverse=has_reverse)
+        round_to = 1
+    else:
+        from gnn_recsys_tpu_torch.parallel import distributed
+        from gnn_recsys_tpu_torch.parallel.sharded import make_gspmd_minibatch_step
+
+        step = make_gspmd_minibatch_step(model, cfg, train_etypes, mesh, with_update=with_update,
+                                         with_exclusion=with_exclusion, has_reverse=has_reverse)
+        axis = "data" if "data" in mesh.shape else mesh.axis_names[0]
+        round_to = distributed.extent(mesh, axis)
+        if capture is None and len(set(mesh.devices.flat)) > 1:
+            capture = False
+    per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size, round_to)
     static: Dict = {}  # the captured route's buffers and inputs
 
     def perm_fn(eids, generator):
@@ -502,6 +554,8 @@ def train_minibatch(
     device="cuda",
     host_edges: Optional[Dict] = None,
     profile_logdir: Optional[str] = None,
+    mesh=None,
+    row_shard_ntypes: Tuple[str, ...] = ("item",),
 ):
     """Run the training regime end to end on ``device``; returns (state,
     history).  ``train_eids`` index ``train_graph``'s relations,
@@ -515,7 +569,25 @@ def train_minibatch(
     order are a function of (seed, epoch), so ``start_epoch`` with a saved
     ``state`` resumes exactly.  ``profile_logdir``: a ``torch.profiler``
     trace of the epochs is written there (:func:`~gnn_recsys_tpu_torch.
-    utils.profiling.profiler_trace`)."""
+    utils.profiling.profiler_trace`).
+
+    ``mesh`` (``minibatch.py:700-731``): every step is the single-device
+    step over the mesh's data axis (:func:`~gnn_recsys_tpu_torch.parallel.
+    sharded.make_gspmd_minibatch_step`: the same program and draws), each
+    etype's batch rounded up to a multiple of the data extent, the feature
+    tables of ``row_shard_ntypes`` split by rows over the ``model`` axis
+    where there is one, the rest replicated; ``device`` is then the mesh's
+    first device.  The kernel flags are refused there, as in the JAX
+    package: kernels on a mesh run through the shard-map steps."""
+    if mesh is not None:
+        if getattr(model, "leaf_kernel", False) or cfg.pool_mask_kernel:
+            raise ValueError(
+                "Pallas kernel flags (ConvModel.leaf_kernel, MinibatchConfig.pool_mask_kernel) "
+                "are not supported on the GSPMD mesh path: pallas_call is opaque to the "
+                "auto-partitioner. Use make_shardmap_dp_step / make_shardmap_tp_dp_step "
+                "(parallel/sharded.py), which run the kernels on per-device blocks, or "
+                "disable the kernel flags.")
+        device = mesh.first_device
     dev = torch.device(device)
     model.to(dev)
     if state is None:
@@ -542,13 +614,25 @@ def train_minibatch(
                    for et in set(train_etypes) | set(valid_etypes)}
     graph = train_graph.to(dev)
     feats = {nt: x.to(dev) for nt, x in features.items()}
+    # What the steps read: the same, placed on the mesh where there is one.
+    step_graph, step_feats, step_tables = graph, feats, edge_tables
+    round_to = 1
+    if mesh is not None:
+        from gnn_recsys_tpu_torch.parallel import distributed
+        from gnn_recsys_tpu_torch.parallel.sharded import make_gspmd_minibatch_step, shard_inputs
+
+        axis = "data" if "data" in mesh.shape else mesh.axis_names[0]
+        round_to = distributed.extent(mesh, axis)
+        _, step_graph, step_feats, step_tables = shard_inputs(
+            mesh, state, graph, feats, edge_tables,
+            row_shard_ntypes=row_shard_ntypes if "model" in mesh.shape else ())
 
     if cfg.device_epoch:
         def epoch_pass(etypes, eids, with_update, with_exclusion, store_graph) -> Dict:
             counts = {et: len(eids[et]) for et in etypes}
-            per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size)
+            per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size, round_to)
             return {"fns": make_epoch_fns(model, cfg, etypes, with_update, with_exclusion,
-                                          has_reverse, counts),
+                                          has_reverse, counts, mesh=mesh),
                     "store": device_edge_store(store_graph, etypes, dev),
                     "eids": {et: torch.as_tensor(eids[et], dtype=torch.int64, device=dev)
                              for et in etypes},
@@ -557,7 +641,8 @@ def train_minibatch(
 
         def run_pass(p, tag, epoch, n_batches):
             """One pass of ``n_batches`` steps: its device losses and edges."""
-            _, losses = run_device_epoch(*p["fns"], state, graph, feats, edge_tables, p["store"],
+            _, losses = run_device_epoch(*p["fns"], state, step_graph, step_feats, step_tables,
+                                         p["store"],
                                          p["eids"], p["generator"],
                                          _epoch_seed(cfg.seed, tag, epoch), n_batches,
                                          cfg.epoch_chunk_steps)
@@ -572,6 +657,11 @@ def train_minibatch(
             valid_pass = epoch_pass(valid_etypes, valid_eids, False, False, full_graph)
     else:
         def step_fn(etypes, with_update, with_exclusion):
+            if mesh is not None:
+                return make_gspmd_minibatch_step(model, cfg, etypes, mesh,
+                                                 with_update=with_update,
+                                                 with_exclusion=with_exclusion,
+                                                 has_reverse=has_reverse)
             return make_minibatch_step(model, cfg, etypes, with_update=with_update,
                                        with_exclusion=with_exclusion, has_reverse=has_reverse)
 
@@ -604,12 +694,12 @@ def train_minibatch(
                 draws = draws_for(0, epoch)
                 losses, epoch_edges = [], 0
                 for bi, batch_np in enumerate(iter_edge_batches(host_rng, train_eids,
-                                                                cfg.edge_batch_size)):
+                                                                cfg.edge_batch_size, round_to)):
                     if epoch == 0 and bi >= 10:
                         break  # epoch-0 loss-only pass (run.py:136-142)
                     step = smoke_step if epoch == 0 else train_step
-                    _, loss = step(state, graph, feats, train_store.batch(batch_np, True, dev),
-                                   edge_tables, draws)
+                    _, loss = step(state, step_graph, step_feats,
+                                   train_store.batch(batch_np, True, dev), step_tables, draws)
                     losses.append(loss)
                     epoch_edges += sum(len(v) for v in batch_np.values())
                 losses = torch.stack(losses)
@@ -623,9 +713,10 @@ def train_minibatch(
                 else:
                     draws = draws_for(1, epoch)
                     vlosses = torch.stack([
-                        valid_step(state, graph, feats, valid_store.batch(b, False, dev),
-                                   edge_tables, draws)[1]
-                        for b in iter_edge_batches(host_rng, valid_eids, cfg.edge_batch_size)])
+                        valid_step(state, step_graph, step_feats,
+                                   valid_store.batch(b, False, dev), step_tables, draws)[1]
+                        for b in iter_edge_batches(host_rng, valid_eids, cfg.edge_batch_size,
+                                                   round_to)])
                 val_loss = float(vlosses.mean())
                 history["valid_loss"].append(val_loss)
             history["epoch_time"].append(time.perf_counter() - t0)

@@ -8,15 +8,19 @@ Run on a CUDA host::
     python3 phase_compare.py PHASE TREE [TREE ...]
 
 PHASE is ``hp_search`` (the search's three trials), ``remat`` (the bf16
-LSTM tree step with and without ``remat_levels``, on the bench graph) or
+LSTM tree step with and without ``remat_levels``, on the bench graph),
 ``sharded_serving`` (catalog-sharded serving on the bench graph: meshes of
-shards on the first card, then over every card where there are several).
+shards on the first card, then over every card where there are several) or
+``train_sharded`` (the multi-device training steps on the bench graph; the
+dp step over every card too where there are several), or
+``train_sharded_cards`` (only its parts across cards: the two-process step,
+on NCCL with a card each, and the dp step over every card).
 Each TREE is a directory that holds a checkout (``chip_smoke.py`` at its
 root); its kernels are built there.  ``hp_search`` runs without the phases
 before it, so its check of the memory a trial leaves is widened to 1 GiB.
 Each run prints one JSON line ``{"tree", "seconds", "lines"}``: of each of
 the phase's JSON lines, the step times, peak memory, dropout and recall@10
-(of ``sharded_serving``'s, the whole line).
+(of ``sharded_serving``'s and ``train_sharded``'s, the whole line).
 Then ``dropout_forms``: the forward and backward of one dropout over 16M
 bf16 entries at trial 3's p (0.584), in ms a call, the mean of 20 after 3
 warm-ups (CUDA events): ATen's fused kernel (``nn.functional.dropout``),
@@ -50,9 +54,13 @@ cs.phase_build()
 """
 RUNS = {"hp_search": 'cs.phase_hp_search(torch.device("cuda"))',
         "remat": 'cs.phase_remat(torch.device("cuda"), cs.bench_data())',
-        "sharded_serving": 'cs.phase_sharded_serving(torch.device("cuda"), cs.bench_data())'}
+        "sharded_serving": 'cs.phase_sharded_serving(torch.device("cuda"), cs.bench_data())',
+        "train_sharded": 'cs.phase_train_sharded(torch.device("cuda"), cs.bench_data())',
+        "train_sharded_cards": 'cs.phase_train_sharded(torch.device("cuda"), cs.bench_data(), '
+                               'cards_only=True)'}
 # The JSON lines each phase prints.
-LINES = {"hp_search": "hp_trial", "remat": "remat", "sharded_serving": "sharded_serving"}
+LINES = {"hp_search": "hp_trial", "remat": "remat", "sharded_serving": "sharded_serving",
+         "train_sharded": "train_sharded", "train_sharded_cards": "train_sharded"}
 KEYS = ("step_ms_median", "step_ms_median_remat", "max_memory_allocated_bytes",
         "max_memory_allocated_bytes_remat", "bit_identical")
 
@@ -67,7 +75,7 @@ def run_tree(phase: str, tree: str) -> dict:
     for line in proc.stdout.splitlines():
         if f'"phase": "{LINES[phase]}"' in line:
             d = json.loads(line[line.index("{"):])
-            if phase == "sharded_serving":
+            if phase in ("sharded_serving", "train_sharded", "train_sharded_cards"):
                 lines.append(d)
                 continue
             row = {k: d[k] for k in KEYS if k in d}

@@ -507,3 +507,35 @@ def test_sharded_serving_rehearsal(data, capsys):
         4 * chip_smoke.leaf_branches(g, "user", 2) + 2 * chip_smoke.leaf_branches(g, "item", 2))
     assert set(report["request_breakdown_s"]) == {"load_run", "build_model", "uncap", "embed",
                                                   "bought_table", "rank"}
+
+
+def test_train_sharded_rehearsal(data, capsys):
+    """Phase train_sharded on the CPU at a tiny width: the dp step over
+    meshes of 1, 2 and 4 CPU entries (the loss falls), the kernel route
+    against the plain one and the dedup'd dp step against the plain gather
+    (same draws), the tp-dp step over a (2, 2) mesh with the hash-sharded
+    item table and sharded item adjacency (equal to the dp step, no id
+    lost), and ``train_minibatch(mesh=...)`` row-sharded against replicated;
+    no kernel launches on the CPU."""
+    launches = chip_smoke.phase_train_sharded(
+        torch.device("cpu"), data, steps=16, tp_steps=3, on_card=False,
+        shapes=(32, 16, 128, 48, (4, 3)), epoch_steps=4, adj_capacity=64)
+    assert not any(launches.values())
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["phase"] == "train_sharded"
+    for shards in (1, 2, 4):
+        run = report[f"dp_{shards}"]
+        assert run["shards"] == shards and run["edges_per_step"] == 128
+        assert run["loss_last_mean"] < run["loss_first_mean"]
+    checks = report["route_checks"]
+    assert checks["kernels_vs_plain"]["grad_excess_over_rtol"] <= chip_smoke.STEP_GRAD_ATOL
+    assert checks["dedup_vs_plain_gather"]["grad_excess_over_rtol"] <= chip_smoke.STEP_GRAD_ATOL
+    # 2 shards x 8 gather-mean calls, in 4 shapes.
+    assert sum(checks["dedup_calls_by_shape"].values()) == 2 * 8
+    tp = report["tp_dp"]
+    assert tp["drops_f32_step"] == {"features": 0, "adjacency": 0}
+    assert tp["f32_vs_dp"]["grad_excess_over_rtol"] <= chip_smoke.STEP_GRAD_ATOL
+    assert tp["exchange_bytes_per_step"]["request_bytes"] > 0
+    mesh = report["train_minibatch_mesh"]
+    assert len(mesh["train_loss_row_sharded"]) == 2
+    assert "two_processes" not in report and "over_cards" not in report

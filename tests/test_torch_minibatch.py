@@ -360,8 +360,10 @@ def test_unported_options_raise():
     data, g, model, feats = _small_world(20, 10)
     seeds = {"user": torch.arange(3)}
     draws = Draws(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        model.sampled_repr(g, feats, seeds, (2, 2), draws, feature_lookup=lambda *a: None)
+    # The sharded hooks run on the tree route only (as in the JAX package).
+    with pytest.raises(ValueError, match="tree path only"):
+        model.sampled_repr(g, feats, seeds, (2, 2), draws, dedup=True,
+                           feature_lookup=lambda *a: None)
     with pytest.raises(ValueError):
         model.sampled_repr(g, feats, seeds, (2,), draws)
     with pytest.raises(KeyError):
