@@ -14,7 +14,8 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    process a source, all at once), with the compiler's register /
    shared-memory / spill summary; the instantiations the main path runs
    (``NO_SPILL``: the leaf kernels' f32 and bf16 F = 8; the gather-mean
-   kernels' f32 and bf16 16-byte paths at K = 8 and 4; ``topk_kernel``'s f32
+   kernels' f32 and bf16 16-byte paths at K = 8 and 4, and the full-fanout
+   design's forward at K > 32 and backward kernels; ``topk_kernel``'s f32
    top-k and boost epilogues with lists in the shared buffer and its LSE
    epilogue; the pool mask) must not spill.
 3. kernels: each kernel against its plain version; its time (``ms``: the
@@ -42,7 +43,13 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    and also timed with the wrapper's own sort (``without_plan_ms``); the
    forward again on ids inside the table's first 4 MB (``l2_resident_ms``);
    then both in bf16 (rows ``gather_mean_*:bf16``, within ``BF16_RTOL`` of
-   the largest entry, the backward's bits twice the same).
+   the largest entry, the backward's bits twice the same); then both at the
+   CLI drill's widest user table (B=904, K=1,280, N=3,000, D=256) on skewed
+   ids with every masked slot on one row, as the dedup'd plan has them, the
+   backward through that plan's kind of transpose (rows
+   ``gather_mean_*:wide:…`` and ``gather_mean_*:bf16:wide:…``; launches: the
+   drill's at K > 32 in f32, phase 10's bf16 ones in bf16, since no path runs
+   bf16 at K > 32).
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -228,6 +235,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import importlib.util
 import io
 import json
@@ -491,17 +499,27 @@ BF16 = "13__nv_bfloat16"  # a template argument __nv_bfloat16, mangled
 
 
 def _gather_pieces(direction: str, elem: str, vec: int) -> tuple:
-    """The gather-mean instantiations of the dedup step: K = 8 and 4 on the
-    16-byte path (``vec`` elements a load)."""
-    return tuple(f"gather_mean_{direction}_kernelI{elem}Li{vec}ELi{k}EE" for k in (8, 4))
+    """The gather-mean instantiations of the main paths: K = 8 and 4 on the
+    16-byte path (``vec`` elements a load; the dedup step's), and the
+    full-fanout gathers' (the search's and the CLI drill's, f32, where D = 2
+    takes the scalar path too): the forward at K > 32, the backward's walk
+    and reduce, and its prep and scan."""
+    pieces = tuple(f"gather_mean_{direction}_kernelI{elem}Li{vec}ELi{k}EE" for k in (8, 4))
+    vecs = (vec, 1) if elem == "f" else (vec,)
+    if direction == "fwd":
+        return pieces + tuple(f"gather_mean_fwd_wide_kernelI{elem}Li{v}EE" for v in vecs)
+    return pieces + tuple(f"gather_mean_bwd_{part}_kernelI{elem}Li{v}EE"
+                          for part in ("walk", "reduce") for v in vecs) + (
+        "gather_mean_bwd_prep_kernel", "gather_mean_bwd_scan_kernel")
 
 
 # The instantiations each row's main path runs, by a piece of their mangled
 # names: the leaf kernels' F = 8 ones (the tree step's), in f32 and bf16; the
-# gather-mean kernels' 16-byte paths at K = 8 and 4 (the dedup step's), in
-# f32 and bf16; topk_kernel's f32 ones that serving runs (mips_topk and
-# mips_boost with lists of k <= 32 in the shared buffer, the LSE epilogue),
-# the pool mask.  None may spill.
+# gather-mean kernels' 16-byte paths at K = 8 and 4 (the dedup step's) and
+# the full-fanout design's (:func:`_gather_pieces`), in f32 and bf16;
+# topk_kernel's f32 ones that serving runs (mips_topk and mips_boost with
+# lists of k <= 32 in the shared buffer, the LSE epilogue), the pool mask.
+# None may spill.
 NO_SPILL = {
     "leaf_mean_nn_fwd": ("leaf_agg", ("leaf_fwd_kernelIfLi8EE",)),
     "leaf_mean_nn_fwd:bf16": ("leaf_agg", (f"leaf_fwd_kernelI{BF16}Li8EE",)),
@@ -571,10 +589,11 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                   weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
-                  gather=(38_912, 8, 30_000, 256), timed=True, seed=0) -> list:
+                  gather=(38_912, 8, 30_000, 256), wide=(904, 1280, 3000, 256), timed=True,
+                  seed=0) -> list:
     """Each kernel against its plain version on ``dev``; returns the rows of
     the kernels line (without launches).  ``leaf`` is (K, P, F, H),
-    ``pool`` (B, K, P), ``gather`` (B, K, N, D)."""
+    ``pool`` (B, K, P), ``gather`` and ``wide`` (B, K, N, D)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ue = l2_normalize(torch.randn(num_users, dim, generator=gen, device=dev))
     ie = l2_normalize(torch.randn(num_items, dim, generator=gen, device=dev))
@@ -656,6 +675,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     leaf_rows(dev, gen, record, *leaf)
     pool_rows(dev, gen, record, *pool)
     gather_rows(dev, gen, record, *gather)
+    wide_gather_rows(dev, record, *wide)
     return rows
 
 
@@ -896,6 +916,63 @@ def gather_rows(dev, gen, record, b, k, n, d) -> None:
             row["without_plan_ms"] = device_ms(lambda: gm.gather_mean_bwd(g, nbr, mask, n))
 
 
+def skewed_gather_case(dev, gen, b, k, n, d, valid=0.08) -> tuple:
+    """A full-fanout gather as the dedup'd plan makes one at the CLI drill's
+    user tables: ``valid`` of the slots valid (the drill's 92,706 of 1.16M at
+    K = 1,280), their ids from a power law over rows 1..N-1 (1 + floor((n-1)
+    u^2): row 1 takes about n^-1/2 of them), every masked slot on row 0 (the
+    plan's row for the padding id, which no valid slot reads), f32 h [N, D]
+    and cotangent [B, D], and the plan's kind of transpose, which lists every
+    slot, masked ones included."""
+    u = torch.rand(b, k, generator=gen, device=dev)
+    mask = torch.rand(b, k, generator=gen, device=dev) < valid
+    nbr = torch.where(mask, 1 + ((n - 1) * u * u).to(torch.int32), 0)
+    h = torch.randn(n, d, generator=gen, device=dev)
+    g = torch.randn(b, d, generator=gen, device=dev)
+    srt, order = torch.sort(nbr.long().reshape(-1), stable=True)
+    start = torch.searchsorted(srt, torch.arange(n + 1, device=dev))
+    return h, nbr, mask, g, gm.SlotTranspose(order.to(torch.int32), start.to(torch.int32))
+
+
+def wide_gather_rows(dev, record, b, k, n, d) -> None:
+    """Both gather-mean kernels at a full-fanout shape on
+    :func:`skewed_gather_case` ids (:func:`gather_check_rows`), in f32 and
+    then bf16 (rows ``gather_mean_*:wide:B…_K…_N…_D…`` and
+    ``gather_mean_*:bf16:wide:…``), with the slot and run statistics; the
+    backward through the plan's kind of transpose, and also timed with the
+    wrapper's own sort (``without_plan_ms``)."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    h, nbr, mask, g, tr = skewed_gather_case(dev, gen, b, k, n, d)
+    label = "wide:B{}_K{}_N{}_D{}".format(b, k, n, d)
+    stats = {**slot_stats(nbr, mask, n, b), **run_stats(tr, n, b, k)}
+    say("gather_wide_case", label=label, **stats)
+    for tag, hh, gg in (("", h, g), ("bf16:", h.bfloat16(), g.bfloat16())):
+        _, row = gather_check_rows(record, f"{tag}{label}", hh, gg, nbr, mask, n, tr, stats)
+        if row["ms"] is not None:
+            row["without_plan_ms"] = device_ms(lambda gg=gg: gm.gather_mean_bwd(gg, nbr, mask, n))
+
+
+def gather_check_rows(record, what, h, g, nbr, mask, n, tr, stats) -> tuple:
+    """Both gather-mean kernels on one input (table ``h``, cotangent ``g``,
+    transpose ``tr``) against their plain versions, recorded as rows
+    ``gather_mean_fwd:<what>`` and ``gather_mean_bwd:<what>`` beside the
+    bound, the plain versions and ``embedding_bag``; returns both rows."""
+    (b, k), d = nbr.shape, h.shape[1]
+    err = check_gather_fwd(f"gather_mean_fwd {what}", h, nbr, mask)
+    grad_err = check_gather_bwd(f"gather_mean_bwd {what}", gm.gather_mean_bwd(g, nbr, mask, n, tr),
+                                g, nbr, mask, n, tr)
+    bag, bag_bwd = embedding_bag_calls(h, nbr, mask, g)
+    fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, h.element_size())
+    fwd = record(f"gather_mean_fwd:{what}", GATHER, 49, err,
+                 lambda: gm.gather_mean_fwd(h, nbr, mask),
+                 lambda: gm.gather_mean_reference(h, nbr, mask), bag, *fwd_cost, shape=stats)
+    bwd = record(f"gather_mean_bwd:{what}", GATHER, 49, grad_err,
+                 lambda: gm.gather_mean_bwd(g, nbr, mask, n, tr),
+                 lambda: gm.gather_mean_bwd_plain(g, mask, n, tr), bag_bwd, *bwd_cost,
+                 shape=stats)
+    return fwd, bwd
+
+
 def gather_costs(b, k, n, d, nbr, mask, elem=4) -> tuple:
     """((flops, bytes) of the forward, (flops, bytes) of the backward) of a
     [B, K] gather into an [N, D] table of ``elem``-byte elements: each input
@@ -1011,6 +1088,16 @@ def slot_stats(nbr, mask, n, rows) -> dict:
     return out
 
 
+def run_stats(transpose, n, b, k) -> dict:
+    """What the backward walks through ``transpose``: the longest run of one
+    table row inside its gather's entries (masked slots included), and the
+    chunk slots the any-K design uses (``gm.chunk_plan``) against the bound
+    its scratch holds (``gm.chunk_slots``)."""
+    lo, hi, cstart = gm.chunk_plan(transpose, n, b, k)
+    return {"longest_run": int((hi - lo).max()), "chunks": int(cstart[n]),
+            "chunk_slots": gm.chunk_slots(b, k, n)}
+
+
 def l2_resident_fwd_ms(h, nbr, mask) -> float:
     """Device ms of the same forward on ids folded into the table's first
     4 MB, whose rows stay in L2: the rate the gather reaches when memory
@@ -1057,7 +1144,7 @@ def phase_gather_steps(dev, tap, timed=True, label=gather_label, bf16=True) -> l
         uniq = int(tr.rows)
         stats = {"call": i, "B": b, "K": k, "N": n, "D": d, "unique_rows": uniq,
                  "padding_rows": b - uniq, "transpose_bytes": 4 * (tr.order.numel() + n + 1),
-                 **slot_stats(nbr, mask, n, uniq)}
+                 **slot_stats(nbr, mask, n, uniq), **run_stats(tr, n, b, k)}
         say("gather_plan", **stats)
         if call["shape"] in seen:
             continue
@@ -1066,21 +1153,8 @@ def phase_gather_steps(dev, tap, timed=True, label=gather_label, bf16=True) -> l
         # f32 as the step ran, then the same plan with the table and the
         # cotangent rounded to bf16 (the bf16 step's gathers have this plan).
         for tag, hh, gg in (("", h, g), ("bf16:", h.bfloat16(), g.bfloat16()))[:2 if bf16 else 1]:
-            what = f"at {call['shape']}" + (" bf16" if tag else "")
-            err = check_gather_fwd(f"gather_mean_fwd {what}", hh, nbr, mask)
-            grad_err = check_gather_bwd(f"gather_mean_bwd {what}",
-                                        gm.gather_mean_bwd(gg, nbr, mask, n, tr), gg, nbr, mask,
-                                        n, tr)
-            bag, bag_bwd = embedding_bag_calls(hh, nbr, mask, gg)
-            fwd_cost, bwd_cost = gather_costs(b, k, n, d, nbr, mask, hh.element_size())
-            fwd = kernel_row(rows, timed, f"gather_mean_fwd:{tag}{name}", GATHER, 49, err,
-                             lambda hh=hh: gm.gather_mean_fwd(hh, nbr, mask),
-                             lambda hh=hh: gm.gather_mean_reference(hh, nbr, mask), bag,
-                             *fwd_cost, shape=stats)
-            kernel_row(rows, timed, f"gather_mean_bwd:{tag}{name}", GATHER, 49, grad_err,
-                       lambda gg=gg: gm.gather_mean_bwd(gg, nbr, mask, n, tr),
-                       lambda gg=gg: gm.gather_mean_bwd_plain(gg, mask, n, tr), bag_bwd,
-                       *bwd_cost, shape=stats)
+            fwd, _ = gather_check_rows(functools.partial(kernel_row, rows, timed), f"{tag}{name}",
+                                       hh, gg, nbr, mask, n, tr, stats)
             if timed and not tag:
                 fwd["l2_resident_ms"] = l2_resident_fwd_ms(h, nbr, mask)
                 say("gather_l2_probe", name=fwd["name"], ms=fwd["ms"],
@@ -3997,6 +4071,18 @@ def main() -> int:
                                                   agg="lstm_edge", dtype=None, dedup=True)}
     lstm_launches["remat"] = phase_remat(dev, data)
     phase_profiler_window(dev, "end")
+    # The full-fanout rows of phase kernels: the drill's launches at K > 32
+    # in f32; in bf16, phase 10's (no path runs bf16 at K > 32).
+    for row in rows:
+        kernel, _, rest = row["name"].partition(":")
+        if rest.startswith("wide:"):
+            launches[row["name"]] = sum(
+                r["launches"] for r in etl_rows
+                if r["name"].startswith(kernel + ":") and r["shape"]["K"] > 32)
+            if not launches[row["name"]]:
+                raise AssertionError(f"{row['name']}: the drill ran no gather at K > 32")
+        elif rest.startswith("bf16:wide:"):
+            launches[row["name"]] = launches[f"{kernel}:bf16"]
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in graph_launches:

@@ -14,17 +14,23 @@ once.
 :func:`gather_mean` is a ``torch.autograd.Function`` whose forward and
 backward are the kernels of ``gnn_recsys_tpu_torch/csrc/gather_mean.cu``; the
 gradient flows to ``h`` only.  Both kernels move bytes, and are held by how
-many dependent loads an SM keeps in flight (the header of the source says
-what bounds them at the training step's shapes).  The forward gives a warp a
-destination row and loads every slot's row without a branch.  The backward
-uses no atomics: a warp owns one row of ``dh``, sums the cotangent rows of
-the slots that read it in ascending slot order, and writes it once, so two
-runs give the same bits.  It finds those slots through a
-:class:`SlotTranspose`: the dedup'd block forward passes the one its plan's
-sort already made (``ops/sampling.py:unique_plan``); any other caller gets
-one built here from a stable sort of the ids (:func:`slot_transpose`).  Each
-wrapper takes its plain version only for CPU tensors; for CUDA tensors it
-launches its kernel or raises, and counts its launches in ``.launches``.
+many dependent loads an SM keeps in flight and by the longest chain of them
+one warp walks (the header of the source says what bounds them).  The
+forward gives a warp a destination row (a block, at K > 32, whose warps load
+only the valid slots' rows).  The backward uses no atomics: each row of
+``dh`` sums the cotangent rows of the slots that read it in ascending slot
+order and is written once, so two runs give the same bits.  It finds those
+slots through a :class:`SlotTranspose`: the dedup'd block forward passes the
+one its plan's sort already made (``ops/sampling.py:unique_plan``); any
+other caller gets one built here from a stable sort of the ids
+(:func:`slot_transpose`).  At K = 4 and 8 a warp walks one row; at any other
+K a row's run is cut into chunks of :data:`CHUNK` entries, each walked by a
+warp of its own, whose f32 partials are added in chunk order
+(:func:`chunk_plan` is the host's view of that cut; the scratch it needs,
+:func:`bwd_scratch_bytes`, follows from the shapes alone, so a CUDA graph
+can capture the call).  Each wrapper takes its plain version only for CPU
+tensors; for CUDA tensors it launches its kernels or raises, and counts one
+launch a call in ``.launches``.
 """
 
 from __future__ import annotations
@@ -40,17 +46,48 @@ _LIB = "gather_mean"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# Entries of a table row's run that one warp of the backward walks at K other
+# than 4 and 8 (csrc/gather_mean.cu: CHUNK).
+CHUNK = 128
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     if not getattr(lib, "_typed", False):
         lib.gather_mean_fwd_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
         lib.gather_mean_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                               _P, _P]
-        for fn in (lib.gather_mean_fwd_launch, lib.gather_mean_bwd_launch):
+                                               _P, _P, _P]
+        lib.gather_mean_bwd_scratch_bytes.argtypes = [_I, _I, _I, _I]
+        lib.gather_mean_bwd_scratch_bytes.restype = ctypes.c_longlong
+        for fn in (lib.gather_mean_fwd_launch, lib.gather_mean_bwd_launch,
+                   lib.gather_mean_bwd_chunk):
             fn.restype = _I
+        if lib.gather_mean_bwd_chunk() != CHUNK:
+            raise RuntimeError(f"gather_mean.cu walks chunks of {lib.gather_mean_bwd_chunk()} "
+                               f"entries; the host plans for {CHUNK}")
         lib._typed = True
     return lib
+
+
+def chunk_slots(b: int, k: int, n: int) -> int:
+    """Chunk slots of the backward of a [b, k] gather into n rows at K other
+    than 4 and 8: a row takes max(1, ceil(len / CHUNK)) chunks of its walked
+    run, and the runs hold at most b * k entries, so n + ceil(b * k / CHUNK)
+    bound them whatever the ids."""
+    return n + -(-b * k // CHUNK)
+
+
+def bwd_scratch_bytes(n: int, b: int, k: int, d: int) -> int:
+    """Bytes of device scratch the backward takes (0 at K = 4 and 8): per
+    destination row its scale (f32), per table row its run's ends and first
+    chunk slot (int32, one more for the total), per chunk slot a flag
+    (int32), then, 16-byte aligned, an f32 partial row a chunk slot
+    (csrc/gather_mean.cu: bwd_layout)."""
+    if k in (4, 8):
+        return 0
+    slots = chunk_slots(b, k, n)
+    head = 4 * (b + n + n + (n + 1) + slots)
+    return -(-head // 16) * 16 + 4 * slots * d
 
 
 class SlotTranspose(NamedTuple):
@@ -117,6 +154,33 @@ def slot_transpose(nbr: torch.Tensor, mask: torch.Tensor, n: int) -> SlotTranspo
     srt, order = torch.sort(key, stable=True)
     rows = torch.arange(n + 1, dtype=torch.int32, device=key.device)
     return SlotTranspose(order.to(torch.int32), torch.searchsorted(srt, rows, out_int32=True))
+
+
+def chunk_plan(transpose: SlotTranspose, n: int, b: int, k: int):
+    """The backward's cut of the runs at K other than 4 and 8, as its prep
+    and scan kernels make it: each table row's run narrowed to the entries
+    in ``[off, off + rows * k)`` (``lo``, ``hi``, int64 [n]) and its first
+    chunk slot (``cstart``, int64 [n + 1], ``cstart[n]`` the slots used);
+    chunk c of row u walks entries ``[lo[u] + c * CHUNK, min(lo[u] + (c + 1)
+    * CHUNK, hi[u]))``."""
+    order, start, off, rows = transpose
+    limit = b if rows is None else int(rows.clamp(0, b))
+    srt, s = order.long(), start.long()
+    # Each run is ascending, so a row's entries in range are one stretch of it.
+    lo = s[:-1] + _count_below(srt, s, off)
+    hi = s[:-1] + _count_below(srt, s, off + limit * k)
+    chunks = ((hi - lo + CHUNK - 1) // CHUNK).clamp(min=1)
+    cstart = torch.zeros(n + 1, dtype=torch.int64, device=order.device)
+    cstart[1:] = torch.cumsum(chunks, 0)
+    return lo, hi, cstart
+
+
+def _count_below(srt: torch.Tensor, start: torch.Tensor, key: int) -> torch.Tensor:
+    """Per row u, the entries of its run ``srt[start[u]:start[u+1]]`` below ``key``."""
+    n = start.numel() - 1
+    row = torch.repeat_interleave(torch.arange(n, device=srt.device), start[1:] - start[:-1])
+    below = (srt[start[0]:start[-1]] < key).long()
+    return torch.zeros(n, dtype=torch.int64, device=srt.device).index_add_(0, row, below)
 
 
 def gather_mean_bwd_plain(dout: torch.Tensor, mask: torch.Tensor, n: int,
@@ -229,14 +293,18 @@ def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n
         raise ValueError(f"dout has {b} rows, nbr {ids.shape[0]}")
     dev = g.device
     order, start, off, rows = _checked_transpose(transpose, n, b, k, dev)
-    dh = torch.empty((n, d), dtype=g.dtype, device=dev)  # the kernel writes every row
+    dh = torch.empty((n, d), dtype=g.dtype, device=dev)  # the kernels write every row
     if n and d:
         lib = _lib()
+        # One buffer whose size follows from the shapes alone (CUDA graphs).
+        nbytes = bwd_scratch_bytes(n, b, k, d)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
         with torch.cuda.device(dev):
             err = lib.gather_mean_bwd_launch(
                 g.data_ptr(), m.data_ptr(), order.data_ptr(), start.data_ptr(),
                 None if rows is None else rows.data_ptr(), off, n, b, k, d, _vec(g, dh),
-                int(g.dtype == torch.bfloat16), dh.data_ptr(), build.stream(dev))
+                int(g.dtype == torch.bfloat16), dh.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), build.stream(dev))
         build.check(lib, err, "gather_mean_bwd")
         gather_mean_bwd.launches += 1
     return dh

@@ -12,11 +12,15 @@ import chip_smoke
 
 KERNELS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
            "pool_membership_mask", "gather_mean_fwd", "gather_mean_bwd"]
-# The kernels line's rows of the kernel phase: each kernel, and the leaf and
-# gather-mean kernels again in bf16.
+# The kernels line's rows of the kernel phase: each kernel, the leaf and
+# gather-mean kernels again in bf16, and the gather-mean kernels at a
+# full-fanout shape in f32 and bf16.
+WIDE = "wide:B9_K40_N7_D12"
 ROWS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
         "leaf_mean_nn_fwd:bf16", "leaf_mean_nn_bwd:bf16", "pool_membership_mask",
-        "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16", "gather_mean_bwd:bf16"]
+        "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16", "gather_mean_bwd:bf16",
+        f"gather_mean_fwd:{WIDE}", f"gather_mean_bwd:{WIDE}", f"gather_mean_fwd:bf16:{WIDE}",
+        f"gather_mean_bwd:bf16:{WIDE}"]
 NO_YARDSTICK = ["leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "pool_membership_mask"]
 
 
@@ -28,7 +32,7 @@ def data():
 def test_kernel_phase_rehearsal():
     rows = chip_smoke.phase_kernels(torch.device("cpu"), num_users=40, num_items=300,
                                     dim=16, k=6, leaf=(4, 37, 5, 16), pool=(40, 8, 70),
-                                    gather=(41, 5, 30, 12), timed=False)
+                                    gather=(41, 5, 30, 12), wide=(9, 40, 7, 12), timed=False)
     assert [r["name"] for r in rows] == ROWS
     for row in rows:
         assert row["max_abs_err"] == 0.0
@@ -344,16 +348,23 @@ def _leaf_lines(fwd_spill=0):
                          ("leaf_bwd_reduce_kernelEPKfS1_", 26, 0)))
 
 
-def _gather_lines(bf16_spill=0):
+def _gather_lines(bf16_spill=0, walk_spill=0):
     """The gather-mean instantiations: f32 and bf16, 16-byte and scalar
-    paths, K = 8, 4 and any."""
-    names = []
-    for direction, regs in (("fwd", 38), ("bwd", 40)):
-        for elem, vec in (("f", 4), ("f", 1), ("13__nv_bfloat16", 8), ("13__nv_bfloat16", 1)):
-            for k in (8, 4, 0):
+    paths; the warp-a-row kernels at K = 8, 4 and (the forward) any K <= 32,
+    the forward at K > 32, the backward's walk and reduce, prep and scan."""
+    names = [("gather_mean_bwd_prep_kernelEPKhPKiS3_S3_NS_4PlanEiiii", 30, 0),
+             ("gather_mean_bwd_scan_kernelEPii", 18, 0)]
+    for elem, vec in (("f", 4), ("f", 1), ("13__nv_bfloat16", 8), ("13__nv_bfloat16", 1)):
+        for direction, regs, ks in (("fwd", 38, (8, 4, 0)), ("bwd", 40, (8, 4))):
+            for k in ks:
                 spill = bf16_spill if (elem, vec, k) == ("13__nv_bfloat16", 8, 8) else 0
                 names.append((f"gather_mean_{direction}_kernelI{elem}Li{vec}ELi{k}EEEvPKT_",
                               regs, spill))
+        spill = walk_spill if (elem, vec) == ("f", 1) else 0
+        names += [(f"gather_mean_fwd_wide_kernelI{elem}Li{vec}EEEvPKT_PKiPKhiiiPS1_", 56, 0),
+                  (f"gather_mean_bwd_walk_kernelI{elem}Li{vec}EEEvPKT_PKhPKiNS_4PlanEiiiiiPS1_",
+                   62, spill),
+                  (f"gather_mean_bwd_reduce_kernelI{elem}Li{vec}EEEvNS_4PlanEiiPT_", 48, 0)]
     return _ptxas_lines(names)
 
 
@@ -373,18 +384,28 @@ def test_leaf_ptxas_reads_registers_and_refuses_spills():
 
 
 def test_gather_ptxas_rows_hold_the_dedup_steps_instantiations():
-    """The gather-mean rows name the 16-byte paths at K = 8 and 4, f32 in
-    one row and bf16 in the other; a spill in the bf16 K = 8 forward fails
-    the run."""
+    """The gather-mean rows name the 16-byte paths at K = 8 and 4 (the dedup
+    step's) and the full-fanout design's kernels (f32 also on the scalar
+    path), f32 in one row and bf16 in the other; a spill in the bf16 K = 8
+    forward or in the f32 scalar walk fails the run."""
     rows = {name: v for name, v in chip_smoke.NO_SPILL.items() if v[0] == "gather_mean"}
     got = chip_smoke.kernel_ptxas({"gather_mean": {"ptxas": _gather_lines()}}, rows)
     assert set(got["gather_mean_fwd"]) == {"gather_mean_fwd_kernelIfLi4ELi8EE",
-                                           "gather_mean_fwd_kernelIfLi4ELi4EE"}
+                                           "gather_mean_fwd_kernelIfLi4ELi4EE",
+                                           "gather_mean_fwd_wide_kernelIfLi4EE",
+                                           "gather_mean_fwd_wide_kernelIfLi1EE"}
     assert set(got["gather_mean_bwd:bf16"]) == {
         "gather_mean_bwd_kernelI13__nv_bfloat16Li8ELi8EE",
-        "gather_mean_bwd_kernelI13__nv_bfloat16Li8ELi4EE"}
+        "gather_mean_bwd_kernelI13__nv_bfloat16Li8ELi4EE",
+        "gather_mean_bwd_walk_kernelI13__nv_bfloat16Li8EE",
+        "gather_mean_bwd_reduce_kernelI13__nv_bfloat16Li8EE",
+        "gather_mean_bwd_prep_kernel", "gather_mean_bwd_scan_kernel"}
+    assert got["gather_mean_bwd"]["gather_mean_bwd_walk_kernelIfLi1EE"] == {
+        "registers": 62, "spill_bytes": 0}
     with pytest.raises(AssertionError, match="nv_bfloat16Li8ELi8EE spills 12 bytes"):
         chip_smoke.kernel_ptxas({"gather_mean": {"ptxas": _gather_lines(bf16_spill=8)}}, rows)
+    with pytest.raises(AssertionError, match="walk_kernelIfLi1EE spills 12 bytes"):
+        chip_smoke.kernel_ptxas({"gather_mean": {"ptxas": _gather_lines(walk_spill=8)}}, rows)
 
 
 def test_topk_and_pool_mask_ptxas_rows():

@@ -405,6 +405,13 @@ def test_host_plans_match_the_c_exports(dev):
                         tm.topk_smem_bytes(d, bf16, resident, epi)
     tile = (ctypes.c_int * 2)()
     assert pm._lib().pool_mask_tile(tile) == 0 and tuple(tile) == pm._TILE
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    glib = gm._lib()
+    assert glib.gather_mean_bwd_chunk() == gm.CHUNK
+    for n, b, k, d in ((3000, 904, 1280, 256), (6000, 20000, 16, 2), (7, 5, 3, 6),
+                       (30000, 38912, 8, 256), (1, 9, 4, 256), (50, 300, 1, 33)):
+        assert glib.gather_mean_bwd_scratch_bytes(n, b, k, d) == gm.bwd_scratch_bytes(n, b, k, d)
 
 
 def _gather_case(dev, b, k, n, d, seed=0):
@@ -425,18 +432,24 @@ def _assert_dh_close(dh, want):
     assert float((dh - want).abs().max()) <= GRAD_REL * max(1.0, float(want.abs().max()))
 
 
+# The full-fanout gathers of the CLI drill and the search (B, K, N).
+WIDE = [(904, 1280, 3000), (904, 216, 3000), (904, 728, 2104), (20000, 16, 6000)]
+
+
 @pytest.mark.parametrize("b,k,n,d", [(38912, 8, 30000, 256), (20992, 8, 100000, 256),
                                      (2048, 4, 20992, 256), (4608, 4, 38912, 256),
                                      (13, 8, 50, 16), (7, 40, 20, 33), (5, 3, 10, 6),
                                      (9, 4, 1, 256), (300, 1, 50, 33), (1001, 8, 3000, 33),
-                                     (1001, 40, 3000, 256), (333, 4, 7, 256)])
+                                     (1001, 40, 3000, 256), (333, 4, 7, 256)]
+                         + [(b, k, n, d) for b, k, n in WIDE for d in (2, 256)])
 def test_gather_mean_matches_plain(dev, b, k, n, d):
     """Forward and backward at the dedup step's four shapes, N = 1, K of 1,
-    4, 8 and 40, a D that is not a multiple of 4 (the scalar path) and a
-    ragged B.  The backward has no atomics: it matches both plain versions
-    (the walk of the same transpose, and index_add_) within 1e-5 of the
-    largest entry (fused multiply-adds in another order), and a second call
-    gives the same bits."""
+    4, 8 and 40, a D that is not a multiple of 4 (the scalar path), a
+    ragged B, and the full-fanout shapes at D 2 and 256.  The backward has
+    no atomics: it matches both plain versions (the walk of the same
+    transpose, and index_add_) within 1e-5 of the largest entry (fused
+    multiply-adds in another order), and a second call gives the same
+    bits."""
     from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 
     h, nbr, mask, g = _gather_case(dev, b, k, n, d)
@@ -457,11 +470,12 @@ def test_gather_mean_matches_plain(dev, b, k, n, d):
 @pytest.mark.parametrize("b,k,n,d", [(38912, 8, 30000, 256), (20992, 8, 100000, 256),
                                      (2048, 4, 20992, 256), (4608, 4, 38912, 256),
                                      (13, 8, 50, 16), (7, 40, 20, 33), (1001, 8, 3000, 36),
-                                     (333, 4, 7, 256)])
+                                     (333, 4, 7, 256)]
+                         + [(b, k, n, d) for b, k, n in WIDE for d in (2, 256)])
 def test_gather_mean_bf16_matches_plain(dev, b, k, n, d):
     """The bf16 instantiations (table, cotangent, out and dh bf16; sums f32)
-    at the dedup step's four shapes, K = 40, and widths that are not a
-    multiple of 8 (the scalar path): within one bf16 ulp of the largest
+    at the dedup step's four shapes, K = 40, the full-fanout shapes, and
+    widths that are not a multiple of 8 (the scalar path): within one bf16 ulp of the largest
     entry of the plain versions, which round the same f32 sums (summed in
     another order), and the backward's bits twice the same."""
     from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
@@ -483,6 +497,69 @@ def test_gather_mean_bf16_matches_plain(dev, b, k, n, d):
             err = float((got.float() - want.float()).abs().max())
             assert err <= BF16_RTOL * max(1.0, float(want.float().abs().max()))
     assert torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, tr))
+
+
+def _skewed_case(dev, b, k, n, d, seed=0):
+    """A full-fanout gather as the dedup'd plan makes one: 15% of the slots
+    valid, their ids from a power law (floor(n u^3): row 0 takes about
+    n^(-1/3) of them), every masked slot on row 0 (the plan's row for the
+    padding id), an all-masked row, and an id of -1 and one >= n."""
+    rng = np.random.default_rng(seed)
+    nbr = (n * rng.random((b, k)) ** 3).astype(np.int32)
+    mask = rng.random((b, k)) < 0.15
+    nbr[~mask] = 0
+    mask[b // 2] = False
+    nbr[0, 0], nbr[-1, -1] = -1, n + 3
+    mask[0, 0] = mask[-1, -1] = True
+    h = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
+    g = torch.tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+    return h, torch.tensor(nbr, device=dev), torch.tensor(mask, device=dev), g
+
+
+def _every_slot_transpose(nbr, n):
+    """The plan's kind of transpose: every slot, masked ones included,
+    grouped by its clipped id (ascending within a row)."""
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    srt, order = torch.sort(nbr.long().clamp(0, n - 1).reshape(-1), stable=True)
+    start = torch.searchsorted(srt, torch.arange(n + 1, device=nbr.device))
+    return gm.SlotTranspose(order.to(torch.int32), start.to(torch.int32))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [2, 256])
+@pytest.mark.parametrize("b,k,n", WIDE)
+def test_gather_mean_wide_k_skewed_matches_f64(dev, b, k, n, d, bf16):
+    """The full-fanout shapes on skewed ids, so that runs pass the chunk
+    length: row 0 holds every masked slot (the plan's transpose walks them)
+    and the hottest ids.  Forward and backward against the float64 reference
+    on the same (rounded) inputs, within TOL / GRAD_REL of the largest entry
+    in f32 and BF16_RTOL in bf16; the backward through the plan's kind of
+    transpose, through ``slot_transpose`` and through the wrapper's own sort
+    (those two the same bits), each twice the same bits."""
+    from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+
+    h, nbr, mask, g = _skewed_case(dev, b, k, n, d)
+    if bf16:
+        h, g = h.bfloat16(), g.bfloat16()
+    out = gm.gather_mean_fwd(h, nbr, mask)
+    plan_tr, own_tr = _every_slot_transpose(nbr, n), gm.slot_transpose(nbr, mask, n)
+    assert int(plan_tr.start[1]) > 10 * gm.CHUNK  # row 0's run is split
+    dh = gm.gather_mean_bwd(g, nbr, mask, n, plan_tr)
+    dh_own = gm.gather_mean_bwd(g, nbr, mask, n)
+    torch.cuda.synchronize()
+    rel_fwd, rel_bwd = (BF16_RTOL, BF16_RTOL) if bf16 else (TOL, GRAD_REL)
+    for got, want, rel in (
+            (out, gm.gather_mean_reference(h.double(), nbr, mask), rel_fwd),
+            (dh, gm.gather_mean_bwd_reference(g.double(), nbr, mask, n), rel_bwd),
+            (dh_own, gm.gather_mean_bwd_reference(g.double(), nbr, mask, n), rel_bwd)):
+        assert got.dtype == h.dtype
+        err = float((got.double() - want).abs().max())
+        assert err <= rel * max(1.0, float(want.abs().max())), err
+    assert (out[b // 2] == 0).all()
+    assert torch.equal(dh, gm.gather_mean_bwd(g, nbr, mask, n, plan_tr))
+    assert torch.equal(dh_own, gm.gather_mean_bwd(g, nbr, mask, n, own_tr))
+    assert torch.equal(out, gm.gather_mean_fwd(h, nbr, mask))
 
 
 def test_gather_mean_bwd_hot_row_and_masked_rows(dev):

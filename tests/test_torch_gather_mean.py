@@ -165,3 +165,91 @@ def test_cpu_tensors_take_the_plain_route():
     assert (gm.gather_mean_fwd.launches, gm.gather_mean_bwd.launches) == counts
     torch.testing.assert_close(out, gm.gather_mean_reference(torch.tensor(h), torch.tensor(nbr),
                                                              torch.tensor(mask)))
+
+
+def test_wide_k_hub_row_matches_jax():
+    """K = 300 with a hub row (row 11 read by a third of the slots, about
+    2,000 of them): the port's plain forward against ``csc_gather_mean`` and
+    its gradient through ``gather_mean`` against ``jax.vjp``.  The hub's
+    gradient sums about 2,000 scaled rows in another order than XLA's
+    scatter, so the gradient takes rtol / atol 1e-5."""
+    b, k, n, d = 24, 300, 40, 8
+    h, nbr, mask = _case(b, k, n, d, seed=4)
+    nbr[4:, ::3] = 11
+    c = np.random.default_rng(5).normal(size=(b, d)).astype(np.float32)
+    xla, vjp = jax.vjp(lambda h_: jcsc_gather_mean(h_, jnp.asarray(nbr), jnp.asarray(mask)),
+                       jnp.asarray(h))
+    (want,) = vjp(jnp.asarray(c))
+    th = torch.tensor(h, requires_grad=True)
+    out = gm.gather_mean(th, torch.tensor(nbr), torch.tensor(mask))
+    out.backward(torch.tensor(c))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(xla), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert int((torch.tensor(nbr)[torch.tensor(mask)] == 11).sum()) > 10 * gm.CHUNK
+    dh = gm.gather_mean_bwd_plain(torch.tensor(c), torch.tensor(mask), n,
+                                  gm.slot_transpose(torch.tensor(nbr), torch.tensor(mask), n))
+    np.testing.assert_allclose(dh.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def _plan_transpose(rng, n, b, k, ids, rows):
+    """A plan's transpose of ``ids`` [b, k] inside one sort of a frontier
+    with other slots before and after (``unique_plan``), walked up to
+    ``rows``."""
+    before, after = rng.integers(0, n, 500), rng.integers(0, n, 700)
+    flat = torch.tensor(np.concatenate([before, ids.reshape(-1), after]).astype(np.int32))
+    plan = unique_plan(flat, n, transpose=True)
+    rows_t = None if rows is None else torch.tensor([rows], dtype=torch.int32)
+    return gm.SlotTranspose(plan.order, plan.start, before.size, rows_t)
+
+
+@pytest.mark.parametrize("case", ["uniform", "hub", "every_run_one_past_a_chunk", "no_rows"])
+def test_chunk_plan_covers_each_walked_entry_once(case):
+    """The backward's cut of the runs at K other than 4 and 8: every entry
+    whose slot lies in [off, off + rows * K) falls in exactly one chunk, no
+    other entry in any; each chunk holds at most CHUNK entries, all but a
+    row's last exactly CHUNK; every row has a chunk (an empty run writes its
+    zeros); and the slots used stay within ``chunk_slots``, which sizes the
+    scratch, even where every run is one entry longer than a chunk."""
+    rng = np.random.default_rng(7)
+    b, k, n, rows = 40, 300, 50, 31
+    ids = rng.integers(0, n, (b, k))
+    if case == "hub":
+        ids[:, ::2] = 7  # a run of 6,000 entries
+    elif case == "every_run_one_past_a_chunk":  # the rest on one more row
+        full = b * k // (gm.CHUNK + 1)
+        ids = np.full(b * k, full)
+        ids[:full * (gm.CHUNK + 1)] = np.repeat(np.arange(full), gm.CHUNK + 1)
+        ids, n, rows = ids.reshape(b, k), full + 1, b
+    tr = _plan_transpose(rng, n, b, k, ids, None if case == "no_rows" else rows)
+    lo, hi, cstart = gm.chunk_plan(tr, n, b, k)
+    limit = b if tr.rows is None else rows
+    assert int(cstart[n]) <= gm.chunk_slots(b, k, n)
+    covered = torch.zeros(tr.order.numel(), dtype=torch.int64)
+    for u in range(n):
+        nch = int(cstart[u + 1] - cstart[u])
+        assert nch >= 1 and tr.start[u] <= lo[u] <= hi[u] <= tr.start[u + 1]
+        for c in range(nch):
+            a, e = int(lo[u]) + c * gm.CHUNK, min(int(lo[u]) + (c + 1) * gm.CHUNK, int(hi[u]))
+            assert e - a == gm.CHUNK or c == nch - 1
+            assert a < e or nch == 1
+            covered[a:e] += 1
+    p = tr.order.long() - tr.off
+    assert torch.equal(covered, ((p >= 0) & (p < limit * k)).long())
+    if case == "every_run_one_past_a_chunk":
+        assert int(cstart[n]) > 1.9 * n  # two chunks a row, near the bound
+
+
+@pytest.mark.parametrize("n,b,k,d", [(3000, 904, 1280, 256), (6000, 20000, 16, 2), (7, 5, 3, 6),
+                                     (30000, 38912, 8, 256), (1, 9, 4, 256)])
+def test_bwd_scratch_bytes_holds_the_plan(n, b, k, d):
+    """The scratch of the any-K backward: none at K = 4 and 8; else a scale
+    a destination row, three ints a table row and one more, a flag a chunk
+    slot, then a 16-byte aligned f32 partial row a chunk slot."""
+    nbytes = gm.bwd_scratch_bytes(n, b, k, d)
+    if k in (4, 8):
+        assert nbytes == 0
+        return
+    slots = gm.chunk_slots(b, k, n)
+    assert slots == n + -(-b * k // gm.CHUNK)
+    partial = nbytes - 4 * slots * d
+    assert partial % 16 == 0 and 0 <= partial - 4 * (b + 3 * n + 1 + slots) < 16
