@@ -1363,8 +1363,7 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
                                    (buys_u, buys_i), k, device=dev)
         sync(dev)
         report["metrics_s"] = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in
-                    (tm.mips_topk, tm.mips_lse, tm.mips_boost, tm.mips_topk_boosted)}
+        launches = {fn.__name__: fn.launches for fn in (tm.mips_topk, tm.mips_lse, tm.mips_boost)}
         report["request_breakdown_s"] = request_breakdown(
             run_dir, dev, rng.choice(num_users, request_sizes[-1], replace=False), k)
     report.update(requests=latencies, launches=launches,

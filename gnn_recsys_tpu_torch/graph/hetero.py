@@ -16,6 +16,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from gnn_recsys_tpu_torch.utils.profiling import to_device
+
 # A canonical edge type, e.g. ("user", "buys", "item").
 CanonicalEtype = Tuple[str, str, str]
 
@@ -59,13 +61,13 @@ class Relation:
 
     def to(self, device) -> "Relation":
         def opt(t):
-            return None if t is None else t.to(device)
+            return None if t is None else to_device(t, device)
 
         return Relation(
-            src=self.src.to(device), dst=self.dst.to(device),
-            nbr=self.nbr.to(device), nbr_eid=self.nbr_eid.to(device),
-            nbr_mask=self.nbr_mask.to(device), deg=self.deg.to(device),
-            edata={k: v.to(device) for k, v in self.edata.items()},
+            src=to_device(self.src, device), dst=to_device(self.dst, device),
+            nbr=to_device(self.nbr, device), nbr_eid=to_device(self.nbr_eid, device),
+            nbr_mask=to_device(self.nbr_mask, device), deg=to_device(self.deg, device),
+            edata={k: to_device(v, device) for k, v in self.edata.items()},
             eid_pos=opt(self.eid_pos), nbr_feat=opt(self.nbr_feat),
         )
 
@@ -108,7 +110,7 @@ class HeteroGraph:
     def to(self, device) -> "HeteroGraph":
         return HeteroGraph(
             rels={et: rel.to(device) for et, rel in self.rels.items()},
-            ndata={nt: {k: v.to(device) for k, v in f.items()}
+            ndata={nt: {k: to_device(v, device) for k, v in f.items()}
                    for nt, f in self.ndata.items()},
             num_nodes_tuple=self.num_nodes_tuple,
         )

@@ -26,6 +26,7 @@ from gnn_recsys_tpu_torch.retrieval.recs import get_recs, model_score_fn
 from gnn_recsys_tpu_torch.retrieval.sharded import catalog_axis, get_recs_sharded
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config
 from gnn_recsys_tpu_torch.train.minibatch import infer_embeddings
+from gnn_recsys_tpu_torch.utils.profiling import span, to_device
 
 
 def _pairs(id_map, new_col: str) -> Tuple[list, list]:
@@ -90,6 +91,14 @@ def inference_ondemand(
     (``HyperParams.serve_with_popularity_boost``); pass True/False to
     override.
 
+    Each request that returns adds one to ``inference_ondemand.requests``
+    (the caller resets it).  Spans (:func:`~gnn_recsys_tpu_torch.utils.
+    profiling.span`): ``gnn.serve.request`` around the whole request, and
+    inside it ``load_run``'s, ``gnn.serve.build`` (the model and its
+    parameters' copy), ``gnn.serve.embed``, ``gnn.serve.bought_table``,
+    ``gnn.serve.rank`` and ``gnn.serve.to_host`` (the wait for the ranking,
+    and the id maps).
+
     ``mesh``: serve over the devices of a
     :class:`~gnn_recsys_tpu_torch.parallel.mesh.Mesh` (``inference.py:
     159-175``): the sampled-tree embedding pass data-parallel over every
@@ -99,66 +108,78 @@ def inference_ondemand(
     sharded pass's embeddings are the full-graph pass's summed in another
     order.  ``device`` must then be of the mesh's device type.
     """
-    dev = torch.device(device)
-    if mesh is not None:
-        if mesh.first_device.type != dev.type:
-            raise ValueError(f"device={device!r}, but the mesh's devices are "
-                             f"{mesh.first_device.type}")
-        dev = mesh.first_device
-    run = load_run(run_dir)
-    graph = run["graph"]
-    id_maps = run["id_maps"] or {}
-    if graph is None and rebuild_dataframes is not None:
-        from gnn_recsys_tpu_torch.data.etl import GraphData
+    with span("gnn.serve.request"):
+        dev = torch.device(device)
+        if mesh is not None:
+            if mesh.first_device.type != dev.type:
+                raise ValueError(f"device={device!r}, but the mesh's devices are "
+                                 f"{mesh.first_device.type}")
+            dev = mesh.first_device
+        run = load_run(run_dir)
+        graph = run["graph"]
+        id_maps = run["id_maps"] or {}
+        if graph is None and rebuild_dataframes is not None:
+            from gnn_recsys_tpu_torch.data.etl import GraphData
 
-        gd = GraphData.from_dataframes(FixedParams(**(run["fixed_params"] or {})),
-                                       **rebuild_dataframes)
-        graph = gd.graph
-        id_maps = {"ctm_id": gd.ctm_id, "pdt_id": gd.pdt_id, "spt_id": gd.spt_id}
-    if graph is None:
-        raise FileNotFoundError(f"{run_dir}/graph.npz missing (pass rebuild_dataframes to "
-                                f"rebuild it from the raw data)")
-    ctm_id_df = id_maps.get("ctm_id")
-    pdt_id_df = id_maps.get("pdt_id")
+            gd = GraphData.from_dataframes(FixedParams(**(run["fixed_params"] or {})),
+                                           **rebuild_dataframes)
+            graph = gd.graph
+            id_maps = {"ctm_id": gd.ctm_id, "pdt_id": gd.pdt_id, "spt_id": gd.spt_id}
+        if graph is None:
+            raise FileNotFoundError(f"{run_dir}/graph.npz missing (pass rebuild_dataframes to "
+                                    f"rebuild it from the raw data)")
+        ctm_id_df = id_maps.get("ctm_id")
+        pdt_id_df = id_maps.get("pdt_id")
 
-    model = ConvModel(**model_kwargs_to_config(run["model_kwargs"]))
-    model.load_state_dict(run["params"])
-    model.to(dev)
+        with span("gnn.serve.build"):
+            model = ConvModel(**model_kwargs_to_config(run["model_kwargs"]))
+            model.load_state_dict(run["params"])
+            to_device(model, dev)
 
-    if isinstance(user_ids, str) and user_ids == "all":
-        user_node_ids = np.arange(graph.num_nodes("user"), dtype=np.int32)
-    elif ctm_id_df is not None:
-        user_node_ids = fetch_uids(user_ids, ctm_id_df)
-    else:
-        user_node_ids = np.asarray(user_ids, dtype=np.int32)
+        if isinstance(user_ids, str) and user_ids == "all":
+            user_node_ids = np.arange(graph.num_nodes("user"), dtype=np.int32)
+        elif ctm_id_df is not None:
+            user_node_ids = fetch_uids(user_ids, ctm_id_df)
+        else:
+            user_node_ids = np.asarray(user_ids, dtype=np.int32)
 
-    features = {nt: graph.ndata[nt]["features"] for nt in graph.ntypes}
-    h = infer_embeddings(model, graph, features, mode=inference_mode,
-                         node_batch_size=node_batch_size, ntypes=("user", "item"), device=dev,
-                         mesh=mesh)
+        with span("gnn.serve.embed"):
+            features = {nt: graph.ndata[nt]["features"] for nt in graph.ntypes}
+            h = infer_embeddings(model, graph, features, mode=inference_mode,
+                                 node_batch_size=node_batch_size, ntypes=("user", "item"),
+                                 device=dev, mesh=mesh)
 
-    already: Optional[PaddedPairSet] = None
-    if remove_already_bought:
-        ab_u, ab_i = already_bought_from_graph(graph)
-        already = build_padded_pair_set(ab_u, ab_i, num_src=graph.num_nodes("user"))
-    if use_popularity is None:
-        hp_dict = run["hyper_params"] or {}
-        known = {f.name for f in dataclasses.fields(HyperParams)}
-        hyper = HyperParams(**{k: v for k, v in hp_dict.items() if k in known})
-        use_popularity = hyper.serve_with_popularity_boost
-    popularity = None
-    if use_popularity and "popularity" in graph.ndata.get("item", {}):
-        popularity = graph.ndata["item"]["popularity"].reshape(-1)
+        already: Optional[PaddedPairSet] = None
+        if remove_already_bought:
+            with span("gnn.serve.bought_table"):
+                ab_u, ab_i = already_bought_from_graph(graph)
+                already = build_padded_pair_set(ab_u, ab_i, num_src=graph.num_nodes("user"))
+        if use_popularity is None:
+            hp_dict = run["hyper_params"] or {}
+            known = {f.name for f in dataclasses.fields(HyperParams)}
+            hyper = HyperParams(**{k: v for k, v in hp_dict.items() if k in known})
+            use_popularity = hyper.serve_with_popularity_boost
+        popularity = None
+        if use_popularity and "popularity" in graph.ndata.get("item", {}):
+            popularity = graph.ndata["item"]["popularity"].reshape(-1)
 
-    route = dict(already_bought=already, remove_already_bought=remove_already_bought,
-                 score_fn=model_score_fn(model.pred, model), popularity=popularity,
-                 weight_popularity=weight_popularity, backend="auto")
-    if mesh is not None:
-        recs = get_recs_sharded(mesh, h["user"], h["item"], user_node_ids, k,
-                                axis=catalog_axis(mesh), **route)
-    else:
-        recs = get_recs(h["user"], h["item"], user_node_ids, k, device=dev, **route)
-    recs = recs.cpu().numpy()
-    if pdt_id_df is not None and ctm_id_df is not None:
-        return postprocess_recs(recs, user_node_ids, pdt_id_df, ctm_id_df)
-    return {int(u): row.tolist() for u, row in zip(user_node_ids, recs)}
+        with span("gnn.serve.rank"):
+            route = dict(already_bought=already, remove_already_bought=remove_already_bought,
+                         score_fn=model_score_fn(model.pred, model), popularity=popularity,
+                         weight_popularity=weight_popularity, backend="auto")
+            if mesh is not None:
+                recs = get_recs_sharded(mesh, h["user"], h["item"], user_node_ids, k,
+                                        axis=catalog_axis(mesh), **route)
+            else:
+                recs = get_recs(h["user"], h["item"], user_node_ids, k, device=dev, **route)
+        with span("gnn.serve.to_host"):
+            recs = recs.cpu().numpy()
+            if pdt_id_df is not None and ctm_id_df is not None:
+                out = postprocess_recs(recs, user_node_ids, pdt_id_df, ctm_id_df)
+            else:
+                out = {int(u): row.tolist() for u, row in zip(user_node_ids, recs)}
+    inference_ondemand.requests += 1
+    return out
+
+
+inference_ondemand.requests = 0

@@ -141,5 +141,5 @@ def launch_counters() -> Dict[str, object]:
 
     fns = (leaf_agg.leaf_mean_nn_fwd, leaf_agg.leaf_mean_nn_bwd, pool_mask.pool_membership_mask,
            gather_mean.gather_mean_fwd, gather_mean.gather_mean_bwd, topk_mips.mips_topk,
-           topk_mips.mips_lse, topk_mips.mips_boost, topk_mips.mips_topk_boosted)
+           topk_mips.mips_lse, topk_mips.mips_boost)
     return {fn.__name__: fn for fn in fns}

@@ -18,7 +18,8 @@ version selects with a stable descending sort; ``torch.topk`` does not
 promise that order.  A wrapper takes the plain version only when its tensors
 lie on the CPU; for CUDA tensors it launches the kernel or raises (at any
 width: :func:`kernel_inputs` zero-pads it to a multiple of 4).  Each wrapper
-counts its launches in a plain integer attribute ``.launches``.
+of a kernel counts its launches in a plain integer attribute ``.launches``;
+:func:`mips_topk_boosted` launches none of its own (its passes count).
 """
 
 from __future__ import annotations
@@ -378,15 +379,9 @@ def mips_topk_boosted(user_emb: torch.Tensor, item_emb: torch.Tensor,
         return mips_topk_boosted_reference(user_emb, item_emb, popularity, k,
                                            weight=weight, bf16=bf16)
     m, s = mips_lse(user_emb, item_emb, bf16=bf16)
-    out = mips_boost(user_emb, item_emb, popularity, m, s, k, weight=weight,
-                     bf16=bf16)
-    mips_topk_boosted.launches += 1
-    return out
-
-
-mips_topk_boosted.launches = 0
+    return mips_boost(user_emb, item_emb, popularity, m, s, k, weight=weight, bf16=bf16)
 
 
 def reset_launch_counts() -> None:
-    for fn in (mips_topk, mips_lse, mips_boost, mips_topk_boosted):
+    for fn in (mips_topk, mips_lse, mips_boost):
         fn.launches = 0

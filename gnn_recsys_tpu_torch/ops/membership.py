@@ -16,6 +16,7 @@ import torch
 
 from gnn_recsys_tpu_torch.graph.hetero import coo_to_padded_csc
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask
+from gnn_recsys_tpu_torch.utils.profiling import to_device
 
 
 @dataclasses.dataclass
@@ -30,7 +31,7 @@ class PaddedPairSet:
         return self.rows.shape[1]
 
     def to(self, device) -> "PaddedPairSet":
-        return PaddedPairSet(rows=self.rows.to(device), num_src=self.num_src)
+        return PaddedPairSet(rows=to_device(self.rows, device), num_src=self.num_src)
 
 
 def build_padded_pair_set(src, dst, num_src: int,

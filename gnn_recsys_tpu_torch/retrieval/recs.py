@@ -43,6 +43,7 @@ from gnn_recsys_tpu_torch.ops.membership import (
     pair_set_contains,
     scatter_row_mask,
 )
+from gnn_recsys_tpu_torch.utils.profiling import to_device
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # ([C,D],[I,D]) -> [C,I]
 
@@ -119,8 +120,8 @@ def resolve_device(device, like) -> torch.device:
 def as_device_tensor(x, dtype, dev) -> torch.Tensor:
     """``x`` (tensor or array-like) as a ``dtype`` tensor on ``dev``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        return to_device(x, dev).to(dtype)
+    return to_device(torch.as_tensor(np.asarray(x), dtype=dtype), dev)
 
 
 def get_recs(

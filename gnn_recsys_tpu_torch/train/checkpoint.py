@@ -28,6 +28,7 @@ from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph
 from gnn_recsys_tpu_torch.graph.serialize import load_graph, save_graph
 from gnn_recsys_tpu_torch.models.convert import params_from_jax, params_to_jax
 from gnn_recsys_tpu_torch.train.full_batch import TrainState
+from gnn_recsys_tpu_torch.utils.profiling import span
 
 PARAMS_FILE = "params.npz"
 
@@ -124,33 +125,41 @@ def load_run(out_dir: str) -> Dict[str, Any]:
     fixed_params, hyper_params, graph, id_maps, extras (None when absent).
     The port's id maps are dicts of numpy columns; a JAX package's run
     holds pandas DataFrames, which need pandas to unpickle.
+
+    Spans (:func:`~gnn_recsys_tpu_torch.utils.profiling.span`):
+    ``gnn.load_run`` around the whole read, and inside it
+    ``gnn.load_run.params``, ``.graph`` and ``.pickles``.
     """
-    ppath = os.path.join(out_dir, PARAMS_FILE)
-    if not os.path.exists(ppath):
-        if os.path.isdir(os.path.join(out_dir, "params")):
-            raise ValueError(
-                f"{out_dir} holds orbax parameters (params/), which the PyTorch "
-                f"port cannot read; re-save the run with {PARAMS_FILE}"
-            )
-        raise FileNotFoundError(ppath)
-    out: Dict[str, Any] = {"params": load_params(ppath)}
-    with open(os.path.join(out_dir, "model.json")) as f:
-        out["model_kwargs"] = json.load(f)
-    for name in ("fixed_params", "hyper_params"):
-        p = os.path.join(out_dir, f"{name}.json")
-        out[name] = None
-        if os.path.exists(p):
-            with open(p) as f:
-                out[name] = json.load(f)
-    gpath = os.path.join(out_dir, "graph.npz")
-    out["graph"] = load_graph(gpath) if os.path.exists(gpath) else None
-    for name in ("id_maps", "extras"):
-        p = os.path.join(out_dir, f"{name}.pkl")
-        out[name] = None
-        if os.path.exists(p):
-            with open(p, "rb") as f:
-                out[name] = pickle.load(f)
-    return out
+    with span("gnn.load_run"):
+        ppath = os.path.join(out_dir, PARAMS_FILE)
+        if not os.path.exists(ppath):
+            if os.path.isdir(os.path.join(out_dir, "params")):
+                raise ValueError(
+                    f"{out_dir} holds orbax parameters (params/), which the PyTorch "
+                    f"port cannot read; re-save the run with {PARAMS_FILE}"
+                )
+            raise FileNotFoundError(ppath)
+        with span("gnn.load_run.params"):
+            out: Dict[str, Any] = {"params": load_params(ppath)}
+        with open(os.path.join(out_dir, "model.json")) as f:
+            out["model_kwargs"] = json.load(f)
+        for name in ("fixed_params", "hyper_params"):
+            p = os.path.join(out_dir, f"{name}.json")
+            out[name] = None
+            if os.path.exists(p):
+                with open(p) as f:
+                    out[name] = json.load(f)
+        gpath = os.path.join(out_dir, "graph.npz")
+        with span("gnn.load_run.graph"):
+            out["graph"] = load_graph(gpath) if os.path.exists(gpath) else None
+        with span("gnn.load_run.pickles"):
+            for name in ("id_maps", "extras"):
+                p = os.path.join(out_dir, f"{name}.pkl")
+                out[name] = None
+                if os.path.exists(p):
+                    with open(p, "rb") as f:
+                        out[name] = pickle.load(f)
+        return out
 
 
 def model_kwargs_to_config(model_kwargs: Dict[str, Any]) -> Dict[str, Any]:

@@ -32,6 +32,7 @@ from gnn_recsys_tpu_torch.ops.negative import uniform_negative_dst
 from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import model_score_fn
+from gnn_recsys_tpu_torch.utils.profiling import to_device
 
 
 @dataclasses.dataclass
@@ -132,7 +133,7 @@ def compute_embeddings(
     """
     dev = torch.device(device) if device is not None else next(iter(features.values())).device
     graph = graph.to(dev)
-    features = {nt: x.to(dev) for nt, x in features.items()}
+    features = {nt: to_device(x, dev) for nt, x in features.items()}
     was_training = model.training
     model.eval()
     try:

@@ -26,8 +26,12 @@ capture follows PyTorch's whole-network pattern:
 A replay calls no Python wrapper, so the wrappers' launch counters
 (``ops/cuda/build.py:launch_counters``) would not see the kernels it runs:
 the launches made during capture are taken off the counters and kept as
-:attr:`CapturedStep.launches`, which each replay adds back.  A failed
-capture or replay raises; nothing falls back to the host loop.
+:attr:`CapturedStep.launches`, which each replay adds back.  For the same
+reason the program's spans stay outside the captured body: a capture and
+its warm-up steps run in a ``gnn.train.capture`` span, each replay (its
+host part: the learning rates, the launch, Adam's host half, the counts)
+in a ``gnn.train.replay`` span.  A failed capture or replay raises;
+nothing falls back to the host loop.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 from gnn_recsys_tpu_torch.ops.cuda import build
 from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.train.full_batch import TrainState
+from gnn_recsys_tpu_torch.utils.profiling import span
 
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
@@ -142,7 +147,8 @@ class CapturedStep:
         dev = draws.generator.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
-        with torch.cuda.device(dev):  # the capture and its streams on the generator's card
+        # The capture and its streams on the generator's card.
+        with span("gnn.train.capture"), torch.cuda.device(dev):
             self._capture(body, draws, state, warmup)
 
     def _capture(self, body: Callable, draws: Draws, state: Optional[TrainState],
@@ -184,11 +190,12 @@ class CapturedStep:
     def replay(self) -> None:
         """One step: fill the learning rates, replay, then the host half of
         the update and the launch counts."""
-        if self.state is not None:
-            for lr, g in zip(self.lrs, self.state.tx.param_groups):
-                lr.fill_(g["lr"])
-        self.graph.replay()
-        if self.state is not None:
-            self.state.advance()
-        for name, n in self.launches.items():
-            self._counters[name].launches += n
+        with span("gnn.train.replay"):
+            if self.state is not None:
+                for lr, g in zip(self.lrs, self.state.tx.param_groups):
+                    lr.fill_(g["lr"])
+            self.graph.replay()
+            if self.state is not None:
+                self.state.advance()
+            for name, n in self.launches.items():
+                self._counters[name].launches += n

@@ -49,7 +49,8 @@ from gnn_recsys_tpu_torch.retrieval.metrics import get_metrics_at_k
 from gnn_recsys_tpu_torch.retrieval.recs import model_score_fn
 from gnn_recsys_tpu_torch.retrieval.sharded import infer_embeddings_sharded
 from gnn_recsys_tpu_torch.train.full_batch import TrainState, compute_embeddings, init_model
-from gnn_recsys_tpu_torch.utils.profiling import ThroughputMeter, profiler_trace
+from gnn_recsys_tpu_torch.utils.profiling import (ThroughputMeter, profiler_trace, span,
+                                                 to_device)
 
 # Reference reverse-etype names (src/utils_data.py:96-99).
 REVERSE_NAMES = {
@@ -341,6 +342,11 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
     draws too).  ``chunk_fn.captured`` is the :class:`CapturedStep`, once
     made.  A captured chunk takes at most an epoch's steps.
 
+    Spans (:func:`~gnn_recsys_tpu_torch.utils.profiling.span`):
+    ``gnn.train.permutation`` around ``perm_fn``, ``gnn.train.chunk``
+    around ``chunk_fn`` (either route); none inside the step, which a graph
+    would capture and its replays never run.
+
     ``mesh``: each step is :func:`~gnn_recsys_tpu_torch.parallel.sharded.
     make_gspmd_minibatch_step`'s over the mesh's data axis, the slice widths
     rounded up to the data extent (``minibatch.py:396-410``); the batch is
@@ -364,14 +370,15 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
     static: Dict = {}  # the captured route's buffers and inputs
 
     def perm_fn(eids, generator):
-        perms = {et: eids[et][torch.randperm(eids[et].shape[0], generator=generator,
-                                             device=eids[et].device)]
-                 for et in train_etypes}
-        if static:  # straight into the graph's buffers
-            for et in train_etypes:
-                static["perms"][et].copy_(perms[et])
-            return static["perms"]
-        return perms
+        with span("gnn.train.permutation"):
+            perms = {et: eids[et][torch.randperm(eids[et].shape[0], generator=generator,
+                                                 device=eids[et].device)]
+                     for et in train_etypes}
+            if static:  # straight into the graph's buffers
+                for et in train_etypes:
+                    static["perms"][et].copy_(perms[et])
+                return static["perms"]
+            return perms
 
     def batch_at(store, perms, t):
         """Step ``t``'s batch (``t`` an int or a 0-d device tensor)."""
@@ -407,38 +414,39 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
         chunk_ref().captured = static["step"]
 
     def chunk_fn(state, graph, features, edge_tables, store, perms, t0, draws, n_steps: int):
-        on_graph = capture
-        if on_graph is None:
-            on_graph = isinstance(draws, Draws) and draws.device.type == "cuda"
-        if not on_graph:
-            losses = []
-            for i in range(n_steps):
-                _, loss = step(state, graph, features, batch_at(store, perms, t0 + i),
-                               edge_tables, draws)
-                losses.append(loss)
-            return state, torch.stack(losses)
-        if not isinstance(draws, Draws):
-            raise ValueError("a captured step draws from a torch.Generator (Draws), "
-                             f"not {type(draws).__name__}")
-        if not static:
-            capture_step(state, graph, features, edge_tables, store, perms, draws)
-        if any(a is not b for a, b in zip(static["inputs"],
-                                          (state, graph, features, edge_tables, store))):
-            raise ValueError("a captured step replays on the inputs it was captured with")
-        if draws.generator is not static["step"].generator:
-            raise ValueError("a captured step replays with the generator it was captured with")
-        for et in train_etypes:
-            if perms[et] is not static["perms"][et]:
-                static["perms"][et].copy_(perms[et])
-        if n_steps > n_batches:
-            raise ValueError(f"a captured chunk takes at most the epoch's {n_batches} steps, "
-                             f"not {n_steps}")
-        static["t"].fill_(t0)
-        for _ in range(n_steps):
-            static["step"].replay()
-        # Step t wrote its loss at t % n_batches.
-        pos = torch.arange(t0, t0 + n_steps, device=static["t"].device) % n_batches
-        return state, static["losses"][pos]
+        with span("gnn.train.chunk"):
+            on_graph = capture
+            if on_graph is None:
+                on_graph = isinstance(draws, Draws) and draws.device.type == "cuda"
+            if not on_graph:
+                losses = []
+                for i in range(n_steps):
+                    _, loss = step(state, graph, features, batch_at(store, perms, t0 + i),
+                                   edge_tables, draws)
+                    losses.append(loss)
+                return state, torch.stack(losses)
+            if not isinstance(draws, Draws):
+                raise ValueError("a captured step draws from a torch.Generator (Draws), "
+                                 f"not {type(draws).__name__}")
+            if not static:
+                capture_step(state, graph, features, edge_tables, store, perms, draws)
+            if any(a is not b for a, b in zip(static["inputs"],
+                                              (state, graph, features, edge_tables, store))):
+                raise ValueError("a captured step replays on the inputs it was captured with")
+            if draws.generator is not static["step"].generator:
+                raise ValueError("a captured step replays with the generator it was captured with")
+            for et in train_etypes:
+                if perms[et] is not static["perms"][et]:
+                    static["perms"][et].copy_(perms[et])
+            if n_steps > n_batches:
+                raise ValueError(f"a captured chunk takes at most the epoch's {n_batches} steps, "
+                                 f"not {n_steps}")
+            static["t"].fill_(t0)
+            for _ in range(n_steps):
+                static["step"].replay()
+            # Step t wrote its loss at t % n_batches.
+            pos = torch.arange(t0, t0 + n_steps, device=static["t"].device) % n_batches
+            return state, static["losses"][pos]
 
     chunk_fn.captured = None
     # A weak reference: a cycle between the two closures would keep the
@@ -488,7 +496,7 @@ def compute_embeddings_minibatch(model: ConvModel, graph: HeteroGraph,
     if ids is None:
         ids = {nt: torch.arange(graph.num_nodes(nt)) for nt in ntypes or graph.ntypes}
     graph = graph.to(dev)
-    features = {nt: x.to(dev) for nt, x in features.items()}
+    features = {nt: to_device(x, dev) for nt, x in features.items()}
     draws = Draws(torch.Generator(device=dev).manual_seed(seed))
     was_training = model.training
     model.eval()

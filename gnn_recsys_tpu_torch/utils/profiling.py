@@ -1,5 +1,6 @@
-"""Profiling and throughput: a ``torch.profiler`` trace context and an
-edges-a-second meter (port of ``gnn_recsys_tpu/utils/profiling.py``)."""
+"""Profiling and throughput: a ``torch.profiler`` trace context, the
+program's spans and its host-to-device byte counter, and an edges-a-second
+meter (port of ``gnn_recsys_tpu/utils/profiling.py``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,47 @@ def profiler_trace(logdir: Optional[str]):
         yield
     prof.export_chrome_trace(
         os.path.join(logdir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+
+
+# What a span is while no profiler records: one shared context that does
+# nothing (``nullcontext`` can be entered again and again).
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host span called ``name`` around a ``with`` block: the block in a
+    ``torch.profiler.record_function`` while a profiler records, and
+    nothing at all otherwise (one check of the profiler's flag; no clock
+    read, no object made).  The profiler is the only switch: a span is on
+    in any ``torch.profiler`` window, :func:`profiler_trace`'s included,
+    and off in a profiler's warm-up cycle.
+
+    Spans land in the profiler's timeline beside the device's kernel and
+    copy records, on one clock, and the profiler keeps them in memory until
+    its exporter writes them out.  A span's parent is the span around it on
+    the same thread: every span of one serving request lies inside that
+    request's ``gnn.serve.request``.  That containment stands in for a
+    request id, which a span cannot carry: the Chrome trace exporter drops
+    ``record_function``'s arguments."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def to_device(x, device):
+    """``x.to(device)`` for a tensor or a module, counting in
+    ``to_device.h2d_bytes`` the bytes that leave host memory for another
+    device: a tensor's ``nbytes`` (a module's parameters' and buffers')
+    where it is on the CPU and ``device`` is not.  What is already on
+    ``device``, or moves between devices, adds nothing.  The counter
+    always counts; a caller that wants a fresh count resets it."""
+    if torch.device(device).type != "cpu":
+        held = [x] if isinstance(x, torch.Tensor) else [*x.parameters(), *x.buffers()]
+        to_device.h2d_bytes += sum(t.nbytes for t in held if t.device.type == "cpu")
+    return x.to(device)
+
+
+to_device.h2d_bytes = 0
 
 
 class ThroughputMeter:
