@@ -2,6 +2,8 @@
 JAX package: the same seed gives the same arrays, and files cross over."""
 
 import os
+import warnings
+import zipfile
 
 import numpy as np
 import pytest
@@ -13,7 +15,7 @@ from gnn_recsys_tpu.graph.serialize import save_graph as jsave_graph
 from gnn_recsys_tpu.ops.membership import build_padded_pair_set as jbuild_pairs
 from gnn_recsys_tpu.utils.synthetic import make_synthetic_data as jmake
 from gnn_recsys_tpu_torch.graph import hetero as thetero
-from gnn_recsys_tpu_torch.graph.serialize import load_graph, save_graph
+from gnn_recsys_tpu_torch.graph.serialize import _read_npz, load_graph, save_graph
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set
 from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 
@@ -74,6 +76,97 @@ def test_jax_graph_file_loads_in_port_and_back(tmp_path):
     tpath = os.path.join(tmp_path, "port.npz")
     save_graph(tg, tpath)
     assert_graphs_equal(jload_graph(tpath), tg)
+
+
+def _members(path):
+    with zipfile.ZipFile(path) as zf:
+        return zf.infolist()
+
+
+def _load_counted(path, monkeypatch):
+    """``load_graph(path)`` with its counters reset and every warning an
+    error; returns the graph and the counters."""
+    monkeypatch.setattr(load_graph, "stored_bytes", 0)
+    monkeypatch.setattr(load_graph, "inflated_bytes", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        g = load_graph(path)
+    return g, load_graph.stored_bytes, load_graph.inflated_bytes
+
+
+def _assert_writable(g):
+    for rel in g.rels.values():
+        for name in REL_ARRAYS:
+            assert getattr(rel, name).numpy().flags.writeable, name
+        assert all(t.numpy().flags.writeable for t in rel.edata.values())
+    assert all(t.numpy().flags.writeable for f in g.ndata.values() for t in f.values())
+
+
+def test_port_graph_file_is_stored_and_loads_in_both(tmp_path, monkeypatch):
+    tg = make_synthetic_data(num_users=40, num_items=25, seed=7, with_sports=True).graph
+    path = os.path.join(tmp_path, "graph.npz")
+    save_graph(tg, path)
+    members = _members(path)
+    assert {m.compress_type for m in members} == {zipfile.ZIP_STORED}
+    assert_graphs_equal(jload_graph(path), tg)
+    loaded, stored, inflated = _load_counted(path, monkeypatch)
+    assert_graphs_equal(tg, loaded)
+    assert (stored, inflated) == (sum(m.file_size for m in members), 0)
+    _assert_writable(loaded)
+
+
+def _old_port_file(graph, path):
+    """The graph as old port writers left it: deflated, ``nbr`` padded with
+    0, no ``eid_pos``."""
+    save_graph(graph, path)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if not k.endswith("\x1feid_pos")}
+    for k in [k for k in arrays if k.endswith("\x1fnbr")]:
+        arrays[k] = np.where(arrays[k[:-3] + "nbr_mask"], arrays[k], 0).astype(np.int32)
+    np.savez_compressed(path, **arrays)
+
+
+@pytest.mark.parametrize("writer", ["jax", "old_port"])
+def test_deflated_graph_file_loads_through_inflating_path(writer, tmp_path, monkeypatch):
+    kw = dict(num_users=40, num_items=25, seed=8, with_sports=True)
+    path = os.path.join(tmp_path, "graph.npz")
+    if writer == "jax":
+        expected = jmake(**kw).graph
+        jsave_graph(expected, path)
+    else:
+        expected = make_synthetic_data(**kw).graph
+        _old_port_file(expected, path)
+        assert any((expected.rels[et].nbr != -1).any() for et in expected.rels)
+    members = _members(path)
+    assert zipfile.ZIP_DEFLATED in {m.compress_type for m in members}
+    loaded, stored, inflated = _load_counted(path, monkeypatch)
+    assert_graphs_equal(expected, loaded)
+    assert stored + inflated == sum(m.file_size for m in members)
+    assert inflated == sum(m.file_size for m in members
+                           if m.compress_type == zipfile.ZIP_DEFLATED)
+    _assert_writable(loaded)
+
+
+@pytest.mark.parametrize("save", [np.savez, np.savez_compressed])
+def test_read_npz_members_equal_np_load(save, tmp_path):
+    rng = np.random.default_rng(9)
+    arrays = {
+        "i32": rng.integers(-5, 5, (7, 3)).astype(np.int32),
+        "i64": rng.integers(-5, 5, 11).astype(np.int64),
+        "f16": rng.standard_normal((2, 3, 4)).astype(np.float16),
+        "mask": rng.random((5, 4)) < 0.5,
+        "fortran": np.asfortranarray(rng.standard_normal((4, 6)).astype(np.float32)),
+        "scalar": np.float64(2.5),
+        "empty": np.zeros((0, 3), np.int32),
+        "odd": np.arange(3, dtype=np.uint8),  # the next member starts unaligned
+    }
+    path = os.path.join(tmp_path, "a.npz")
+    save(path, **arrays)
+    got = _read_npz(path)
+    assert sorted(got) == sorted(arrays)
+    for k, a in arrays.items():
+        assert got[k].dtype == a.dtype and got[k].flags.writeable, k
+        np.testing.assert_array_equal(got[k], a, err_msg=k)
 
 
 def test_graph_to_device_keeps_arrays():
