@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gnn_recsys_tpu_torch.utils.profiling import span
+
 AGGREGATOR_TYPES = (
     "mean",
     "mean_nn",
@@ -174,7 +176,17 @@ class MaskedLSTMReducer(nn.Module):
 
     The K steps are a Python loop of static length with no host sync, so a
     CUDA graph captures it.  cuDNN's LSTM is not used: it assumes the valid
-    slots form a prefix, and the sampled tree's exclusion leaves holes."""
+    slots form a prefix, and the sampled tree's exclusion leaves holes.
+
+    Each call runs in a ``gnn.lstm.reduce`` span and counts, in plain
+    integers on the class that the caller resets, its cell updates
+    (``slot_steps``: K a call) and its rows times slots (``row_slots``: N K).
+    A captured step counts them once, at capture; its replays add them back
+    (``train/graph_step.py``)."""
+
+    COUNTERS = ("slot_steps", "row_slots")
+    slot_steps = 0
+    row_slots = 0
 
     def __init__(self, in_feats: int, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -192,18 +204,21 @@ class MaskedLSTMReducer(nn.Module):
 
     def forward(self, msgs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """msgs [N, K, D], mask [N, K] bool -> the final h [N, H]."""
-        n = msgs.shape[0]
-        c = msgs.new_zeros((n, self.features))
-        h = msgs.new_zeros((n, self.features))
-        # One slot a step; the input product too, so that no [K, N, 4H]
-        # tensor is ever held (``unbind``'s backward stacks the slots once).
-        for x, m in zip(msgs.unbind(1), mask.unbind(1)):
-            gates = dense(self.ih, x, self.dtype) + dense(self.hh, h, self.dtype)
-            i, f, g, o = gates.chunk(4, dim=-1)
-            c_new = gate_sigmoid(f) * c + gate_sigmoid(i) * torch.tanh(g)
-            h_new = gate_sigmoid(o) * torch.tanh(c_new)
-            m = m[:, None]
-            c, h = torch.where(m, c_new, c), torch.where(m, h_new, h)
+        n, k = msgs.shape[:2]
+        MaskedLSTMReducer.slot_steps += k
+        MaskedLSTMReducer.row_slots += n * k
+        with span("gnn.lstm.reduce"):
+            c = msgs.new_zeros((n, self.features))
+            h = msgs.new_zeros((n, self.features))
+            # One slot a step; the input product too, so that no [K, N, 4H]
+            # tensor is ever held (``unbind``'s backward stacks the slots once).
+            for x, m in zip(msgs.unbind(1), mask.unbind(1)):
+                gates = dense(self.ih, x, self.dtype) + dense(self.hh, h, self.dtype)
+                i, f, g, o = gates.chunk(4, dim=-1)
+                c_new = gate_sigmoid(f) * c + gate_sigmoid(i) * torch.tanh(g)
+                h_new = gate_sigmoid(o) * torch.tanh(c_new)
+                m = m[:, None]
+                c, h = torch.where(m, c_new, c), torch.where(m, h_new, h)
         return h
 
 

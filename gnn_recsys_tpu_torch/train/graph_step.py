@@ -26,7 +26,9 @@ capture follows PyTorch's whole-network pattern:
 A replay calls no Python wrapper, so the wrappers' launch counters
 (``ops/cuda/build.py:launch_counters``) would not see the kernels it runs:
 the launches made during capture are taken off the counters and kept as
-:attr:`CapturedStep.launches`, which each replay adds back.  For the same
+:attr:`CapturedStep.launches`, which each replay adds back; the LSTM
+reducer's counters (``models/layers.py:MaskedLSTMReducer.COUNTERS``) are
+carried alike, in :attr:`CapturedStep.lstm_counts`.  For the same
 reason the program's spans stay outside the captured body: a capture and
 its warm-up steps run in a ``gnn.train.capture`` span, each replay (its
 host part: the learning rates, the launch, Adam's host half, the counts)
@@ -41,6 +43,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer
 from gnn_recsys_tpu_torch.ops.cuda import build
 from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.train.full_batch import TrainState
@@ -179,6 +182,8 @@ class CapturedStep:
         torch.cuda.current_stream(dev).wait_stream(side)
         _restore(state, held)
         before = {name: fn.launches for name, fn in counters.items()}
+        lstm_before = {name: getattr(MaskedLSTMReducer, name)
+                       for name in MaskedLSTMReducer.COUNTERS}
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph, stream=_capture_stream(dev)):
@@ -186,10 +191,15 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         self.launches = take_launches(counters, before)
         self._counters = counters
+        self.lstm_counts = {name: getattr(MaskedLSTMReducer, name) - n
+                            for name, n in lstm_before.items()
+                            if getattr(MaskedLSTMReducer, name) != n}
+        for name, n in lstm_before.items():
+            setattr(MaskedLSTMReducer, name, n)
 
     def replay(self) -> None:
         """One step: fill the learning rates, replay, then the host half of
-        the update and the launch counts."""
+        the update, the launch counts and the LSTM's counts."""
         with span("gnn.train.replay"):
             if self.state is not None:
                 for lr, g in zip(self.lrs, self.state.tx.param_groups):
@@ -199,3 +209,5 @@ class CapturedStep:
                 self.state.advance()
             for name, n in self.launches.items():
                 self._counters[name].launches += n
+            for name, n in self.lstm_counts.items():
+                setattr(MaskedLSTMReducer, name, getattr(MaskedLSTMReducer, name) + n)

@@ -220,9 +220,10 @@ class _Counted:
         self.launches = n
 
 
-def test_capture_launch_accounting():
+def test_capture_launch_accounting(monkeypatch):
     """What a capture counted comes off the counters (it launched nothing)
-    and each replay adds it back: captured launches x replays."""
+    and each replay adds it back: captured launches x replays, and the
+    LSTM reducer's counts alike."""
     counters = {"leaf_mean_nn_fwd": _Counted(5), "pool_membership_mask": _Counted(1),
                 "mips_topk": _Counted(7)}
     before = {n: c.launches for n, c in counters.items()}
@@ -238,14 +239,19 @@ def test_capture_launch_accounting():
         def replay(self):
             self.replays += 1
 
+    lstm = graph_step.MaskedLSTMReducer
+    monkeypatch.setattr(lstm, "slot_steps", 3)
+    monkeypatch.setattr(lstm, "row_slots", 0)
     step = graph_step.CapturedStep.__new__(graph_step.CapturedStep)
     step.graph, step.state, step.launches, step._counters = _Graph(), None, took, counters
+    step.lstm_counts = {"slot_steps": 112, "row_slots": 1011712}
     for _ in range(7):
         step.replay()
     assert step.graph.replays == 7
     assert counters["leaf_mean_nn_fwd"].launches == 5 + 7 * 12
     assert counters["pool_membership_mask"].launches == 1 + 7 * 2
     assert counters["mips_topk"].launches == 7
+    assert (lstm.slot_steps, lstm.row_slots) == (3 + 7 * 112, 7 * 1011712)
 
 
 def test_warmup_restore_gives_a_first_update():
