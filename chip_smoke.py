@@ -49,7 +49,12 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    backward through that plan's kind of transpose (rows
    ``gather_mean_*:wide:…`` and ``gather_mean_*:bf16:wide:…``; launches: the
    drill's at K > 32 in f32, phase 10's bf16 ones in bf16, since no path runs
-   bf16 at K > 32).
+   bf16 at K > 32); the LSTM cell update's forward and backward at H = 256,
+   in f32 at N = 18,432 rows and in bf16 at each N of the bf16 LSTM step
+   (2,048, 4,608, 8,192, 18,432), bf16 within one ulp of the plain version
+   and bit-equal on 99.9% of the elements (rows ``lstm_cell_*`` and
+   ``lstm_cell_*:bf16``, timed at N = 18,432 beside PyTorch's fused LSTM
+   cell).
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -199,7 +204,9 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    pass, 20 training steps an epoch, 4 validation steps an epoch): the
    median replay (CUDA events), edges a second, peak memory, the losses
    (they must fall), the pool mask's launches (one an etype a step, the
-   captures' warm-ups included; no leaf or gather-mean launch); the eager
+   captures' warm-ups included; no leaf or gather-mean launch), the LSTM
+   cell kernels' (each K a reducer call, the backward's in training steps
+   only; the reducer's count of its cell updates 112 a step); the eager
    body against as many replays at the bf16 tolerances, 5 profiled replays
    (device time by kernel group, idle share); recall@10 after training,
    which must beat the same model's random weights'; then the run saved
@@ -214,7 +221,9 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    one state and seed, each captured and replayed 10 times: the first
    replay's loss and gradients against each other (the same bits where
    they are), each run's peak memory (remat's must be lower) and median
-   replay; then the pair at dropout 0.5 for 2 replays, checked alike.
+   replay; then the pair at dropout 0.5 for 2 replays, checked alike; the
+   cell updates of each run (remat's recompute adds some) and the LSTM cell
+   kernels' launches.
 
 Then a ``{"kernels": [...]}`` JSON line (each training kernel's row also
 gives its launches in phase 9, ``graph_launches``, ``mips_topk``'s its
@@ -222,7 +231,8 @@ launches in phase 11, ``full_batch_launches``, each kernel of phase 13 its
 launches there, ``hp_search_launches``, of phase 14, ``etl_cli_launches``,
 and the pool mask's and the three MIPS epilogues' rows their launches in
 phases 15 to 17, ``train_lstm_launches``, ``train_lstm_edge_dedup_launches``
-and, the pool mask's, ``remat_launches``; the three MIPS epilogues' and the
+and, the pool mask's, ``remat_launches``; the LSTM cell's f32 rows their
+launches in phase 16, its bf16 rows theirs in phases 15 and 17; the three MIPS epilogues' and the
 leaf forward's rows their launches in phase 4b, ``sharded_serving_launches``),
 the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -261,10 +271,11 @@ from gnn_recsys_tpu_torch.hpsearch import run_search
 from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_ondemand
 from gnn_recsys_tpu_torch.models import conv_model
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
-from gnn_recsys_tpu_torch.models.layers import l2_normalize
+from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer, l2_normalize
 from gnn_recsys_tpu_torch.ops.cuda import build
 from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
+from gnn_recsys_tpu_torch.ops.cuda import lstm_cell as lc
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, scatter_row_mask
@@ -332,6 +343,9 @@ TOL = 1e-5  # f32 sums in another order than the plain version's product
 # another order than the plain versions' (each kernel's own order is fixed).
 GRAD_REL = 1e-5
 BF16_RTOL = 2.0**-7  # one bf16 ulp: both sides round the same f32 sums
+# The LSTM cell's kernels in bf16: the plain version's roundings, in its
+# order; expf and tanhf may still part by an ulp, now and then.
+LSTM_BIT_EQUAL = 0.999
 # A bf16 step, eager against replayed from one state: the same code, whose
 # only gap is the dedup step's backward adding with atomics.  Each gradient
 # within BF16_ROUTE_GRAD_REL of its parameter's largest entry: four times the
@@ -355,6 +369,9 @@ MIPS = ("gnn_recsys_tpu_torch/csrc/topk_mips.cu", "gnn_recsys_tpu/ops/pallas/top
 LEAF = ("gnn_recsys_tpu_torch/csrc/leaf_agg.cu", "gnn_recsys_tpu/ops/pallas/leaf_agg.py")
 POOL = ("gnn_recsys_tpu_torch/csrc/pool_mask.cu", "gnn_recsys_tpu/ops/pallas/pool_mask.py")
 GATHER = ("gnn_recsys_tpu_torch/csrc/gather_mean.cu", "gnn_recsys_tpu/ops/pallas/gather_mean.py")
+# The LSTM cell replaces no Pallas kernel: its row names the JAX reducer's
+# nn.scan (gnn_recsys_tpu/models/layers.py:79).
+LSTM = ("gnn_recsys_tpu_torch/csrc/lstm_cell.cu", "gnn_recsys_tpu/models/layers.py")
 NO_YARDSTICK = "no one-call PyTorch yardstick computes this function"
 
 
@@ -558,7 +575,7 @@ def phase_build() -> dict:
     """Builds every kernel; returns the main path's instantiations' ptxas
     summary by kernels-line row."""
     t0 = time.perf_counter()
-    build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean"])
+    build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean", "lstm_cell"])
     ptxas = kernel_ptxas(build.build_info)
     say("build", seconds=time.perf_counter() - t0, info=build.build_info, ptxas=ptxas)
     return ptxas
@@ -589,11 +606,12 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                   weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
-                  gather=(38_912, 8, 30_000, 256), wide=(904, 1280, 3000, 256), timed=True,
-                  seed=0) -> list:
+                  gather=(38_912, 8, 30_000, 256), wide=(904, 1280, 3000, 256),
+                  lstm=((2048, 4608, 8192, 18_432), 256), timed=True, seed=0) -> list:
     """Each kernel against its plain version on ``dev``; returns the rows of
     the kernels line (without launches).  ``leaf`` is (K, P, F, H),
-    ``pool`` (B, K, P), ``gather`` and ``wide`` (B, K, N, D)."""
+    ``pool`` (B, K, P), ``gather`` and ``wide`` (B, K, N, D), ``lstm``
+    (the rows N of each cell update's shape, H)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ue = l2_normalize(torch.randn(num_users, dim, generator=gen, device=dev))
     ie = l2_normalize(torch.randn(num_items, dim, generator=gen, device=dev))
@@ -676,6 +694,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     pool_rows(dev, gen, record, *pool)
     gather_rows(dev, gen, record, *gather)
     wide_gather_rows(dev, record, *wide)
+    lstm_cell_rows(dev, record, *lstm, timed=timed)
     return rows
 
 
@@ -1006,6 +1025,103 @@ def plain_gather_mean(h, nbr, mask, transpose=None):
     """The block forward's plain route: the forward's plain version, which
     autograd differentiates (the transpose is not used)."""
     return gm.gather_mean_reference(h, nbr, mask)
+
+
+def lstm_cell_case(dev, n, h, dtype, seed):
+    """Random inputs of one cell update as the reducer makes them: the two
+    products and the bias in ``dtype``, a carry (c, h) with h in (-1, 1),
+    a mask with about 10% holes, and the cotangents of c' and h'."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+    xw, hw, bias = randn(n, 4 * h, scale=1.5), randn(n, 4 * h), randn(4 * h, scale=0.3)
+    c = randn(n, h, scale=1.5)
+    hh = torch.tanh(torch.randn(n, h, generator=gen, device=dev)).to(dtype)
+    mask = torch.rand(n, generator=gen, device=dev) > 0.1
+    return xw, hw, bias, c, hh, mask, randn(n, h), randn(n, h)
+
+
+def check_cell(what, pairs) -> tuple:
+    """Each (kernel, plain) output pair of an LSTM cell kernel: the same
+    dtype and shape; bf16 within one ulp on every element and the same bits
+    on ``LSTM_BIT_EQUAL`` of them or more; f32 within ``TOL``.  Returns (the
+    largest difference, the share of equal elements)."""
+    err, same, total, bf16 = 0.0, 0, 0, False
+    for got, want in pairs:
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        if not got.numel():
+            continue
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        same, total = same + int((got == want).sum()), total + got.numel()
+        if got.dtype == torch.bfloat16:
+            bf16 = True
+            ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+            far = int(((got != want) & (ulps > 1)).sum())
+            if far:
+                raise AssertionError(f"{what}: {far} elements more than one bf16 ulp apart")
+        elif not err <= TOL:
+            raise AssertionError(f"{what}: differs by {err}")
+    share = same / max(total, 1)
+    if bf16 and not share >= LSTM_BIT_EQUAL:
+        raise AssertionError(f"{what}: only {share} of the elements are the same bits")
+    return err, share
+
+
+def lstm_cell_rows(dev, record, ns, h, timed=True) -> None:
+    """The LSTM cell update's kernels against their plain versions
+    (:func:`check_cell`): in f32 (``lstm_edge``'s cell) at the largest of
+    ``ns`` rows, then in bf16 (the bench LSTM's gates and carry) at each of
+    ``ns`` (the bf16 step's 112 cell updates: 24 at N = 2,048 and at 4,608,
+    32 at 8,192 and at 18,432), a ``kernel_case`` line each (the kernel's
+    device ms with ``timed``).  The forward saves its activations, as
+    training does; it is held on c', h' and, on the valid rows, the
+    activations, and the backward on dz, dc and dh from those activations.
+    Then each dtype's rows at the largest N (``lstm_cell_*`` and
+    ``lstm_cell_*:bf16``).  The yardstick is PyTorch's fused LSTM cell
+    (``_thnn_fused_lstm_cell`` and its backward, one call each, on CUDA
+    only): no mask and one rounding, so not the same function.  The bound is
+    the least bytes at 3.35 TB/s, 8 H elements a row forward and 13 H
+    backward (``portbench/counts/lstm_cell.py``)."""
+    big = max(ns)
+    for dtype, tag, sizes in ((torch.float32, "", (big,)),
+                              (torch.bfloat16, ":bf16", tuple(sorted(ns)))):
+        errs = {"lstm_cell_fwd": (0.0, 1.0), "lstm_cell_bwd": (0.0, 1.0)}
+        for n in sizes:
+            xw, hw, bias, c, hh, mask, dh, dc = lstm_cell_case(dev, n, h, dtype, seed=n)
+            c_new, h_new, acts = lc.lstm_cell_fwd(xw, hw, bias, c, hh, mask)
+            want = lc.lstm_cell_fwd_reference(xw, hw, bias, c, hh, mask)
+            checks = {
+                "lstm_cell_fwd": check_cell(f"lstm_cell_fwd{tag} N={n}", (
+                    (c_new, want[0]), (h_new, want[1]), (acts[mask], want[2][mask]))),
+                "lstm_cell_bwd": check_cell(f"lstm_cell_bwd{tag} N={n}", tuple(zip(
+                    lc.lstm_cell_bwd(acts, c, c_new, mask, dh, dc),
+                    lc.lstm_cell_bwd_reference(acts, c, c_new, mask, dh, dc))))}
+            calls = {"lstm_cell_fwd": lambda: lc.lstm_cell_fwd(xw, hw, bias, c, hh, mask),
+                     "lstm_cell_bwd": lambda: lc.lstm_cell_bwd(acts, c, c_new, mask, dh, dc)}
+            for name, (err, share) in checks.items():
+                errs[name] = (max(errs[name][0], err), min(errs[name][1], share))
+                say("kernel_case", name=name + tag, case=f"N={n}", shape=[n, h],
+                    max_abs_err=err, bit_equal_share=share,
+                    ms=device_ms(calls[name]) if timed else None)
+        # The last case is the largest N: the rows time it.
+        fused, zero = torch.ops.aten._thnn_fused_lstm_cell, torch.zeros_like(bias)
+        elem = c.element_size()
+        cy = work = None
+        if timed:
+            _, cy, work = fused(xw, hw, c, zero, bias)
+        record(f"lstm_cell_fwd{tag}", LSTM, 79, errs["lstm_cell_fwd"][0], calls["lstm_cell_fwd"],
+               lambda: lc.lstm_cell_fwd_reference(xw, hw, bias, c, hh, mask),
+               lambda: fused(xw, hw, c, zero, bias), 0.0, 8.0 * big * h * elem,
+               bit_equal_share=errs["lstm_cell_fwd"][1])
+        record(f"lstm_cell_bwd{tag}", LSTM, 79, errs["lstm_cell_bwd"][0], calls["lstm_cell_bwd"],
+               lambda: lc.lstm_cell_bwd_reference(acts, c, c_new, mask, dh, dc),
+               lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, work,
+                                                                          True),
+               0.0, 13.0 * big * h * elem, bit_equal_share=errs["lstm_cell_bwd"][1])
 
 
 GATHER_KERNELS = ("gather_mean_fwd", "gather_mean_bwd")
@@ -1955,6 +2071,9 @@ REPLAY_KERNELS = {"leaf_mean_nn_fwd": "leaf_fwd_kernel", "leaf_mean_nn_bwd": "le
                   "pool_membership_mask": "pool_mask_kernel",
                   "gather_mean_fwd": "gather_mean_fwd_kernel",
                   "gather_mean_bwd": "gather_mean_bwd_kernel"}
+# The LSTM cell update's kernels, counted alike in the LSTM phases (15-17).
+LSTM_CELL_KERNELS = {"lstm_cell_fwd": "lstm_cell_fwd_kernel",
+                     "lstm_cell_bwd": "lstm_cell_bwd_kernel"}
 
 
 def step_counts(graph, model, etypes, dedup: bool) -> dict:
@@ -2091,14 +2210,15 @@ def replay_profile(captured, per_step, n=5, bf16=False) -> dict:
     :func:`profile_steps`, from the records of each kernel the graph ran,
     and each training kernel's launches a replay, which must be
     ``per_step``'s; with ``bf16``, every launch of a kernel templated on the
-    element type (the leaf and gather-mean kernels) must be its bf16
-    instantiation."""
+    element type (the leaf, gather-mean and LSTM cell kernels) must be its
+    bf16 instantiation."""
     wall_ms, kernels = profiled_kernels(captured.replay, n)
     report = step_breakdown(wall_ms, kernels, n)
+    pats = {**REPLAY_KERNELS, **LSTM_CELL_KERNELS}
 
     def launches(extra=""):
-        return {name: -(-sum(c for key, c, _ in kernels if pat in key and extra in key) // n)
-                for name, pat in REPLAY_KERNELS.items()}
+        return {name: -(-sum(c for key, c, _ in kernels if pats[name] in key and extra in key)
+                        // n) for name in per_step}
 
     seen = launches()
     if seen != per_step:
@@ -3188,12 +3308,40 @@ def lstm_kwargs(graph, agg, dtype, hidden=256, out=128) -> dict:
     return dict(medium_kwargs(graph, hidden, out), aggregator_type=agg, dtype=dtype)
 
 
-def lstm_per_step(etypes) -> dict:
+def lstm_per_step(graph, etypes, fanouts, dedup: bool) -> dict:
     """Each training kernel's launches in one LSTM step: the pool mask once
     an etype; the leaf kernel (the LSTM leaf does not fold) and the
-    gather-mean (the LSTM reads every slot) never."""
-    return {name: (len(etypes) if name == "pool_membership_mask" else 0)
-            for name in REPLAY_KERNELS}
+    gather-mean (the LSTM reads every slot) never; each LSTM cell kernel
+    once a cell update (:func:`lstm_slot_steps`)."""
+    seeds = sorted({nt for et in etypes for nt in (et[0], et[2])})
+    slots = lstm_slot_steps(graph, seeds, fanouts, dedup)
+    counts = {name: (len(etypes) if name == "pool_membership_mask" else 0)
+              for name in REPLAY_KERNELS}
+    return {**counts, **{name: slots for name in LSTM_CELL_KERNELS}}
+
+
+def lstm_slot_steps(graph, seed_ntypes, fanouts, dedup: bool) -> int:
+    """Cell updates of one LSTM forward of ``seed_ntypes``' nodes: a reducer
+    call per node set and in-etype, ``fanouts[l - 1]`` slots at level l
+    (the top is level ``len(fanouts)``).  On the tree, every in-etype of
+    every node of the seeds' trees above the leaves (``_tree_level``); the
+    dedup'd block forward, one call per (level, node type of that level's
+    table, in-etype), as :func:`block_means` walks them."""
+    if dedup:
+        ntypes, total = list(seed_ntypes), 0
+        for level in range(len(fanouts), 0, -1):
+            in_etypes = [et for nt in ntypes for et in graph.canonical_etypes if et[2] == nt]
+            total += len(in_etypes) * fanouts[level - 1]
+            ntypes += [et[0] for et in in_etypes if et[0] not in ntypes]
+        return total
+
+    def tree(nt: str, level: int) -> int:
+        if level == 0:
+            return 0
+        return tree(nt, level - 1) + sum(fanouts[level - 1] + tree(et[0], level - 1)
+                                         for et in graph.canonical_etypes if et[2] == nt)
+
+    return sum(tree(nt, len(fanouts)) for nt in seed_ntypes)
 
 
 def model_recall(dev, model, data, k) -> float:
@@ -3295,7 +3443,11 @@ def phase_train_lstm(dev, data, phase="train_lstm", agg="lstm", dtype=torch.bflo
     validation steps each).  Reports the median training replay (CUDA
     events), edges a second, peak memory, the losses (they must fall), and
     the launches: each pool-mask launch of the steps run (the captures'
-    warm-ups included), no leaf or gather-mean launch.  Then
+    warm-ups included), no leaf or gather-mean launch, and each LSTM cell
+    kernel K times a reducer call (the backward's in the training steps
+    only); the reducer's own count of its cell updates from the run's start
+    (``MaskedLSTMReducer.slot_steps``) must be :func:`lstm_slot_steps` a
+    step, which is the forward kernel's launches.  Then
     :func:`graph_route_check` (the eager body against as many replays, at
     the bf16 tolerances for a bf16 model), 5 profiled replays
     (:func:`replay_profile`), recall@``k`` against the same model's random
@@ -3316,20 +3468,22 @@ def phase_train_lstm(dev, data, phase="train_lstm", agg="lstm", dtype=torch.bflo
                           neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True,
                           dedup=dedup, num_epochs=3, metrics_every=0, patience=100, seed=0,
                           device_epoch=True)
-    per_step = lstm_per_step(etypes)
+    per_step = lstm_per_step(g, etypes, fanouts, dedup)
     widths, nb = _per_etype_batch_sizes({et: len(v) for et, v in train_eids.items()}, batch_size)
     nb_valid = _per_etype_batch_sizes({et: len(v) for et, v in valid_eids.items()},
                                       batch_size)[1]
     warm = graph_step.WARMUP_STEPS if on_card else 0
-    steps_run = warm + 2 * nb + warm + min(10, nb) + warm + 3 * nb_valid
-    want = {name: n * steps_run for name, n in per_step.items()} if on_card else {
-        name: 0 for name in per_step}
+    train_run = warm + 2 * nb  # the steps that take a backward
+    steps_run = train_run + warm + min(10, nb) + warm + 3 * nb_valid
+    want = {name: n * (train_run if name == "lstm_cell_bwd" else steps_run)
+            for name, n in per_step.items()} if on_card else {name: 0 for name in per_step}
     init_model(model.to(dev), seed=cfg.seed)  # the weights train_minibatch starts from
     random_recall = model_recall(dev, model, data, k)
 
     counters = build.launch_counters()
     for fn in counters.values():  # the main path: counters from 0
         fn.launches = 0
+    MaskedLSTMReducer.slot_steps = MaskedLSTMReducer.row_slots = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3339,6 +3493,10 @@ def phase_train_lstm(dev, data, phase="train_lstm", agg="lstm", dtype=torch.bflo
         sync(dev)
     wall_s = time.perf_counter() - t0
     train_launches = {name: counters[name].launches for name in per_step}
+    cell_updates = MaskedLSTMReducer.slot_steps
+    if cell_updates != per_step["lstm_cell_fwd"] * steps_run:
+        raise AssertionError(f"{phase}: {cell_updates} cell updates in {steps_run} steps, "
+                             f"expected {per_step['lstm_cell_fwd']} a step")
     if train_launches != want:
         raise AssertionError(f"{phase}: launches {train_launches}, expected {want}")
     losses = hist["train_loss"]
@@ -3351,7 +3509,8 @@ def phase_train_lstm(dev, data, phase="train_lstm", agg="lstm", dtype=torch.bflo
               "edges_per_step": sum(widths.values()),
               "edges_per_s_train_epochs": hist["edges_per_s"][1:], "wall_s": wall_s,
               "train_loss": losses, "valid_loss": hist["valid_loss"], "updates": state.step,
-              "training_launches": train_launches, "launches_per_step": per_step}
+              "training_launches": train_launches, "launches_per_step": per_step,
+              "cell_updates": cell_updates}
     if on_card:
         train_ms = [a.elapsed_time(b) for update, a, b in replays["events"] if update]
         report.update(step_ms_median=float(np.median(train_ms)),
@@ -3398,8 +3557,12 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
     replay times.  Then the same pair at dropout 0.5 (the search proposes
     0.5-0.58) for 2 replays, each run after one ``torch.manual_seed``: both
     draw their keep masks through the layers' one dropout, so the same
-    checks hold.  Returns the pool mask's launches
-    of all four runs."""
+    checks hold.  Each run counts its cell updates from 0
+    (``MaskedLSTMReducer.slot_steps``): :func:`lstm_slot_steps` a step
+    without remat, more with it (the backward recomputes the levels); on a
+    card the LSTM cell's forward kernel launches once a cell update and its
+    backward :func:`lstm_slot_steps` times a step.  Returns the pool mask's
+    and the LSTM cell kernels' launches of all four runs."""
     g = data.graph.to(dev)
     feats = {nt: g.ndata[nt]["features"] for nt in g.ntypes}
     etypes = tuple(data.train_pairs)
@@ -3411,6 +3574,8 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
               for et, (u, i) in data.train_pairs.items()}
     cfg = MinibatchConfig(edge_batch_size=batch_size, fanouts=tuple(fanouts),
                           neg_mode="dense_pool", neg_pool_size=pool, pool_mask_kernel=True)
+    slots = lstm_per_step(g, etypes, fanouts, dedup=False)["lstm_cell_fwd"]
+    warm = WARMUP_STEPS if on_card else 0
     counters = build.launch_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -3418,6 +3583,7 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
     def run_pair(p: float, n: int) -> dict:
         runs = {}
         for remat in (False, True):
+            MaskedLSTMReducer.slot_steps = MaskedLSTMReducer.row_slots = 0
             model = ConvModel(**lstm_kwargs(g, "lstm", torch.bfloat16, hidden, out),
                               dropout=p, remat_levels=remat)
             init_model(model, seed=0)
@@ -3447,12 +3613,17 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
                     end.record()
                     times.append((start, end))
             sync(dev)
+            run["cell_updates"] = MaskedLSTMReducer.slot_steps
             if on_card:
                 run.update(step_ms_median=float(np.median([a.elapsed_time(b) for a, b in times])),
                            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev))
             runs[remat] = run
             del model, state, perm_fn, chunk_fn
         plain, remat = runs[False], runs[True]
+        if not (plain["cell_updates"] == slots * (warm + n) < remat["cell_updates"]):
+            raise AssertionError(f"remat at dropout {p}: {plain['cell_updates']} cell updates "
+                                 f"without, {remat['cell_updates']} with; expected "
+                                 f"{slots * (warm + n)} without and more with")
         gaps = {k: float((remat["grads"][k] - g_).abs().max()) / max(float(g_.abs().max()), 1e-30)
                 for k, g_ in plain["grads"].items()}
         worst = max(gaps, key=gaps.get)
@@ -3462,7 +3633,8 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
         if not gaps[worst] <= BF16_ROUTE_GRAD_REL:
             raise AssertionError(f"remat at dropout {p}: {worst}'s gradients {gaps[worst]} apart")
         return {"plain": plain, "remat": remat, "loss": plain["loss"],
-                "loss_remat": remat["loss"],
+                "loss_remat": remat["loss"], "cell_updates": plain["cell_updates"],
+                "cell_updates_remat": remat["cell_updates"],
                 "bit_identical": plain["loss"] == remat["loss"] and all(
                     torch.equal(remat["grads"][k], g_) for k, g_ in plain["grads"].items()),
                 "largest_grad_gap_rel": gaps[worst], "largest_grad_gap_param": worst}
@@ -3470,10 +3642,18 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
     base = run_pair(0.0, replays)
     drop = run_pair(0.5, 2)
     plain, remat = base.pop("plain"), base.pop("remat")
+    launches = {name: counters[name].launches
+                for name in ("pool_membership_mask", *LSTM_CELL_KERNELS)}
+    if on_card:
+        updates = sum(r[k] for r in (base, drop) for k in ("cell_updates", "cell_updates_remat"))
+        want = {"lstm_cell_fwd": updates,
+                "lstm_cell_bwd": slots * 2 * (warm + replays + warm + 2)}
+        if any(launches[name] != n for name, n in want.items()):
+            raise AssertionError(f"remat: launches {launches}, expected {want}")
     report = dict(steps=replays, **base,
                   dropout={"p": 0.5, "steps": 2,
                            **{k: v for k, v in drop.items() if k not in ("plain", "remat")}},
-                  pool_mask_launches=counters["pool_membership_mask"].launches)
+                  pool_mask_launches=launches["pool_membership_mask"], launches=launches)
     if on_card:
         report.update({f"{key}{tag}": run[key] for tag, run in (("", plain), ("_remat", remat))
                        for key in ("step_ms_median", "max_memory_allocated_bytes")})
@@ -3481,7 +3661,7 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
             raise AssertionError(f"remat: peak memory {remat['max_memory_allocated_bytes']} not "
                                  f"below {plain['max_memory_allocated_bytes']}")
     say("remat", **report)
-    return {"pool_membership_mask": counters["pool_membership_mask"].launches}
+    return launches
 
 
 # The kernels the LSTM phases run: the pool mask in every step, the MIPS
@@ -4070,6 +4250,11 @@ def main() -> int:
                                                   agg="lstm_edge", dtype=None, dedup=True)}
     lstm_launches["remat"] = phase_remat(dev, data)
     phase_profiler_window(dev, "end")
+    # The LSTM cell's rows: f32 on train_lstm_edge_dedup's path, bf16 on
+    # train_lstm's and remat's (their launches by phase below).
+    for name in LSTM_CELL_KERNELS:
+        launches[name] = lstm_launches["train_lstm_edge_dedup"][name]
+        launches[f"{name}:bf16"] = lstm_launches["train_lstm"][name]
     # The full-fanout rows of phase kernels: the drill's launches at K > 32
     # in f32; in bf16, phase 10's (no path runs bf16 at K > 32).
     for row in rows:
@@ -4096,6 +4281,10 @@ def main() -> int:
             for phase, counts in lstm_launches.items():
                 if row["name"] in counts:
                     row[f"{phase}_launches"] = counts[row["name"]]
+        kernel, _, tag = row["name"].partition(":")
+        if kernel in LSTM_CELL_KERNELS:
+            for phase in (("train_lstm", "remat") if tag else ("train_lstm_edge_dedup",)):
+                row[f"{phase}_launches"] = lstm_launches[phase][kernel]
         if row["name"] in SHARDED_ROWS:
             row["sharded_serving_launches"] = sharded_launches[row["name"]]
         # The dp runs train in bf16; the dedup'd check runs the f32 gather.

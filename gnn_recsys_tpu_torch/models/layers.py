@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gnn_recsys_tpu_torch.ops.cuda.lstm_cell import lstm_cell
 from gnn_recsys_tpu_torch.utils.profiling import span
 
 AGGREGATOR_TYPES = (
@@ -84,16 +85,6 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) 
         return lin(x)
     y = F.linear(x.to(dtype), lin.weight.to(dtype))
     return y if lin.bias is None else y + lin.bias.to(dtype)
-
-
-def gate_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """An LSTM gate's sigmoid as flax computes it (``lax.logistic``): in bf16
-    as XLA expands it, ``1 / (1 + exp(-x))`` with every op rounded to bf16
-    (``torch.sigmoid`` rounds once, and differs in about a third of the
-    values); ``torch.sigmoid`` otherwise."""
-    if x.dtype == torch.bfloat16:
-        return 1.0 / (1.0 + torch.exp(-x))
-    return torch.sigmoid(x)
 
 
 def row_norm(x: torch.Tensor) -> torch.Tensor:
@@ -171,12 +162,19 @@ class MaskedLSTMReducer(nn.Module):
     (``_MaskedLSTMStep``), so holes in the mask are skipped.  The gates are
     packed in the order i, f, g, o: ``ih`` is the ``[4H, in]`` input weight
     (no bias), ``hh`` the ``[4H, H]`` recurrent weight with its bias.  Each
-    product goes through :func:`dense`, so in bf16 it rounds where flax's
-    ``Dense(dtype=...)`` rounds; the carry takes the messages' dtype.
+    product rounds where flax's ``Dense(dtype=...)`` rounds (:func:`dense`),
+    with the weights and the bias cast once a call and each slot's gradient
+    cast back before autograd sums the K slots in the parameters' dtype
+    (:class:`_SlotParam`); the carry takes the messages' dtype.
 
     The K steps are a Python loop of static length with no host sync, so a
-    CUDA graph captures it.  cuDNN's LSTM is not used: it assumes the valid
-    slots form a prefix, and the sampled tree's exclusion leaves holes.
+    CUDA graph captures it.  A step is the slot's two products (cuBLAS) and
+    one cell update, :func:`~gnn_recsys_tpu_torch.ops.cuda.lstm_cell.lstm_cell`:
+    on the card one fused kernel forward and one backward
+    (``csrc/lstm_cell.cu``), which round as flax's bf16 cell rounds; on the
+    CPU the same cell as PyTorch ops with the same hand-written backward.
+    cuDNN's LSTM is still not used: it assumes the valid slots form a prefix,
+    and the sampled tree's exclusion leaves holes.
 
     Each call runs in a ``gnn.lstm.reduce`` span and counts, in plain
     integers on the class that the caller resets, its cell updates
@@ -208,18 +206,38 @@ class MaskedLSTMReducer(nn.Module):
         MaskedLSTMReducer.slot_steps += k
         MaskedLSTMReducer.row_slots += n * k
         with span("gnn.lstm.reduce"):
+            dt = self.dtype
+            params = (self.ih.weight, self.hh.weight, self.hh.bias)
+            casts = None if dt is None else [p.detach().to(dt) for p in params]
             c = msgs.new_zeros((n, self.features))
             h = msgs.new_zeros((n, self.features))
             # One slot a step; the input product too, so that no [K, N, 4H]
             # tensor is ever held (``unbind``'s backward stacks the slots once).
             for x, m in zip(msgs.unbind(1), mask.unbind(1)):
-                gates = dense(self.ih, x, self.dtype) + dense(self.hh, h, self.dtype)
-                i, f, g, o = gates.chunk(4, dim=-1)
-                c_new = gate_sigmoid(f) * c + gate_sigmoid(i) * torch.tanh(g)
-                h_new = gate_sigmoid(o) * torch.tanh(c_new)
-                m = m[:, None]
-                c, h = torch.where(m, c_new, c), torch.where(m, h_new, h)
+                w_ih, w_hh, b = params if casts is None else [
+                    _SlotParam.apply(p, q) for p, q in zip(params, casts)]
+                xw = F.linear(x if dt is None else x.to(dt), w_ih)
+                hw = F.linear(h if dt is None else h.to(dt), w_hh)
+                c, h = lstm_cell(xw, hw, b, c, h, m)
         return h
+
+
+class _SlotParam(torch.autograd.Function):
+    """A parameter as one slot of :class:`MaskedLSTMReducer` takes it: the
+    forward hands on the copy cast once a call, the backward casts the
+    slot's gradient back to the parameter's dtype.  Autograd then sums the
+    K slots' gradients in f32, as it sums those of a cast a slot
+    (:func:`dense`) and as flax's ``nn.scan`` sums the cotangents of its
+    broadcast parameters."""
+
+    @staticmethod
+    def forward(ctx, param: torch.Tensor, cast: torch.Tensor) -> torch.Tensor:
+        ctx.dtype = param.dtype
+        return cast.view_as(cast)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.to(ctx.dtype), None
 
 
 class ConvLayer(nn.Module):

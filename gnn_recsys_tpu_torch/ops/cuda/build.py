@@ -137,9 +137,11 @@ def launch_counters() -> Dict[str, object]:
     name.  A CUDA graph replays launches without calling the wrappers; it
     adds its captured launches to these counts at each replay
     (``train/graph_step.py``)."""
-    from gnn_recsys_tpu_torch.ops.cuda import gather_mean, leaf_agg, pool_mask, topk_mips
+    from gnn_recsys_tpu_torch.ops.cuda import (gather_mean, leaf_agg, lstm_cell, pool_mask,
+                                               topk_mips)
 
     fns = (leaf_agg.leaf_mean_nn_fwd, leaf_agg.leaf_mean_nn_bwd, pool_mask.pool_membership_mask,
            gather_mean.gather_mean_fwd, gather_mean.gather_mean_bwd, topk_mips.mips_topk,
-           topk_mips.mips_lse, topk_mips.mips_boost)
+           topk_mips.mips_lse, topk_mips.mips_boost, lstm_cell.lstm_cell_fwd,
+           lstm_cell.lstm_cell_bwd)
     return {fn.__name__: fn for fn in fns}

@@ -13,14 +13,15 @@ import chip_smoke
 KERNELS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
            "pool_membership_mask", "gather_mean_fwd", "gather_mean_bwd"]
 # The kernels line's rows of the kernel phase: each kernel, the leaf and
-# gather-mean kernels again in bf16, and the gather-mean kernels at a
-# full-fanout shape in f32 and bf16.
+# gather-mean kernels again in bf16, the gather-mean kernels at a
+# full-fanout shape in f32 and bf16, and the LSTM cell's in f32 and bf16.
 WIDE = "wide:B9_K40_N7_D12"
 ROWS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
         "leaf_mean_nn_fwd:bf16", "leaf_mean_nn_bwd:bf16", "pool_membership_mask",
         "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16", "gather_mean_bwd:bf16",
         f"gather_mean_fwd:{WIDE}", f"gather_mean_bwd:{WIDE}", f"gather_mean_fwd:bf16:{WIDE}",
-        f"gather_mean_bwd:bf16:{WIDE}"]
+        f"gather_mean_bwd:bf16:{WIDE}", "lstm_cell_fwd", "lstm_cell_bwd", "lstm_cell_fwd:bf16",
+        "lstm_cell_bwd:bf16"]
 NO_YARDSTICK = ["leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "pool_membership_mask"]
 
 
@@ -32,13 +33,19 @@ def data():
 def test_kernel_phase_rehearsal():
     rows = chip_smoke.phase_kernels(torch.device("cpu"), num_users=40, num_items=300,
                                     dim=16, k=6, leaf=(4, 37, 5, 16), pool=(40, 8, 70),
-                                    gather=(41, 5, 30, 12), wide=(9, 40, 7, 12), timed=False)
+                                    gather=(41, 5, 30, 12), wide=(9, 40, 7, 12),
+                                    lstm=((7, 21), 12), timed=False)
     assert [r["name"] for r in rows] == ROWS
     for row in rows:
         assert row["max_abs_err"] == 0.0
         assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
         assert row["source"].startswith("gnn_recsys_tpu_torch/csrc/")
-        assert row["replaces"].startswith("gnn_recsys_tpu/ops/pallas/")
+        # The LSTM cell replaces no Pallas kernel: its rows name the JAX
+        # package's reducer.
+        lstm = row["name"].startswith("lstm_cell")
+        assert row["replaces"].startswith(
+            "gnn_recsys_tpu/models/layers.py:" if lstm else "gnn_recsys_tpu/ops/pallas/")
+        assert not lstm or row["bit_equal_share"] == 1.0
         assert ("library" in row) == (row["name"].split(":")[0] in NO_YARDSTICK)
     # At the serving shape the ranking is bound by f32 operations.
     ms, by = chip_smoke.bound(2.0 * 4096 * 30_000 * 128, 4.0 * (4096 + 30_000) * 128)
@@ -475,9 +482,13 @@ def test_train_lstm_rehearsal(data, capsys, agg, dtype, dedup):
     assert not any(launches.values())
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["phase"] == phase and report["aggregator"] == agg
+    # 112 cell updates a tree step at fanouts (8, 4); 48 a dedup'd step.
+    cells = 48 if dedup else 112
     assert report["launches_per_step"] == {
         "leaf_mean_nn_fwd": 0, "leaf_mean_nn_bwd": 0, "pool_membership_mask": 2,
-        "gather_mean_fwd": 0, "gather_mean_bwd": 0}
+        "gather_mean_fwd": 0, "gather_mean_bwd": 0, "lstm_cell_fwd": cells,
+        "lstm_cell_bwd": cells}
+    assert report["cell_updates"] % cells == 0 and report["cell_updates"] > 0
     assert report["recall"] > report["random_weights_recall"]
     assert set(report["serve"]["routes"]) == {"plain", "boosted"}
     assert ("step_grads_twice" in report) == dedup
@@ -490,9 +501,10 @@ def test_remat_rehearsal(data, capsys):
     plain step's bits, at dropout 0 and at the phase's dropout."""
     launches = chip_smoke.phase_remat(torch.device("cpu"), data, hidden=32, out=16,
                                       batch_size=128, pool=48, replays=3, on_card=False)
-    assert launches == {"pool_membership_mask": 0}
+    assert launches == {"pool_membership_mask": 0, "lstm_cell_fwd": 0, "lstm_cell_bwd": 0}
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["phase"] == "remat" and report["bit_identical"]
+    assert report["cell_updates"] == 3 * 112 < report["cell_updates_remat"]
     assert report["dropout"]["p"] == 0.5 and report["dropout"]["bit_identical"]
     assert report["dropout"]["loss"] != report["loss"]
 

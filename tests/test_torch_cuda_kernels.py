@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
+from gnn_recsys_tpu_torch.ops.cuda import lstm_cell as lc
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 
@@ -693,3 +694,164 @@ def test_dedup_step_gradients_are_bit_identical(dev):
     finally:
         torch.use_deterministic_algorithms(False)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# The LSTM cell update: the cell's shapes (N up to 2,560 x 8 rows of H =
+# 256), a width that is no multiple of the vector (the scalar kernels) and
+# an unaligned carry (a view one element into its storage).
+LSTM_SHAPES = [(20480, 256), (9033, 256), (37, 5), (1, 8)]
+LSTM_TYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32)]
+
+
+def _lstm_cell_case(dev, n, h, gates, carry, seed=0, offset=0):
+    """Pre-activation products as the reducer makes them (rounded to the
+    gates' dtype), a carry with h in (-1, 1), a mask with about 10% holes
+    (any stride: a column of an [N, 3] mask) and two cotangents."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    xw, hw = randn(n, 4 * h, dtype=gates, scale=1.5), randn(n, 4 * h, dtype=gates)
+    bias = randn(4 * h, dtype=gates, scale=0.3)
+    c = randn(n * h + offset, dtype=carry, scale=1.5)[offset:].view(n, h)
+    hh = torch.tanh(randn(n, h, dtype=torch.float32)).to(carry)
+    mask = torch.rand(n, 3, generator=gen, device=dev)[:, 1] > 0.1
+    dh, dc = randn(n, h, dtype=carry), randn(n, h, dtype=carry)
+    return xw, hw, bias, c, hh, mask, dh, dc
+
+
+def _bf16_ulps_apart(a, b) -> torch.Tensor:
+    """Per element: bf16 values equal, or neighbours (bit patterns one apart)."""
+    bits = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+    return (a == b) | (bits <= 1)
+
+
+def _bf16_ulp(x) -> float:
+    """One bf16 ulp at the largest magnitude of ``x``."""
+    top = float(x.abs().max())
+    return 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("gates,carry", LSTM_TYPES, ids=["bf16", "bf16_f32carry", "f32"])
+@pytest.mark.parametrize("n,h", LSTM_SHAPES)
+def test_lstm_cell_fwd_matches_plain(dev, n, h, gates, carry):
+    """One cell update: bf16 within one ulp everywhere and bit-equal on
+    99.9% of the elements or more; f32 within 1e-6.  An f32 carry of bf16
+    gates: bit-equal on 99.9% and within a bf16 ulp of the gate that feeds
+    it (2^-7 relative) elsewhere.  The activations are compared on the
+    valid rows (a masked row saves none)."""
+    for offset in (0, 1):
+        xw, hw, bias, c, hh, mask, _, _ = _lstm_cell_case(dev, n, h, gates, carry, offset=offset)
+        n0 = lc.lstm_cell_fwd.launches
+        got = lc.lstm_cell_fwd(xw, hw, bias, c, hh, mask)
+        torch.cuda.synchronize()
+        assert lc.lstm_cell_fwd.launches == n0 + 1
+        want = lc.lstm_cell_fwd_reference(xw, hw, bias, c, hh, mask)
+        pairs = [(got[0], want[0]), (got[1], want[1]), (got[2][mask], want[2][mask])]
+        for k, w in pairs:
+            assert k.dtype == w.dtype and k.shape == w.shape
+            if k.dtype == torch.bfloat16:
+                assert _bf16_ulps_apart(k, w).all()
+                assert float((k == w).float().mean()) >= 0.999
+            elif gates == torch.bfloat16:
+                torch.testing.assert_close(k, w, rtol=2.0**-7, atol=1e-6)
+                assert float((k == w).float().mean()) >= 0.999
+            else:
+                torch.testing.assert_close(k, w, rtol=0, atol=1e-6)
+        assert torch.equal(got[0][~mask], c[~mask]) and torch.equal(got[1][~mask], hh[~mask])
+        _, _, none = lc.lstm_cell_fwd(xw, hw, bias, c, hh, mask, save=False)
+        assert none is None
+
+
+def _cell_autograd(xw, hw, bias, c, h, mask, dh, dc, dtype=None):
+    """The cell as the reducer's slot loop ran it (PyTorch ops, autograd),
+    in ``dtype`` where given (upcast inputs): (dz, dc, dh)."""
+    ins = [t if dtype is None else t.to(dtype) for t in (xw, hw, bias, c, h)]
+    ins = [t.detach().clone().requires_grad_() for t in ins]
+    c_out, h_out, _ = lc.lstm_cell_fwd_reference(*ins, mask, save=False)
+    torch.autograd.backward((c_out, h_out), (dc.to(c_out.dtype), dh.to(h_out.dtype)))
+    return ins[0].grad.float(), ins[3].grad.float(), ins[4].grad.float()
+
+
+@pytest.mark.parametrize("gates,carry", LSTM_TYPES, ids=["bf16", "bf16_f32carry", "f32"])
+@pytest.mark.parametrize("n,h", LSTM_SHAPES)
+def test_lstm_cell_bwd_against_f32_autograd(dev, n, h, gates, carry):
+    """The backward kernel's gap to f32 autograd of the cell is no larger
+    than the plain autograd's in the working dtypes, plus one bf16 ulp of
+    the largest value (f32: within 1e-5 of the plain backward)."""
+    xw, hw, bias, c, hh, mask, dh, dc = _lstm_cell_case(dev, n, h, gates, carry, seed=1)
+    c_new, _, acts = lc.lstm_cell_fwd(xw, hw, bias, c, hh, mask)
+    n0 = lc.lstm_cell_bwd.launches
+    got = lc.lstm_cell_bwd(acts, c, c_new, mask, dh, dc)
+    torch.cuda.synchronize()
+    assert lc.lstm_cell_bwd.launches == n0 + 1
+    assert (got[0].dtype, got[1].dtype, got[2].dtype) == (gates, carry, carry)
+    ref = _cell_autograd(xw, hw, bias, c, hh, mask, dh, dc, torch.float32)
+    own = _cell_autograd(xw, hw, bias, c, hh, mask, dh, dc)
+    for name, k, r, o in zip(("dz", "dc", "dh"), got, ref, own):
+        gap = float((k.float() - r).abs().max())
+        slack = _bf16_ulp(r) if gates == torch.bfloat16 else 1e-5
+        assert gap <= float((o - r).abs().max()) + slack, (name, gap)
+    assert not got[0][~mask].any() and not got[2][mask].any()
+    assert torch.equal(got[1][~mask], dc[~mask]) and torch.equal(got[2][~mask], dh[~mask])
+    # dc' absent (the last slot's carry takes no gradient): read as zero.
+    dz1, dc1, dh1 = lc.lstm_cell_bwd(acts, c, c_new, mask, dh, None)
+    want = lc.lstm_cell_bwd(acts, c, c_new, mask, dh, torch.zeros_like(dc))
+    assert all(torch.equal(a, b) for a, b in zip((dz1, dc1, dh1), want))
+
+
+def _lstm_reducer_case(dev, dtype, n=2560, k=8, d=256, seed=0):
+    from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer
+
+    torch.manual_seed(seed)
+    red = MaskedLSTMReducer(d, d, dtype=dtype).to(dev)
+    with torch.no_grad():
+        red.hh.bias.uniform_(-0.1, 0.1)
+    mask = torch.rand(n, k, device=dev) < 0.85
+    mask[0] = False
+    msgs = (torch.randn(n, k, d, device=dev) * mask[..., None]).to(dtype or torch.float32)
+    return red, msgs, mask, torch.randn(n, d, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_lstm_reducer_graph_replay_equals_eager_and_counts(dev, dtype):
+    """A whole reducer call, forward and backward, captured as a CUDA graph:
+    the replay equals the eager call bit for bit, and an eager call launches
+    K forward and K backward cell kernels."""
+    red, msgs, mask, cot = _lstm_reducer_case(dev, dtype)
+    x = msgs.clone().requires_grad_()
+
+    def call():
+        red.zero_grad(set_to_none=False)
+        x.grad = None
+        out = red(x, mask)
+        (out.float() * cot).sum().backward()
+        return out
+
+    n_fwd, n_bwd = lc.lstm_cell_fwd.launches, lc.lstm_cell_bwd.launches
+    eager = call().detach().clone()
+    torch.cuda.synchronize()
+    k = mask.shape[1]
+    assert (lc.lstm_cell_fwd.launches - n_fwd, lc.lstm_cell_bwd.launches - n_bwd) == (k, k)
+    grads = [x.grad.clone()] + [p.grad.clone() for p in red.parameters()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    red.zero_grad(set_to_none=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = red(x, mask)
+        (out.float() * cot).sum().backward()
+    for p in red.parameters():
+        p.grad.zero_()
+    x.grad.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for got, want in zip([x.grad] + [p.grad for p in red.parameters()], grads):
+        assert torch.equal(got, want)
