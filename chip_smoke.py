@@ -327,6 +327,7 @@ from gnn_recsys_tpu_torch.trial import (
     trial_embeddings,
     trial_metrics,
 )
+from gnn_recsys_tpu_torch.utils import profiling
 from gnn_recsys_tpu_torch.utils.synthetic import (
     make_drift_logs,
     make_hard_synthetic_data,
@@ -1463,7 +1464,7 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
                 raise AssertionError(f"{nt} embeddings: shape {tuple(h[nt].shape)} or not finite")
 
         # The main path: counters from 0, read right after.
-        tm.reset_launch_counts()
+        profiling.reset_counters()
         latencies = []
         for n, boost in [(n, False) for n in request_sizes] + [(request_sizes[-1], True)]:
             uids = rng.choice(num_users, n, replace=False).tolist()
@@ -1666,8 +1667,7 @@ def phase_sharded_serving(dev, data, hidden=256, out=128, shard_counts=(4, 7), k
         cli_ref = buf.getvalue()
 
         # The main path: counts from 0, read right after.
-        tm.reset_launch_counts()
-        la.leaf_mean_nn_fwd.launches = 0
+        profiling.reset_counters()
         runs = {}
         for m, mesh in meshes.items():
             for boost in (False, True):
@@ -1962,8 +1962,7 @@ def phase_train(dev, data, hidden=256, out=128, steps=200, batch_size=2048, pool
         # The main path: counters from 0, read right after.
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        for fn in counters.values():
-            fn.launches = 0
+        profiling.reset_counters()
         if dedup:
             tap.counting = True
         losses, events = [], []
@@ -2199,10 +2198,18 @@ def graph_route_check(dev, g, feats, kw, cfg, eids, tables, per_step, steps=10,
                       entries_above_gap=tight)
     if on_card:
         want = {n: c for n, c in per_step.items() if c}
-        if captured.launches != want:
-            raise AssertionError(f"captured launches {captured.launches}, expected {want}")
-        report["captured_launches"] = captured.launches
+        launches = captured_launches(captured)
+        if launches != want:
+            raise AssertionError(f"captured launches {launches}, expected {want}")
+        report["captured_launches"] = launches
     return report, captured
+
+
+def captured_launches(captured) -> dict:
+    """The kernel launches that each replay of ``captured`` (a
+    :class:`CapturedStep`) adds, by wrapper."""
+    return {name.removesuffix(".launches"): n for name, n in captured.counts.items()
+            if name.endswith(".launches")}
 
 
 def replay_profile(captured, per_step, n=5, bf16=False) -> dict:
@@ -2314,8 +2321,7 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
             for name, n in per_step.items()}
 
     counters = build.launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    profiling.reset_counters()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if tap:
@@ -2606,7 +2612,7 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
     # The main path, through the entry point: counters from 0, read right
     # after.  Each epoch's time is the trainer's own (host clock, up to
     # reading the loss, which waits for the card).
-    tm.reset_launch_counts()
+    profiling.reset_counters()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2794,8 +2800,7 @@ def hp_trial(dev, data, fixed, hyper, popularity, index, on_card=True) -> tuple:
         if stage in ("built", "trained"):
             sync(dev)
             at[stage + "_end"] = time.perf_counter()
-            for fn in counters.values():
-                fn.launches = 0
+            profiling.reset_counters()
 
     conv_model.gather_mean = tap
     try:
@@ -3208,8 +3213,7 @@ def phase_etl_cli(dev, num_users=3000, num_items=900, n_calls=2, epochs=3,
             sync(dev)
             return result, out.getvalue(), time.perf_counter() - t
 
-        for fn in counters.values():
-            fn.launches = 0
+        profiling.reset_counters()
         tap.counting = True
         conv_model.gather_mean = tap
         modules = ((main_hp, "hp"), (main_train, "train"))
@@ -3481,9 +3485,7 @@ def phase_train_lstm(dev, data, phase="train_lstm", agg="lstm", dtype=torch.bflo
     random_recall = model_recall(dev, model, data, k)
 
     counters = build.launch_counters()
-    for fn in counters.values():  # the main path: counters from 0
-        fn.launches = 0
-    MaskedLSTMReducer.slot_steps = MaskedLSTMReducer.row_slots = 0
+    profiling.reset_counters()  # the main path: counters from 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -3577,8 +3579,7 @@ def phase_remat(dev, data, hidden=256, out=128, batch_size=2048, pool=2560, fano
     slots = lstm_per_step(g, etypes, fanouts, dedup=False)["lstm_cell_fwd"]
     warm = WARMUP_STEPS if on_card else 0
     counters = build.launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    profiling.reset_counters()
 
     def run_pair(p: float, n: int) -> dict:
         runs = {}
@@ -3691,8 +3692,7 @@ def train_counters() -> dict:
 
 
 def zero_counts() -> None:
-    for fn in train_counters().values():
-        fn.launches = 0
+    profiling.reset_counters()
 
 
 def read_counts() -> dict:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from gnn_recsys_tpu_torch.graph.hetero import HeteroGraph, Relation, compute_eid_pos
+from gnn_recsys_tpu_torch.utils.profiling import counter
 
 
 def _flat_key(*parts: str) -> str:
@@ -107,7 +108,7 @@ def load_graph(path: str) -> HeteroGraph:
     """Read a graph written by :func:`save_graph` (of either package) onto
     the CPU.  Every tensor is writable and owns the bytes read for it.
 
-    Counters (plain integers, reset by the caller):
+    Counters (``utils/profiling.py:counter``, reset by the caller):
     ``load_graph.stored_bytes`` and ``load_graph.inflated_bytes``, the member
     bytes (each ``.npy``'s header and data) read stored and inflated."""
     z = _read_npz(path)
@@ -152,5 +153,4 @@ def load_graph(path: str) -> HeteroGraph:
     )
 
 
-load_graph.stored_bytes = 0
-load_graph.inflated_bytes = 0
+counter(load_graph, "stored_bytes", "inflated_bytes")

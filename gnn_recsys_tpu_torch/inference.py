@@ -26,7 +26,7 @@ from gnn_recsys_tpu_torch.retrieval.recs import get_recs, model_score_fn
 from gnn_recsys_tpu_torch.retrieval.sharded import catalog_axis, get_recs_sharded
 from gnn_recsys_tpu_torch.train.checkpoint import load_run, model_kwargs_to_config
 from gnn_recsys_tpu_torch.train.minibatch import infer_embeddings
-from gnn_recsys_tpu_torch.utils.profiling import span, to_device
+from gnn_recsys_tpu_torch.utils.profiling import counter, span, to_device
 
 
 def _pairs(id_map, new_col: str) -> Tuple[list, list]:
@@ -182,4 +182,4 @@ def inference_ondemand(
     return out
 
 
-inference_ondemand.requests = 0
+counter(inference_ondemand, "requests")

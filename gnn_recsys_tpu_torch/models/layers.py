@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gnn_recsys_tpu_torch.ops.cuda.lstm_cell import lstm_cell
-from gnn_recsys_tpu_torch.utils.profiling import span
+from gnn_recsys_tpu_torch.utils.profiling import counter, span
 
 AGGREGATOR_TYPES = (
     "mean",
@@ -176,15 +176,9 @@ class MaskedLSTMReducer(nn.Module):
     cuDNN's LSTM is still not used: it assumes the valid slots form a prefix,
     and the sampled tree's exclusion leaves holes.
 
-    Each call runs in a ``gnn.lstm.reduce`` span and counts, in plain
-    integers on the class that the caller resets, its cell updates
-    (``slot_steps``: K a call) and its rows times slots (``row_slots``: N K).
-    A captured step counts them once, at capture; its replays add them back
-    (``train/graph_step.py``)."""
-
-    COUNTERS = ("slot_steps", "row_slots")
-    slot_steps = 0
-    row_slots = 0
+    Each call runs in a ``gnn.lstm.reduce`` span and counts, in counters
+    on the class (``utils/profiling.py:counter``), its cell updates
+    (``slot_steps``: K a call) and its rows times slots (``row_slots``: N K)."""
 
     def __init__(self, in_feats: int, features: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -220,6 +214,9 @@ class MaskedLSTMReducer(nn.Module):
                 hw = F.linear(h if dt is None else h.to(dt), w_hh)
                 c, h = lstm_cell(xw, hw, b, c, h, m)
         return h
+
+
+counter(MaskedLSTMReducer, "slot_steps", "row_slots")
 
 
 class _SlotParam(torch.autograd.Function):

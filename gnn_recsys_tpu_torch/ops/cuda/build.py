@@ -16,9 +16,11 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+from gnn_recsys_tpu_torch.utils import profiling
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -95,16 +97,18 @@ def ptxas_summary(lines: List[str]) -> Dict[str, Dict[str, int]]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use.
-
-    Every source exports ``const char* cuda_error_string(int)``."""
+def load(name: str, bind: Optional[Callable[[ctypes.CDLL], None]] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built and bound (``bind(lib)``:
+    its exports' types, the host's plans checked) on first use.  Every source
+    exports ``const char* cuda_error_string(int)``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build([name])[name])
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
+            if bind is not None:
+                bind(lib)
             _libs[name] = lib
         return lib
 
@@ -133,15 +137,10 @@ def stream(device: torch.device) -> int:
 
 
 def launch_counters() -> Dict[str, object]:
-    """Every kernel wrapper that counts its launches (``fn.launches``), by
-    name.  A CUDA graph replays launches without calling the wrappers; it
-    adds its captured launches to these counts at each replay
-    (``train/graph_step.py``)."""
-    from gnn_recsys_tpu_torch.ops.cuda import (gather_mean, leaf_agg, lstm_cell, pool_mask,
-                                               topk_mips)
+    """Every kernel wrapper of this package, by name: the owners of the
+    ``launches`` counters declared in ``utils/profiling.py``."""
+    from gnn_recsys_tpu_torch.ops.cuda import (  # noqa: F401 (their wrappers declare them)
+        gather_mean, leaf_agg, lstm_cell, pool_mask, topk_mips)
 
-    fns = (leaf_agg.leaf_mean_nn_fwd, leaf_agg.leaf_mean_nn_bwd, pool_mask.pool_membership_mask,
-           gather_mean.gather_mean_fwd, gather_mean.gather_mean_bwd, topk_mips.mips_topk,
-           topk_mips.mips_lse, topk_mips.mips_boost, lstm_cell.lstm_cell_fwd,
-           lstm_cell.lstm_cell_bwd)
-    return {fn.__name__: fn for fn in fns}
+    return {owner.__name__: owner for owner, attr in profiling.DECLARED.values()
+            if attr == "launches" and owner.__module__.startswith(__package__ + ".")}

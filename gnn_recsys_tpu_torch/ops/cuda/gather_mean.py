@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.utils.profiling import counter
 
 _LIB = "gather_mean"
 _P = ctypes.c_void_p
@@ -51,22 +52,21 @@ _I = ctypes.c_int
 CHUNK = 128
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.gather_mean_fwd_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.gather_mean_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                           _P, _P, _P]
+    lib.gather_mean_bwd_scratch_bytes.argtypes = [_I, _I, _I, _I]
+    lib.gather_mean_bwd_scratch_bytes.restype = ctypes.c_longlong
+    for fn in (lib.gather_mean_fwd_launch, lib.gather_mean_bwd_launch, lib.gather_mean_bwd_chunk):
+        fn.restype = _I
+    if lib.gather_mean_bwd_chunk() != CHUNK:
+        raise RuntimeError(f"gather_mean.cu walks chunks of {lib.gather_mean_bwd_chunk()} "
+                           f"entries; the host plans for {CHUNK}")
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        lib.gather_mean_fwd_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
-        lib.gather_mean_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                               _P, _P, _P]
-        lib.gather_mean_bwd_scratch_bytes.argtypes = [_I, _I, _I, _I]
-        lib.gather_mean_bwd_scratch_bytes.restype = ctypes.c_longlong
-        for fn in (lib.gather_mean_fwd_launch, lib.gather_mean_bwd_launch,
-                   lib.gather_mean_bwd_chunk):
-            fn.restype = _I
-        if lib.gather_mean_bwd_chunk() != CHUNK:
-            raise RuntimeError(f"gather_mean.cu walks chunks of {lib.gather_mean_bwd_chunk()} "
-                               f"entries; the host plans for {CHUNK}")
-        lib._typed = True
-    return lib
+    return build.load(_LIB, _bind)
 
 
 def chunk_slots(b: int, k: int, n: int) -> int:
@@ -275,7 +275,7 @@ def gather_mean_fwd(h: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor) -> t
     return out
 
 
-gather_mean_fwd.launches = 0
+counter(gather_mean_fwd, "launches")
 
 
 def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n: int,
@@ -310,7 +310,7 @@ def gather_mean_bwd(dout: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, n
     return dh
 
 
-gather_mean_bwd.launches = 0
+counter(gather_mean_bwd, "launches")
 
 
 class _GatherMean(torch.autograd.Function):

@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.utils.profiling import counter
 
 _LIB = "leaf_agg"
 _P = ctypes.c_void_p
@@ -74,24 +75,24 @@ def _geometry(p, f, h, block_p, dev) -> LaunchGeometry:
                            block_p)
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.leaf_tile_shape.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.leaf_tile_shape.restype = _I
+    for ft in _TILES:  # the host's tiles must be the kernels'
+        shape = (_I * 2)()
+        build.check(lib, lib.leaf_tile_shape(ft, shape), "leaf_tile_shape")
+        if tuple(shape) != tile_shape(ft):
+            raise RuntimeError(f"leaf_agg.cu tiles {tuple(shape)} at F={ft}, "
+                               f"the host expects {tile_shape(ft)}")
+    lib.leaf_fwd_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.leaf_fwd_launch.restype = _I
+    lib.leaf_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _P, _P, _P, _P, _P]
+    lib.leaf_bwd_launch.restype = _I
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        lib.leaf_tile_shape.argtypes = [_I, ctypes.POINTER(_I)]
-        lib.leaf_tile_shape.restype = _I
-        for ft in _TILES:  # the host's tiles must be the kernels'
-            shape = (_I * 2)()
-            build.check(lib, lib.leaf_tile_shape(ft, shape), "leaf_tile_shape")
-            if tuple(shape) != tile_shape(ft):
-                raise RuntimeError(f"leaf_agg.cu tiles {tuple(shape)} at F={ft}, "
-                                   f"the host expects {tile_shape(ft)}")
-        lib.leaf_fwd_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
-        lib.leaf_fwd_launch.restype = _I
-        lib.leaf_bwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                        _P, _P, _P, _P, _P]
-        lib.leaf_bwd_launch.restype = _I
-        lib._typed = True
-    return lib
+    return build.load(_LIB, _bind)
 
 
 def leaf_kernel_supported(f: int) -> bool:
@@ -166,7 +167,7 @@ def leaf_mean_nn_fwd(x_km, mask_scaled, w, b) -> torch.Tensor:
     return out
 
 
-leaf_mean_nn_fwd.launches = 0
+counter(leaf_mean_nn_fwd, "launches")
 
 
 def leaf_mean_nn_bwd(x_km, mask_scaled, w, b, g, block_p: int = 512):
@@ -198,7 +199,7 @@ def leaf_mean_nn_bwd(x_km, mask_scaled, w, b, g, block_p: int = 512):
     return dw, db
 
 
-leaf_mean_nn_bwd.launches = 0
+counter(leaf_mean_nn_bwd, "launches")
 
 
 class _LeafMeanNN(torch.autograd.Function):

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.utils.profiling import counter
 
 _LIB = "lstm_cell"
 _P = ctypes.c_void_p
@@ -37,17 +38,17 @@ _L = ctypes.c_longlong
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.lstm_cell_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                         _P, _P, _P, _P]
+    lib.lstm_cell_fwd_launch.restype = _I
+    lib.lstm_cell_bwd_launch.argtypes = [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I,
+                                         _P, _P, _P, _P]
+    lib.lstm_cell_bwd_launch.restype = _I
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        lib.lstm_cell_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                                             _P, _P, _P, _P]
-        lib.lstm_cell_fwd_launch.restype = _I
-        lib.lstm_cell_bwd_launch.argtypes = [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I,
-                                             _P, _P, _P, _P]
-        lib.lstm_cell_bwd_launch.restype = _I
-        lib._typed = True
-    return lib
+    return build.load(_LIB, _bind)
 
 
 def gate_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -146,7 +147,7 @@ def lstm_cell_fwd(xw, hw, bias, c, h, mask, save: bool = True):
     return c_out, h_out, acts
 
 
-lstm_cell_fwd.launches = 0
+counter(lstm_cell_fwd, "launches")
 
 
 def lstm_cell_bwd(acts, c, c_new, mask, dh_new: Optional[torch.Tensor],
@@ -182,7 +183,7 @@ def lstm_cell_bwd(acts, c, c_new, mask, dh_new: Optional[torch.Tensor],
     return dz, dc, dh
 
 
-lstm_cell_bwd.launches = 0
+counter(lstm_cell_bwd, "launches")
 
 
 class _LSTMCell(torch.autograd.Function):

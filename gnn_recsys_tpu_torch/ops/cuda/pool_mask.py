@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.utils.profiling import counter
 
 _LIB = "pool_mask"
 _P = ctypes.c_void_p
@@ -61,19 +62,19 @@ def launch_geometry(b: int, k: int, p: int) -> LaunchGeometry:
     return LaunchGeometry(tb, chunk, grid_x, max(1, -(-b // tb)), slots, 4 * tb * slots)
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.pool_mask_tile.argtypes = [ctypes.POINTER(_I)]
+    lib.pool_mask_tile.restype = _I
+    tile = (_I * 2)()
+    build.check(lib, lib.pool_mask_tile(tile), "pool_mask_tile")
+    if tuple(tile) != _TILE:  # the host's tile must be the kernel's
+        raise RuntimeError(f"pool_mask.cu tile {tuple(tile)}, the host expects {_TILE}")
+    lib.pool_mask_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.pool_mask_launch.restype = _I
+
+
 def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        lib.pool_mask_tile.argtypes = [ctypes.POINTER(_I)]
-        lib.pool_mask_tile.restype = _I
-        tile = (_I * 2)()
-        build.check(lib, lib.pool_mask_tile(tile), "pool_mask_tile")
-        if tuple(tile) != _TILE:  # the host's tile must be the kernel's
-            raise RuntimeError(f"pool_mask.cu tile {tuple(tile)}, the host expects {_TILE}")
-        lib.pool_mask_launch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
-        lib.pool_mask_launch.restype = _I
-        lib._typed = True
-    return lib
+    return build.load(_LIB, _bind)
 
 
 def pool_membership_mask_reference(rows: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
@@ -109,4 +110,4 @@ def pool_membership_mask(rows: torch.Tensor, pool: torch.Tensor) -> torch.Tensor
     return out
 
 
-pool_membership_mask.launches = 0
+counter(pool_membership_mask, "launches")

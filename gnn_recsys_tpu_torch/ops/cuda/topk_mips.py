@@ -31,15 +31,16 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.utils.profiling import counter
 
 _LIB = "topk_mips"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument and result types of the library's exports (this
-    library, or an edited copy of its source built elsewhere)."""
+def _bind(lib: ctypes.CDLL) -> None:
+    """Type the exports of this library (or of an edited copy of its source)
+    and check the host's plan against the kernel's."""
     lib.mips_max_k.argtypes = []
     lib.mips_max_k.restype = _I
     lib.mips_topk_smem_bytes.argtypes = [_I, _I, _I, _I]
@@ -54,25 +55,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
     ]
     lib.mips_boost_launch.restype = _I
-    return lib
+    for d in (36, 128, 256):  # the host's plan must be the kernel's
+        for bf16 in (False, True):
+            for resident in (False, True):
+                for epi in EPILOGUES:
+                    got = lib.mips_topk_smem_bytes(d, int(bf16), int(resident), epi)
+                    want = topk_smem_bytes(d, bf16, resident, epi)
+                    if got != want:
+                        raise RuntimeError(
+                            f"topk_mips.cu plans {got} bytes at D={d}, bf16={bf16}, "
+                            f"resident={resident}, epilogue={epi}; the host {want}")
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load(_LIB)
-    if not getattr(lib, "_typed", False):
-        _bind(lib)
-        for d in (36, 128, 256):  # the host's plan must be the kernel's
-            for bf16 in (False, True):
-                for resident in (False, True):
-                    for epi in EPILOGUES:
-                        got = lib.mips_topk_smem_bytes(d, int(bf16), int(resident), epi)
-                        want = topk_smem_bytes(d, bf16, resident, epi)
-                        if got != want:
-                            raise RuntimeError(
-                                f"topk_mips.cu plans {got} bytes at D={d}, bf16={bf16}, "
-                                f"resident={resident}, epilogue={epi}; the host {want}")
-        lib._typed = True
-    return lib
+    return build.load(_LIB, _bind)
 
 
 def max_k() -> int:
@@ -303,7 +299,7 @@ def mips_topk(user_emb: torch.Tensor, item_emb: torch.Tensor, k: int,
     return vals, idx
 
 
-mips_topk.launches = 0
+counter(mips_topk, "launches")
 
 
 def mips_lse(user_emb: torch.Tensor, item_emb: torch.Tensor, bf16: bool = False):
@@ -331,7 +327,7 @@ def mips_lse(user_emb: torch.Tensor, item_emb: torch.Tensor, bf16: bool = False)
     return m, s
 
 
-mips_lse.launches = 0
+counter(mips_lse, "launches")
 
 
 def mips_boost(user_emb: torch.Tensor, item_emb: torch.Tensor,
@@ -366,7 +362,7 @@ def mips_boost(user_emb: torch.Tensor, item_emb: torch.Tensor,
     return vals, idx
 
 
-mips_boost.launches = 0
+counter(mips_boost, "launches")
 
 
 def mips_topk_boosted(user_emb: torch.Tensor, item_emb: torch.Tensor,
@@ -380,8 +376,3 @@ def mips_topk_boosted(user_emb: torch.Tensor, item_emb: torch.Tensor,
                                            weight=weight, bf16=bf16)
     m, s = mips_lse(user_emb, item_emb, bf16=bf16)
     return mips_boost(user_emb, item_emb, popularity, m, s, k, weight=weight, bf16=bf16)
-
-
-def reset_launch_counts() -> None:
-    for fn in (mips_topk, mips_lse, mips_boost):
-        fn.launches = 0

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from gnn_recsys_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch, replicate
+from gnn_recsys_tpu_torch.parallel.mesh import Mesh, _tree_map, make_mesh, replicate, shard_batch
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
@@ -159,11 +159,3 @@ def global_put(mesh: Mesh, tree, spec: Optional[str] = None) -> List:
         return x[first * n:(first + d) * n]
 
     return shard_batch(mesh, _tree_map(mine, tree), spec)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)

@@ -51,7 +51,7 @@ from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.models.layers import dropout_keep_mask
 from gnn_recsys_tpu_torch.ops.sampling import Draws, sample_neighbors
 from gnn_recsys_tpu_torch.parallel import distributed
-from gnn_recsys_tpu_torch.parallel.mesh import Mesh, shard_batch
+from gnn_recsys_tpu_torch.parallel.mesh import Mesh, _tree_map, shard_batch
 from gnn_recsys_tpu_torch.train.minibatch import (
     MinibatchConfig,
     batch_exclusion,
@@ -623,7 +623,7 @@ def make_shardmap_dp_step(model: ConvModel, cfg: MinibatchConfig, train_etypes, 
     n = len(devices)
     replicas, placer = _Replicas(model), _Placer(mesh)
     losses_of = {}
-    static: Dict = {}
+    static: Dict = {}  # the shards' captured steps and their outputs
 
     def local(i, graph, features, batch, edge_tables, draws):
         dev = devices[i]
@@ -639,14 +639,13 @@ def make_shardmap_dp_step(model: ConvModel, cfg: MinibatchConfig, train_etypes, 
     def capture_shards(graph, features, blocks, edge_tables, draws):
         from gnn_recsys_tpu_torch.train.graph_step import CapturedStep
 
-        static.update(inputs=(graph, features, edge_tables), out={}, steps=[],
-                      batch=[{et: {k: v.clone() for k, v in d.items()} for et, d in b.items()}
-                             for b in blocks])
+        static.update(out={}, steps=[])
+        fed = [_tree_map(torch.clone, b) for b in blocks]
         for i, d in enumerate(draws):
             def body(update, step_draws, i=i):
-                static["out"][i] = local(i, graph, features, static["batch"][i], edge_tables,
-                                         step_draws)
-            static["steps"].append(CapturedStep(body, d))
+                static["out"][i] = local(i, graph, features, fed[i], edge_tables, step_draws)
+            static["steps"].append(CapturedStep(body, d, held=(graph, features, edge_tables),
+                                                fed=fed[i]))
         step_ref().captured = static["steps"]
 
     def step(state, graph, features, batch, edge_tables, draws):
@@ -658,15 +657,8 @@ def make_shardmap_dp_step(model: ConvModel, cfg: MinibatchConfig, train_etypes, 
         if _on_graph(capture, draws):
             if not static:
                 capture_shards(graph, features, blocks, edge_tables, draws)
-            if any(a is not b for a, b in zip(static["inputs"], (graph, features, edge_tables))):
-                raise ValueError("a captured step replays on the inputs it was captured with")
-            for i, (b, d) in enumerate(zip(blocks, draws)):
-                if d.generator is not static["steps"][i].generator:
-                    raise ValueError("a captured step replays with the generators it was "
-                                     "captured with")
-                for et, cols in b.items():
-                    for k, v in cols.items():
-                        static["batch"][i][et][k].copy_(v)
+            for s, b, d in zip(static["steps"], blocks, draws):
+                s.check((graph, features, edge_tables), d.generator, b)
             for s in static["steps"]:
                 with torch.cuda.device(s.generator.device):  # a replay runs on its card
                     s.replay()

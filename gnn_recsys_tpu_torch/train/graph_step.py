@@ -23,31 +23,28 @@ capture follows PyTorch's whole-network pattern:
    replay, and the host half of the update (the schedule, the count) runs
    after it.
 
-A replay calls no Python wrapper, so the wrappers' launch counters
-(``ops/cuda/build.py:launch_counters``) would not see the kernels it runs:
-the launches made during capture are taken off the counters and kept as
-:attr:`CapturedStep.launches`, which each replay adds back; the LSTM
-reducer's counters (``models/layers.py:MaskedLSTMReducer.COUNTERS``) are
-carried alike, in :attr:`CapturedStep.lstm_counts`.  For the same
-reason the program's spans stay outside the captured body: a capture and
-its warm-up steps run in a ``gnn.train.capture`` span, each replay (its
-host part: the learning rates, the launch, Adam's host half, the counts)
-in a ``gnn.train.replay`` span.  A failed capture or replay raises;
-nothing falls back to the host loop.
+A replay runs no Python, so the counters declared in ``utils/profiling.py``
+would not see it: what the capture counted is taken off them and kept as
+:attr:`CapturedStep.counts`, which each replay adds back.  For the same
+reason the program's spans stay outside the captured body: a capture and its
+warm-up steps run in a ``gnn.train.capture`` span, each replay (its host
+part: the learning rates, the launch, Adam's host half, the counts) in a
+``gnn.train.replay`` span.  A replay reads what its capture read, by address:
+:meth:`CapturedStep.check` holds a call to the same objects and generator and
+copies fresh inputs into the graph's buffers.  A failed capture or replay
+raises; nothing falls back to the host loop.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer
-from gnn_recsys_tpu_torch.ops.cuda import build
 from gnn_recsys_tpu_torch.ops.sampling import Draws
 from gnn_recsys_tpu_torch.train.full_batch import TrainState
-from gnn_recsys_tpu_torch.utils.profiling import span
+from gnn_recsys_tpu_torch.utils.profiling import add_counts, counter_values, span
 
 # Eager steps on a side stream before the capture.
 WARMUP_STEPS = 2
@@ -125,16 +122,22 @@ def _restore(state: Optional[TrainState], held) -> None:
                         v.zero_()
 
 
-def take_launches(counters: Dict, before: Dict[str, int]) -> Dict[str, int]:
-    """The launches that ``counters`` (name -> wrapper with ``.launches``)
-    counted since ``before``, by name where nonzero, taken off the counters:
-    a capture launches nothing, and each replay adds them back."""
-    out = {}
-    for name, fn in counters.items():
-        if fn.launches != before[name]:
-            out[name] = fn.launches - before[name]
-            fn.launches = before[name]
-    return out
+def take_counts(before: Dict[str, int]) -> Dict[str, int]:
+    """What every counter counted since ``before`` (``counter_values()``),
+    where nonzero, taken off it: a capture runs nothing, each replay adds it."""
+    counts = {name: n - before.get(name, 0) for name, n in counter_values().items()
+              if n != before.get(name, 0)}
+    add_counts({name: -n for name, n in counts.items()})
+    return counts
+
+
+def _feed(buffer, value) -> None:
+    """Copy ``value``'s tensors into ``buffer``'s (nested dicts) where new."""
+    if isinstance(buffer, dict):
+        for key, buf in buffer.items():
+            _feed(buf, value[key])
+    elif value is not buffer:
+        buffer.copy_(value)
 
 
 class CapturedStep:
@@ -142,14 +145,17 @@ class CapturedStep:
     generator's device.  ``body`` runs one step on static inputs: ``update``
     is a :class:`DeviceUpdate` of ``state`` for a training step (None for a
     loss-only step, ``state`` None), and ``draws`` the step's draw source.
-    Capturing runs :data:`WARMUP_STEPS` eager steps first (their launches
-    count: they ran).  The step holds ``body`` and so every tensor it reads."""
+    Capturing runs :data:`WARMUP_STEPS` eager steps first (their counts
+    stand: they ran).  The step holds ``body`` and so every tensor it reads.
+    :meth:`check` holds a call to ``held``, the objects that every call must
+    pass again, and refreshes ``fed``, the buffers that ``body`` reads."""
 
     def __init__(self, body: Callable, draws: Draws, state: Optional[TrainState] = None,
-                 warmup: int = WARMUP_STEPS):
+                 held: Sequence = (), fed=None, warmup: int = WARMUP_STEPS):
         dev = draws.generator.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
+        self.held, self.fed = tuple(held), fed
         # The capture and its streams on the generator's card.
         with span("gnn.train.capture"), torch.cuda.device(dev):
             self._capture(body, draws, state, warmup)
@@ -169,7 +175,6 @@ class CapturedStep:
             self.lrs = [torch.full((), float(g["lr"]), dtype=torch.float32, device=dev)
                         for g in state.tx.param_groups]
             update = DeviceUpdate(state, self.lrs)
-        counters = build.launch_counters()
         held = _snapshot(state)
         side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -181,25 +186,25 @@ class CapturedStep:
                 body(update, scratch)
         torch.cuda.current_stream(dev).wait_stream(side)
         _restore(state, held)
-        before = {name: fn.launches for name, fn in counters.items()}
-        lstm_before = {name: getattr(MaskedLSTMReducer, name)
-                       for name in MaskedLSTMReducer.COUNTERS}
+        before = counter_values()
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph, stream=_capture_stream(dev)):
             body(update, draws)
         torch.cuda.synchronize(dev)
-        self.launches = take_launches(counters, before)
-        self._counters = counters
-        self.lstm_counts = {name: getattr(MaskedLSTMReducer, name) - n
-                            for name, n in lstm_before.items()
-                            if getattr(MaskedLSTMReducer, name) != n}
-        for name, n in lstm_before.items():
-            setattr(MaskedLSTMReducer, name, n)
+        self.counts = take_counts(before)
+
+    def check(self, held: Sequence, generator: torch.Generator, fed) -> None:
+        """Raise unless ``held`` and ``generator`` are what the capture read;
+        then copy ``fed`` (shaped as the step's buffers) into the buffers."""
+        if any(a is not b for a, b in zip(self.held, held)):
+            raise ValueError("a captured step replays on the inputs it was captured with")
+        if generator is not self.generator:
+            raise ValueError("a captured step replays with the generator it was captured with")
+        _feed(self.fed, fed)
 
     def replay(self) -> None:
-        """One step: fill the learning rates, replay, then the host half of
-        the update, the launch counts and the LSTM's counts."""
+        """One step: the learning rates, the replay, Adam's host half, the counts."""
         with span("gnn.train.replay"):
             if self.state is not None:
                 for lr, g in zip(self.lrs, self.state.tx.param_groups):
@@ -207,7 +212,4 @@ class CapturedStep:
             self.graph.replay()
             if self.state is not None:
                 self.state.advance()
-            for name, n in self.launches.items():
-                self._counters[name].launches += n
-            for name, n in self.lstm_counts.items():
-                setattr(MaskedLSTMReducer, name, getattr(MaskedLSTMReducer, name) + n)
+            add_counts(self.counts)

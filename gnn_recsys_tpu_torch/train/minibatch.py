@@ -367,7 +367,7 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
         if capture is None and len(set(mesh.devices.flat)) > 1:
             capture = False
     per_et, n_batches = _per_etype_batch_sizes(counts, cfg.edge_batch_size, round_to)
-    static: Dict = {}  # the captured route's buffers and inputs
+    static: Dict = {}  # the captured route's step, its step index and losses
 
     def perm_fn(eids, generator):
         with span("gnn.train.permutation"):
@@ -376,8 +376,8 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
                      for et in train_etypes}
             if static:  # straight into the graph's buffers
                 for et in train_etypes:
-                    static["perms"][et].copy_(perms[et])
-                return static["perms"]
+                    static["step"].fed[et].copy_(perms[et])
+                return static["step"].fed
             return perms
 
     def batch_at(store, perms, t):
@@ -408,9 +408,9 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
             losses.index_copy_(0, (t % n_batches).reshape(1), loss.detach().reshape(1))
             t.add_(1)
 
-        static.update(t=t, losses=losses, perms=buffers,
-                      inputs=(state, graph, features, edge_tables, store),
-                      step=CapturedStep(body, draws, state if with_update else None))
+        static.update(t=t, losses=losses, step=CapturedStep(
+            body, draws, state if with_update else None,
+            held=(state, graph, features, edge_tables, store), fed=buffers))
         chunk_ref().captured = static["step"]
 
     def chunk_fn(state, graph, features, edge_tables, store, perms, t0, draws, n_steps: int):
@@ -430,14 +430,8 @@ def make_epoch_fns(model: ConvModel, cfg: MinibatchConfig,
                                  f"not {type(draws).__name__}")
             if not static:
                 capture_step(state, graph, features, edge_tables, store, perms, draws)
-            if any(a is not b for a, b in zip(static["inputs"],
-                                              (state, graph, features, edge_tables, store))):
-                raise ValueError("a captured step replays on the inputs it was captured with")
-            if draws.generator is not static["step"].generator:
-                raise ValueError("a captured step replays with the generator it was captured with")
-            for et in train_etypes:
-                if perms[et] is not static["perms"][et]:
-                    static["perms"][et].copy_(perms[et])
+            static["step"].check((state, graph, features, edge_tables, store), draws.generator,
+                                 perms)
             if n_steps > n_batches:
                 raise ValueError(f"a captured chunk takes at most the epoch's {n_batches} steps, "
                                  f"not {n_steps}")

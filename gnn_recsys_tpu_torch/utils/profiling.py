@@ -1,13 +1,13 @@
 """Profiling and throughput: a ``torch.profiler`` trace context, the
-program's spans and its host-to-device byte counter, and an edges-a-second
-meter (port of ``gnn_recsys_tpu/utils/profiling.py``)."""
+program's spans, its counters (and the host-to-device byte counter), and an
+edges-a-second meter (port of ``gnn_recsys_tpu/utils/profiling.py``)."""
 
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,6 +59,33 @@ def span(name: str):
     return _NO_SPAN
 
 
+# The program's counters, "owner.attribute" -> (owner, attribute): a
+# captured CUDA graph carries every one across its replays.
+DECLARED: Dict[str, Tuple[object, str]] = {}
+
+
+def counter(owner, *attrs: str) -> None:
+    """Declare the counters ``owner.<attr>``, plain integers that ``owner`` (a
+    function or a class) adds to, and set them to 0."""
+    for attr in attrs:
+        setattr(owner, attr, 0)
+        DECLARED[f"{owner.__qualname__}.{attr}"] = (owner, attr)
+
+
+def counter_values() -> Dict[str, int]:
+    return {name: getattr(owner, attr) for name, (owner, attr) in DECLARED.items()}
+
+
+def add_counts(counts: Dict[str, int]) -> None:
+    for name, n in counts.items():
+        owner, attr = DECLARED[name]
+        setattr(owner, attr, getattr(owner, attr) + n)
+
+
+def reset_counters() -> None:
+    add_counts({name: -n for name, n in counter_values().items()})
+
+
 def to_device(x, device):
     """``x.to(device)`` for a tensor or a module, counting in
     ``to_device.h2d_bytes`` the bytes that leave host memory for another
@@ -72,7 +99,7 @@ def to_device(x, device):
     return x.to(device)
 
 
-to_device.h2d_bytes = 0
+counter(to_device, "h2d_bytes")
 
 
 class ThroughputMeter:

@@ -34,11 +34,19 @@ from gnn_recsys_tpu.train import full_batch as jfb
 from gnn_recsys_tpu.train import minibatch as jmb
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.models.convert import params_from_jax
+from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer
+from gnn_recsys_tpu_torch.ops.cuda import build
+from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
+from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
+from gnn_recsys_tpu_torch.ops.cuda import lstm_cell as lc
+from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
+from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import PaddedPairSet, build_padded_pair_set
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
 from gnn_recsys_tpu_torch.train import full_batch as tfb
 from gnn_recsys_tpu_torch.train import graph_step
 from gnn_recsys_tpu_torch.train import minibatch as tmb
+from gnn_recsys_tpu_torch.utils import profiling
 from gnn_recsys_tpu_torch.utils.synthetic import make_synthetic_data
 
 ET_BUYS = ("user", "buys", "item")
@@ -215,43 +223,96 @@ def test_device_epoch_matches_host_loop_learning():
     assert abs(finals[True] - finals[False]) < 0.5 * max(abs(finals[False]), 0.05)
 
 
-class _Counted:
-    def __init__(self, n):
-        self.launches = n
+class _Graph:
+    """A CUDA graph's stand-in: counts its replays."""
+
+    replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def stub_step(**attrs) -> graph_step.CapturedStep:
+    """A :class:`~gnn_recsys_tpu_torch.train.graph_step.CapturedStep` as a
+    capture leaves it, with a stand-in graph and no training state."""
+    step = graph_step.CapturedStep.__new__(graph_step.CapturedStep)
+    step.graph, step.state = _Graph(), None
+    for name, value in attrs.items():
+        setattr(step, name, value)
+    return step
 
 
 def test_capture_launch_accounting(monkeypatch):
-    """What a capture counted comes off the counters (it launched nothing)
-    and each replay adds it back: captured launches x replays, and the
-    LSTM reducer's counts alike."""
-    counters = {"leaf_mean_nn_fwd": _Counted(5), "pool_membership_mask": _Counted(1),
-                "mips_topk": _Counted(7)}
-    before = {n: c.launches for n, c in counters.items()}
-    counters["leaf_mean_nn_fwd"].launches += 12  # what the capture's Python calls counted
-    counters["pool_membership_mask"].launches += 2
-    took = graph_step.take_launches(counters, before)
-    assert took == {"leaf_mean_nn_fwd": 12, "pool_membership_mask": 2}
-    assert {n: c.launches for n, c in counters.items()} == before
+    """What a capture counted comes off every declared counter (it launched
+    nothing) and each replay adds it back: a stand-in counter of neither a
+    kernel nor the LSTM, a kernel wrapper's launches and the LSTM reducer's
+    row slots alike, and no other counter moves."""
+    monkeypatch.setattr(profiling, "DECLARED", dict(profiling.DECLARED))
 
-    class _Graph:
-        replays = 0
+    def stand_in():
+        pass
 
-        def replay(self):
-            self.replays += 1
+    profiling.counter(stand_in, "calls")
+    monkeypatch.setattr(gm.gather_mean_fwd, "launches", 5)
+    monkeypatch.setattr(MaskedLSTMReducer, "row_slots", 3)
+    stand_in.calls = 1
+    before = profiling.counter_values()
+    stand_in.calls += 4  # what the capture's Python calls counted
+    gm.gather_mean_fwd.launches += 12
+    MaskedLSTMReducer.row_slots += 1011712
+    took = graph_step.take_counts(before)
+    assert took == {f"{stand_in.__qualname__}.calls": 4, "gather_mean_fwd.launches": 12,
+                    "MaskedLSTMReducer.row_slots": 1011712}
+    assert profiling.counter_values() == before
 
-    lstm = graph_step.MaskedLSTMReducer
-    monkeypatch.setattr(lstm, "slot_steps", 3)
-    monkeypatch.setattr(lstm, "row_slots", 0)
-    step = graph_step.CapturedStep.__new__(graph_step.CapturedStep)
-    step.graph, step.state, step.launches, step._counters = _Graph(), None, took, counters
-    step.lstm_counts = {"slot_steps": 112, "row_slots": 1011712}
+    step = stub_step(counts=took)
     for _ in range(7):
         step.replay()
     assert step.graph.replays == 7
-    assert counters["leaf_mean_nn_fwd"].launches == 5 + 7 * 12
-    assert counters["pool_membership_mask"].launches == 1 + 7 * 2
-    assert counters["mips_topk"].launches == 7
-    assert (lstm.slot_steps, lstm.row_slots) == (3 + 7 * 112, 7 * 1011712)
+    after = profiling.counter_values()
+    assert (stand_in.calls, gm.gather_mean_fwd.launches, MaskedLSTMReducer.row_slots) == (
+        1 + 7 * 4, 5 + 7 * 12, 3 + 7 * 1011712)
+    assert {n: v for n, v in after.items() if n not in took} == {
+        n: v for n, v in before.items() if n not in took}
+
+
+def test_capture_guards_hold_a_replay_to_its_capture():
+    """A call must pass the objects and the generator that the capture read
+    (each raises its message otherwise); a fresh fed tensor is copied into
+    its buffer, which stays the graph's, and a buffer passed back as itself
+    is left alone."""
+    held, gen = (object(), {"features": 1}), torch.Generator()
+    buffers = {"a": torch.zeros(3), "b": {"c": torch.zeros(2)}}
+    a, c = buffers["a"], buffers["b"]["c"]
+    step = stub_step(held=held, fed=buffers, generator=gen)
+    with pytest.raises(ValueError, match="a captured step replays on the inputs it was "
+                                         "captured with"):
+        step.check((held[0], {"features": 1}), gen, buffers)
+    with pytest.raises(ValueError, match="a captured step replays with the generator it was "
+                                         "captured with"):
+        step.check(held, torch.Generator(), buffers)
+    fresh = torch.arange(3.0)
+    step.check(held, gen, {"a": fresh, "b": {"c": c}})
+    fresh.add_(1)
+    assert step.fed["a"] is a and torch.equal(a, torch.arange(3.0))
+    assert step.fed["b"]["c"] is c and torch.equal(c, torch.zeros(2))
+
+
+def test_launch_counters_name_the_ten_wrappers(monkeypatch):
+    """``build.launch_counters()`` reads the registry and names exactly the
+    ten kernel wrappers of the package: a ``launches`` counter declared
+    elsewhere is not one of them."""
+    monkeypatch.setattr(profiling, "DECLARED", dict(profiling.DECLARED))
+
+    def stand_in():
+        pass
+
+    profiling.counter(stand_in, "launches")
+    fns = (la.leaf_mean_nn_fwd, la.leaf_mean_nn_bwd, pm.pool_membership_mask,
+           gm.gather_mean_fwd, gm.gather_mean_bwd, tm.mips_topk, tm.mips_lse, tm.mips_boost,
+           lc.lstm_cell_fwd, lc.lstm_cell_bwd)
+    assert build.launch_counters() == {fn.__name__: fn for fn in fns}
+    assert all(profiling.DECLARED[f"{fn.__name__}.launches"] == (fn, "launches") for fn in fns)
 
 
 def test_warmup_restore_gives_a_first_update():

@@ -39,11 +39,13 @@ DRIVER = core.load_module(ROOT / "portbench" / "drivers" / "device_epochs.py",
 TOL = {"loss_gap": 1e-5, "grad_gap": 1e-5, "update_gap": 1e-4}
 SEED = 2**31 + 17
 STEPS = 3
+# The reducer's counters (``utils/profiling.py:counter``).
+REDUCER_COUNTS = ("slot_steps", "row_slots")
 
 
 @pytest.fixture(autouse=True)
 def fresh_counters(monkeypatch):
-    for name in MaskedLSTMReducer.COUNTERS:
+    for name in REDUCER_COUNTS:
         monkeypatch.setattr(MaskedLSTMReducer, name, 0)
 
 
@@ -202,7 +204,7 @@ def test_span_and_counters_of_one_eager_step(tmp_path):
     assert {e["cat"] for e in spans} == {"user_annotation"}
     k1, k2 = world.conf["step"]["fanouts"]
     assert len(spans) * k1 >= want["slot_steps"] >= len(spans) * k2
-    assert {n: getattr(MaskedLSTMReducer, n) for n in MaskedLSTMReducer.COUNTERS} == want
+    assert {n: getattr(MaskedLSTMReducer, n) for n in REDUCER_COUNTS} == want
     ops = span_ops(events, "gnn.lstm.reduce")
     assert ops.spans == len(spans) and ops.fwd_ops == ops.bwd_ops == 0
 
@@ -216,10 +218,11 @@ def test_replays_add_their_steps_counts():
     world = World(torch.device("cuda"))
     world.steps(0, 0)  # the capture
     want = world.one_step_counts()
-    assert world.chunk_fn.captured.lstm_counts == want
-    for name in MaskedLSTMReducer.COUNTERS:
+    counts = world.chunk_fn.captured.counts
+    assert {n: counts[f"MaskedLSTMReducer.{n}"] for n in REDUCER_COUNTS} == want
+    for name in REDUCER_COUNTS:
         setattr(MaskedLSTMReducer, name, 0)
     losses = world.steps(0, 3).cpu()
     assert bool(torch.isfinite(losses).all())
-    assert {n: getattr(MaskedLSTMReducer, n) for n in MaskedLSTMReducer.COUNTERS} == {
+    assert {n: getattr(MaskedLSTMReducer, n) for n in REDUCER_COUNTS} == {
         n: 3 * v for n, v in want.items()}
