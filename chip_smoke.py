@@ -268,7 +268,8 @@ from gnn_recsys_tpu_torch.data.presplit import presplit_data
 from gnn_recsys_tpu_torch.data.table import Table
 from gnn_recsys_tpu_torch.graph.hetero import attach_leaf_features, uncap
 from gnn_recsys_tpu_torch.hpsearch import run_search
-from gnn_recsys_tpu_torch.inference import already_bought_from_graph, inference_ondemand
+from gnn_recsys_tpu_torch.inference import (already_bought_from_graph, bought_table,
+                                            inference_ondemand)
 from gnn_recsys_tpu_torch.models import conv_model
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
 from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer, l2_normalize
@@ -1392,9 +1393,7 @@ def request_breakdown(run_dir, dev, uids, k, mesh=None) -> dict:
         g = step("uncap", lambda: uncap(g))
     h = step("embed", lambda: infer_embeddings(model, g, feats, ntypes=("user", "item"),
                                                 device=dev, mesh=mesh))
-    ab_u, ab_i = already_bought_from_graph(g)
-    ps = step("bought_table",
-              lambda: build_padded_pair_set(ab_u, ab_i, num_src=g.num_nodes("user")))
+    ps = step("bought_table", lambda: bought_table(g))
     if mesh is None:
         step("rank", lambda: get_recs(h["user"], h["item"], uids, k, already_bought=ps,
                                       device=dev).cpu())
@@ -1481,6 +1480,12 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
         sync(dev)
         report["metrics_s"] = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in (tm.mips_topk, tm.mips_lse, tm.mips_boost)}
+        # Each request's bought table by its route: the graph's rows, or the host pack.
+        routes = {"requests": inference_ondemand.requests,
+                  "from_graph": bought_table.from_graph, "packed": bought_table.packed}
+        if routes["from_graph"] != routes["requests"]:
+            raise AssertionError(f"a request packed its bought table on the host: {routes}")
+        report["bought_table_routes"] = routes
         report["request_breakdown_s"] = request_breakdown(
             run_dir, dev, rng.choice(num_users, request_sizes[-1], replace=False), k)
     report.update(requests=latencies, launches=launches,

@@ -57,12 +57,48 @@ def postprocess_recs(recs, user_node_ids: np.ndarray, pdt_id_df, ctm_id_df) -> D
     }
 
 
+BUYS = ("user", "buys", "item")
+BOUGHT_BY = FixedParams().reverse_etype[BUYS]
+
+
 def already_bought_from_graph(
-    graph: HeteroGraph, etype=("user", "buys", "item")
+    graph: HeteroGraph, etype=BUYS
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(user, item) pairs already purchased (reference main_inference.py:95-99)."""
     rel = graph.rels[etype]
     return rel.src.cpu().numpy(), rel.dst.cpu().numpy()
+
+
+def bought_table(graph: HeteroGraph) -> PaddedPairSet:
+    """A request's already-bought table: each user's bought items, -1
+    padded, as :func:`build_padded_pair_set` packs
+    :func:`already_bought_from_graph`'s pairs.
+
+    The reverse relation ``bought-by`` already holds that table in its
+    padded rows (``nbr``: keyed by user, items in edge-id order, -1 at
+    padding) wherever every one of these holds: no row was cut by a
+    ``max_fanout`` cap, its COO is the purchases' swapped element for
+    element (so each row's slots come in the same order), and its width is
+    the one the pack would choose (so ``max_row``, and with it retrieval's
+    fetch width and route, stay the same).  There the table is those rows,
+    no copy, and adds one to ``bought_table.from_graph``; elsewhere the host
+    packs it, and adds one to ``bought_table.packed``.  Either way the same
+    bits.  Nothing may write into the rows: they may be the graph's own."""
+    num_users = graph.num_nodes(BUYS[0])
+    rev = graph.rels.get(BOUGHT_BY)
+    if rev is not None and rev.nbr.dtype == torch.int32 and rev.nbr.shape[0] == num_users:
+        fwd = graph.rels[BUYS]
+        natural = int(rev.deg.max()) if rev.num_edges else 0
+        width = max(-(-natural // 8) * 8, 8)  # the pack's: largest row up to a multiple of 8
+        if (int(rev.deg.sum()) == rev.num_edges and rev.nbr.shape[1] == width
+                and torch.equal(rev.src, fwd.dst) and torch.equal(rev.dst, fwd.src)):
+            bought_table.from_graph += 1
+            return PaddedPairSet(rows=rev.nbr, num_src=num_users)
+    bought_table.packed += 1
+    return build_padded_pair_set(*already_bought_from_graph(graph), num_src=num_users)
+
+
+counter(bought_table, "from_graph", "packed")
 
 
 def inference_ondemand(
@@ -152,8 +188,7 @@ def inference_ondemand(
         already: Optional[PaddedPairSet] = None
         if remove_already_bought:
             with span("gnn.serve.bought_table"):
-                ab_u, ab_i = already_bought_from_graph(graph)
-                already = build_padded_pair_set(ab_u, ab_i, num_src=graph.num_nodes("user"))
+                already = bought_table(graph)
         if use_popularity is None:
             hp_dict = run["hyper_params"] or {}
             known = {f.name for f in dataclasses.fields(HyperParams)}

@@ -52,11 +52,14 @@ def test_kernel_phase_rehearsal():
     assert by == "operations" and abs(ms - 0.4695) < 1e-3
 
 
-def test_slice_and_train_phase_rehearsal(data):
+def test_slice_and_train_phase_rehearsal(data, capsys):
     launches, recall = chip_smoke.phase_slice(torch.device("cpu"), data, hidden=32, out=16,
                                               request_sizes=(1, 8, 64), on_card=False)
     assert launches == {"mips_topk": 0, "mips_lse": 0, "mips_boost": 0}
     assert 0.0 <= recall <= 1.0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # Four requests, each served the graph's bought-by rows.
+    assert report["bought_table_routes"] == {"requests": 4, "from_graph": 4, "packed": 0}
     launches, _ = chip_smoke.phase_train(torch.device("cpu"), data, hidden=32, out=16, steps=16,
                                          batch_size=128, pool=48, random_recall=recall,
                                          on_card=False)
