@@ -53,6 +53,7 @@ from gnn_recsys_tpu_torch.ops.sampling import (
     sample_neighbors,
     unique_plan,
 )
+from gnn_recsys_tpu_torch.utils.profiling import span
 
 # Edge pairs per etype: (src ids, dst ids).
 PairDict = Dict[CanonicalEtype, Tuple[torch.Tensor, torch.Tensor]]
@@ -746,17 +747,19 @@ class ConvModel(nn.Module):
     def score_emb_pairs(self, emb_u: torch.Tensor, emb_v: torch.Tensor) -> torch.Tensor:
         """Scores of embedding pairs on the last axis, shapes broadcast
         (``conv_model.py:1045-1062``): cosine, or the MLP head on the concat
-        (reference src/model.py:317-327, 275-305).  f32."""
+        (reference src/model.py:317-327, 275-305).  f32.  The head runs in
+        a ``gnn.pred.score`` span."""
         if self.pred == "cos":
             return (l2_normalize(emb_u) * l2_normalize(emb_v)).sum(dim=-1).float()
-        u, v = torch.broadcast_tensors(emb_u, emb_v)
-        return self.pred_layer(torch.cat([u, v], dim=-1))[..., 0].float()
+        with span("gnn.pred.score"):
+            u, v = torch.broadcast_tensors(emb_u, emb_v)
+            return self.pred_layer(torch.cat([u, v], dim=-1))[..., 0].float()
 
     def score_pairs(self, h: Dict[str, torch.Tensor], pairs: PairDict) -> Dict:
         """Scores of (src, dst) node-id pairs per etype (``conv_model.py:1159-1188``):
         cosine as ``edge_dot`` of the L2-normalised tables, or the MLP head on
-        the gathered concat.  Id tensors may have any shape; the f32 scores
-        keep it."""
+        the gathered concat (in a ``gnn.pred.score`` span).  Id tensors may
+        have any shape; the f32 scores keep it."""
         out = {}
         for etype, (src_ids, dst_ids) in pairs.items():
             hu, hv = h[etype[0]], h[etype[2]]
@@ -764,8 +767,9 @@ class ConvModel(nn.Module):
             if self.pred == "cos":
                 scores = edge_dot(l2_normalize(hu), l2_normalize(hv), src, dst)
             else:
-                x = torch.cat([_take_rows(hu, src), _take_rows(hv, dst)], dim=-1)
-                scores = self.pred_layer(x).reshape(-1)
+                with span("gnn.pred.score"):
+                    x = torch.cat([_take_rows(hu, src), _take_rows(hv, dst)], dim=-1)
+                    scores = self.pred_layer(x).reshape(-1)
             out[etype] = scores.reshape(src_ids.shape).float()
         return out
 

@@ -312,7 +312,10 @@ class PredictingLayer(nn.Module):
     """The MLP scoring head of ``pred='nn'`` (``layers.py:211-229``;
     reference ``src/model.py:240-272``): concat(u, i) -> Dense 128 -> ReLU ->
     Dense 32 -> ReLU -> Dense 1 -> sigmoid, in the model's computation
-    dtype.  ``in_feats`` is the concat's width (twice the embedding's)."""
+    dtype.  ``in_feats`` is the concat's width (twice the embedding's).
+
+    Each call counts the pairs it scores, the score tensor's element count,
+    in a counter on the class (``pairs``; ``utils/profiling.py:counter``)."""
 
     def __init__(self, in_feats: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -328,9 +331,13 @@ class PredictingLayer(nn.Module):
             nn.init.zeros_(lin.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        PredictingLayer.pairs += math.prod(x.shape[:-1])
         x = torch.relu(dense(self.hidden_1, x, self.dtype))
         x = torch.relu(dense(self.hidden_2, x, self.dtype))
         return torch.sigmoid(dense(self.output, x, self.dtype))
+
+
+counter(PredictingLayer, "pairs")
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
