@@ -17,7 +17,8 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    kernels' f32 and bf16 16-byte paths at K = 8 and 4, and the full-fanout
    design's forward at K > 32 and backward kernels; ``topk_kernel``'s f32
    top-k and boost epilogues with lists in the shared buffer and its LSE
-   epilogue; the pool mask) must not spill.
+   epilogue; the pool mask; the head's tower's bf16 forward, dW2 pass and
+   sums) must not spill.
 3. kernels: each kernel against its plain version; its time (``ms``: the
    device time of its kernels under ``torch.profiler``; ``events_ms``: CUDA
    events around back-to-back calls, host overhead included) beside the
@@ -54,7 +55,12 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    (2,048, 4,608, 8,192, 18,432), bf16 within one ulp of the plain version
    and bit-equal on 99.9% of the elements (rows ``lstm_cell_*`` and
    ``lstm_cell_*:bf16``, timed at N = 18,432 beside PyTorch's fused LSTM
-   cell).
+   cell); the MLP head's tower over the dense pool's cross form at the
+   bench step's B = 1,024 users and P = 2,560 pool items, forward and
+   backward: f32 (a ``kernel_case`` line) on inputs whose pre-activations
+   stay away from zero, and bf16 (rows ``pred_tower_*:bf16``) on free
+   inputs, beside the unfactorised concat head the port ran before
+   (``pred_tower_rows``).
 4. slice: the 100k-user / 30k-item synthetic graph of ``bench.py``, the
    Medium ``ConvModel`` (hidden 256, out 128, mean_nn, cos, 2 conv layers)
    with seeded random weights saved as a run; requests of 1, 128 and 4096
@@ -140,7 +146,10 @@ Phases, one line each; a failing phase raises and the exit code is not 0:
    gradients within 5e-2 of each parameter's largest entry, parameters
    within 2 * lr: the dedup step's ``index_add_`` adds bf16 cotangents with
    atomics), and recall@10 after training, which must beat the random
-   weights' of phase 4.
+   weights' of phase 4.  Then ``train_graph_nn_bf16``: the tree step of
+   phase 10 with the MLP head (``pred='nn'``), whose dense pool runs the
+   tower kernels (two forward and two backward launches a step; no recall
+   check: the cosine ranking does not rank for that head).
 11. train_full_batch: BASELINE config[0] (2-layer mean GraphSAGE,
    full-batch, recall@10) at the Medium width (hidden 256, out 128, cosine
    head, dropout 0) through ``train_full_batch`` on the bench generator's
@@ -272,12 +281,13 @@ from gnn_recsys_tpu_torch.inference import (already_bought_from_graph, bought_ta
                                             inference_ondemand)
 from gnn_recsys_tpu_torch.models import conv_model
 from gnn_recsys_tpu_torch.models.conv_model import ConvModel
-from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer, l2_normalize
+from gnn_recsys_tpu_torch.models.layers import MaskedLSTMReducer, PredictingLayer, l2_normalize
 from gnn_recsys_tpu_torch.ops.cuda import build
 from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
 from gnn_recsys_tpu_torch.ops.cuda import lstm_cell as lc
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
+from gnn_recsys_tpu_torch.ops.cuda import pred_tower as pt
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import build_padded_pair_set, scatter_row_mask
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
@@ -338,6 +348,7 @@ from gnn_recsys_tpu_torch.utils.synthetic import (
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-5  # f32 sums in another order than the plain version's product
 # dW / db: sums of K*P terms, relative to the largest entry; the gather-mean
@@ -374,6 +385,17 @@ GATHER = ("gnn_recsys_tpu_torch/csrc/gather_mean.cu", "gnn_recsys_tpu/ops/pallas
 # The LSTM cell replaces no Pallas kernel: its row names the JAX reducer's
 # nn.scan (gnn_recsys_tpu/models/layers.py:79).
 LSTM = ("gnn_recsys_tpu_torch/csrc/lstm_cell.cu", "gnn_recsys_tpu/models/layers.py")
+# Nor does the MLP head's tower: its rows name the JAX PredictingLayer,
+# which XLA runs (gnn_recsys_tpu/models/layers.py:211).
+PRED = ("gnn_recsys_tpu_torch/csrc/pred_tower.cu", "gnn_recsys_tpu/models/layers.py")
+# The tower's gradients in bf16, by the norm of each difference over the
+# plain version's norm: the kernels round dz2 to bf16, the plain version
+# dz2 W2, about 2^-9 of each per-pair term (0.0023-0.0044 measured).
+PRED_GRAD_NORM = 1e-2
+# In f32, on inputs whose pre-activations stay away from zero: each gradient
+# within this share of its largest entry (sums of up to 2.6M per-pair terms
+# in another order; 5.6e-6 measured).
+PRED_F32_GRAD_REL = 1e-4
 NO_YARDSTICK = "no one-call PyTorch yardstick computes this function"
 
 
@@ -459,9 +481,10 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     raise RuntimeError("torch.profiler recorded no CUDA kernel for a call that launches one")
 
 
-def bound(flops: float, nbytes: float) -> tuple:
-    """(least time in ms, what sets it) on the published H100 peaks."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple:
+    """(least time in ms, what sets it) on the published H100 peaks (f32
+    outside the tensor cores unless ``peak_flops`` says otherwise)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -553,6 +576,11 @@ NO_SPILL = {
     "mips_lse": ("topk_mips", ("topk_kernelIfLb0ELi2EE",)),
     "mips_boost": ("topk_mips", ("topk_kernelIfLb1ELi1EE",)),
     "pool_membership_mask": ("pool_mask", ("pool_mask_kernel",)),
+    # The tower's bf16 forward, its dW2 pass and the sums; not its dA pass,
+    # which spills 80 bytes beside its 64 dA_i and 17 small-gradient sums.
+    "pred_tower_fwd:bf16": ("pred_tower", (f"pred_tower_fwd_kernelI{BF16}E",)),
+    "pred_tower_bwd:bf16": ("pred_tower", (f"pred_tower_dw2_kernelI{BF16}E",
+                                           "pred_tower_sum_kernel")),
 }
 
 
@@ -577,7 +605,7 @@ def phase_build() -> dict:
     """Builds every kernel; returns the main path's instantiations' ptxas
     summary by kernels-line row."""
     t0 = time.perf_counter()
-    build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean", "lstm_cell"])
+    build.build(["topk_mips", "leaf_agg", "pool_mask", "gather_mean", "lstm_cell", "pred_tower"])
     ptxas = kernel_ptxas(build.build_info)
     say("build", seconds=time.perf_counter() - t0, info=build.build_info, ptxas=ptxas)
     return ptxas
@@ -586,9 +614,10 @@ def phase_build() -> dict:
 def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, flops, nbytes,
                **extra) -> dict:
     """One row of the kernels line, appended to ``rows`` and printed: the
-    bound from ``flops`` and ``nbytes`` and, with ``timed``, the device ms of
-    ``kernel``, ``plain`` and ``library`` (None: no one-call yardstick)."""
-    b_ms, b_by = bound(flops, nbytes)
+    bound from ``flops`` and ``nbytes`` (at ``extra["peak_flops"]`` where
+    given) and, with ``timed``, the device ms of ``kernel``, ``plain`` and
+    ``library`` (None: no one-call yardstick)."""
+    b_ms, b_by = bound(flops, nbytes, extra.pop("peak_flops", PEAK_F32_FLOPS))
     row = {"name": name, "route": "cuda", "source": files[0],
            "replaces": f"{files[1]}:{tpu_line}", "launches": None,
            "max_abs_err": err, "ms": None, "plain_ms": None,
@@ -609,11 +638,12 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                   weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
                   gather=(38_912, 8, 30_000, 256), wide=(904, 1280, 3000, 256),
-                  lstm=((2048, 4608, 8192, 18_432), 256), timed=True, seed=0) -> list:
+                  lstm=((2048, 4608, 8192, 18_432), 256), pred=(1024, 2560), timed=True,
+                  seed=0) -> list:
     """Each kernel against its plain version on ``dev``; returns the rows of
     the kernels line (without launches).  ``leaf`` is (K, P, F, H),
     ``pool`` (B, K, P), ``gather`` and ``wide`` (B, K, N, D), ``lstm``
-    (the rows N of each cell update's shape, H)."""
+    (the rows N of each cell update's shape, H), ``pred`` (B, P)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ue = l2_normalize(torch.randn(num_users, dim, generator=gen, device=dev))
     ie = l2_normalize(torch.randn(num_items, dim, generator=gen, device=dev))
@@ -697,6 +727,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     gather_rows(dev, gen, record, *gather)
     wide_gather_rows(dev, record, *wide)
     lstm_cell_rows(dev, record, *lstm, timed=timed)
+    pred_tower_rows(dev, record, *pred, timed=timed)
     return rows
 
 
@@ -1124,6 +1155,118 @@ def lstm_cell_rows(dev, record, ns, h, timed=True) -> None:
                lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dh, dc, c, cy, work,
                                                                           True),
                0.0, 13.0 * big * h * elem, bit_equal_share=errs["lstm_cell_bwd"][1])
+
+
+def pred_tower_case(dev, b, p, dtype, margin=False, seed=0):
+    """The tower's inputs at the scales of a trained head: a_u [b, 128] and
+    a_i [p, 128] f32, its parameters in ``dtype``, all leaves that take a
+    gradient, and the scores' gradient.  With ``margin``, small products
+    under biases of +-0.5 and b2 set against layer 2's product at relu(b1),
+    so that no pre-activation of layers 1 and 2 comes near zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    scale = 0.02 if margin else 0.7
+    a_u, a_i = randn(b, pt.H1, scale=scale), randn(p, pt.H1, scale=scale)
+    b1, w2 = randn(pt.H1, scale=0.3), randn(pt.H2, pt.H1, scale=0.17)
+    b2, w3, b3 = randn(pt.H2, scale=0.3), randn(pt.H2, scale=0.4), randn(1, scale=0.3)
+    if margin:
+        b1 = 0.5 * b1.sign()
+        b2 = 0.5 * b2.sign() - w2.to(dtype).float() @ torch.relu(b1)
+    params = [t.to(dtype) for t in (b1, w2, b2, w3, b3)]
+    return [t.requires_grad_() for t in (a_u, a_i, *params)], randn(b, p)
+
+
+def check_tower(what, args, ds, norm_tol) -> tuple:
+    """The tower's kernels against its plain version: the scores within
+    ``TOL``; each gradient within ``norm_tol`` of its tensor's norm, by the
+    norm of the difference (None: within ``PRED_F32_GRAD_REL`` of its
+    largest entry, for inputs with a margin), and the same bits from a
+    second backward.
+    Returns (the scores' largest gap, the gradients' largest gap, the
+    forward's scores)."""
+    s = pt.pred_tower_fwd(*args)
+    fwd_err = float((s - pt.pred_tower_reference(*args).detach()).abs().max())
+    if not fwd_err <= TOL:
+        raise AssertionError(f"{what}: scores differ by {fwd_err}")
+    got = pt.pred_tower_bwd(ds, s, *args)
+    bwd_err = 0.0
+    for g, want, x in zip(got, pt.pred_tower_bwd_reference(ds, *args), args):
+        if g.dtype != x.dtype or g.shape != x.shape:
+            raise AssertionError(f"{what}: a gradient of {g.dtype} {tuple(g.shape)}")
+        d, w = (g.double() - want.double()), want.double()
+        gap = float(d.norm() / w.norm().clamp_min(1e-300)) if norm_tol is not None \
+            else float(d.abs().max() / w.abs().max().clamp_min(1e-300))
+        bwd_err = max(bwd_err, gap)
+    if not bwd_err <= (norm_tol if norm_tol is not None else PRED_F32_GRAD_REL):
+        raise AssertionError(f"{what}: gradients differ by {bwd_err}")
+    if not all(torch.equal(a, b) for a, b in zip(got, pt.pred_tower_bwd(ds, s, *args))):
+        raise AssertionError(f"{what}: two backward calls differ")
+    return fwd_err, bwd_err, s
+
+
+def concat_head_case(dev, b, p, dtype) -> tuple:
+    """The head the port ran before the tower: the unfactorised
+    ``PredictingLayer`` in ``dtype`` on the [B, P, 256] broadcast concat of
+    B and P embedding rows (128 wide).  Returns its forward (the scores [B,
+    P]) and the leaves its backward reaches."""
+    head = PredictingLayer(2 * 128, dtype=dtype).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(b + p)
+    u = torch.randn(b, 128, generator=gen, device=dev).to(dtype).requires_grad_()
+    items = torch.randn(p, 128, generator=gen, device=dev).to(dtype).requires_grad_()
+
+    def concat_head():
+        return head(torch.cat(torch.broadcast_tensors(u[:, None], items[None]), -1))[..., 0]
+
+    return concat_head, [u, items, *head.parameters()]
+
+
+def pred_tower_rows(dev, record, b, p, timed=True) -> None:
+    """The MLP head's tower kernels against their plain version
+    (:func:`check_tower`) at B x P, the dense pool's cross form of one edge
+    type: in f32 on inputs with a margin (a ``kernel_case`` line, with the
+    forward's and the backward's times beside those of the f32 concat head,
+    :func:`concat_head_case`), then in bf16 on free inputs (rows
+    ``pred_tower_fwd:bf16`` and ``pred_tower_bwd:bf16``).  The yardstick is
+    the head the port ran before, in bf16: its forward, and its backward
+    alone.  The bound is the tower's least work: layers 2 and 3, 8,256
+    operations a pair forward and twice that backward
+    (``portbench/counts/pred_nn.py`` without layer 1, whose two products are
+    cuBLAS's), at 989 TFLOP/s, or its bytes (the scores, the two halves and,
+    backward, the scores' gradient and the halves' gradients), whichever is
+    larger."""
+    args, ds = pred_tower_case(dev, b, p, torch.float32, margin=True, seed=b)
+    err = check_tower(f"pred_tower f32 {b}x{p}", args, ds, None)[:2]
+    times = {"ms": None}
+    if timed:
+        s = pt.pred_tower_fwd(*args)
+        concat_head, leaves = concat_head_case(dev, b, p, torch.float32)
+        old = concat_head()
+        grad = torch.randn(b, p, device=dev)
+        times = {"ms": device_ms(lambda: pt.pred_tower_fwd(*args)),
+                 "bwd_ms": device_ms(lambda: pt.pred_tower_bwd(ds, s, *args)),
+                 "concat_head_fwd_ms": device_ms(concat_head),
+                 "concat_head_bwd_ms": device_ms(
+                     lambda: torch.autograd.grad(old, leaves, grad, retain_graph=True))}
+        del old
+    say("kernel_case", name="pred_tower", case=f"f32 B={b} P={p}", shape=[b, p],
+        max_abs_err=err[0], grad_gap=err[1], **times)
+    args, ds = pred_tower_case(dev, b, p, torch.bfloat16, seed=p)
+    fwd_err, bwd_err, s = check_tower(f"pred_tower bf16 {b}x{p}", args, ds, PRED_GRAD_NORM)
+    concat_head, leaves = concat_head_case(dev, b, p, torch.bfloat16)
+    old = concat_head().float() if timed else None
+    pairs, per_pair = b * p, 2.0 * (pt.H1 * pt.H2 + pt.H2)
+    halves = 4.0 * (b + p) * pt.H1
+    record("pred_tower_fwd:bf16", PRED, 211, fwd_err, lambda: pt.pred_tower_fwd(*args),
+           lambda: pt.pred_tower_reference(*args).detach(), concat_head,
+           pairs * per_pair, halves + 4.0 * pairs, peak_flops=PEAK_BF16_FLOPS)
+    record("pred_tower_bwd:bf16", PRED, 211, bwd_err, lambda: pt.pred_tower_bwd(ds, s, *args),
+           lambda: pt.pred_tower_bwd_reference(ds, *args),
+           lambda: torch.autograd.grad(old, leaves, ds, retain_graph=True),
+           2.0 * pairs * per_pair, 2.0 * halves + 8.0 * pairs, peak_flops=PEAK_BF16_FLOPS,
+           grad_norm_gap=bwd_err)
 
 
 GATHER_KERNELS = ("gather_mean_fwd", "gather_mean_bwd")
@@ -2078,6 +2221,9 @@ REPLAY_KERNELS = {"leaf_mean_nn_fwd": "leaf_fwd_kernel", "leaf_mean_nn_bwd": "le
 # The LSTM cell update's kernels, counted alike in the LSTM phases (15-17).
 LSTM_CELL_KERNELS = {"lstm_cell_fwd": "lstm_cell_fwd_kernel",
                      "lstm_cell_bwd": "lstm_cell_bwd_kernel"}
+# The MLP head's tower kernels, a launch of each a call (train_graph_nn_bf16).
+PRED_TOWER_KERNELS = {"pred_tower_fwd": "pred_tower_fwd_kernel",
+                      "pred_tower_bwd": "pred_tower_bwd_kernel"}
 
 
 def step_counts(graph, model, etypes, dedup: bool) -> dict:
@@ -2087,9 +2233,12 @@ def step_counts(graph, model, etypes, dedup: bool) -> dict:
     leaves = 0 if dedup else sum(leaf_branches(graph, nt, model.num_conv_layers)
                                  for nt in ("user", "item"))
     means = block_means(graph, ("user", "item"), model.num_conv_layers) if dedup else 0
-    return {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
-            "pool_membership_mask": len(etypes), "gather_mean_fwd": means,
-            "gather_mean_bwd": means}
+    out = {"leaf_mean_nn_fwd": leaves, "leaf_mean_nn_bwd": leaves,
+           "pool_membership_mask": len(etypes), "gather_mean_fwd": means,
+           "gather_mean_bwd": means}
+    if model.pred == "nn":  # the tower on the dense pool, an etype
+        out.update(pred_tower_fwd=len(etypes), pred_tower_bwd=len(etypes))
+    return out
 
 
 def edge_slices(graph, etypes, edges: int, skip: dict = None) -> dict:
@@ -2226,7 +2375,7 @@ def replay_profile(captured, per_step, n=5, bf16=False) -> dict:
     bf16 instantiation."""
     wall_ms, kernels = profiled_kernels(captured.replay, n)
     report = step_breakdown(wall_ms, kernels, n)
-    pats = {**REPLAY_KERNELS, **LSTM_CELL_KERNELS}
+    pats = {**REPLAY_KERNELS, **LSTM_CELL_KERNELS, **PRED_TOWER_KERNELS}
 
     def launches(extra=""):
         return {name: -(-sum(c for key, c, _ in kernels if pats[name] in key and extra in key)
@@ -2283,7 +2432,8 @@ def timed_replays(tap=None, keep_steps=False):
 
 def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
                       batch_size=2048, pool=2560, fanouts=(8, 4), dedup=False, on_card=True,
-                      check_steps=10, dtype=None, random_recall=None, k=10, tap=None) -> dict:
+                      check_steps=10, dtype=None, random_recall=None, k=10, tap=None,
+                      pred="cos") -> dict:
     """The bench step through the trainer's entry point with
     ``MinibatchConfig(device_epoch=True)``: on a card, each step one replay
     of a CUDA graph.  Three epochs of ``steps // 2`` training steps (epoch 0
@@ -2298,13 +2448,14 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
     ``random_recall``, the trained model's recall@``k`` must beat it.  With
     a :class:`GatherTap` ``tap`` (a dedup run), the trainer's gather-mean
     calls go through it, which counts their launches by shape, captured ones
-    once a replay.  Returns the launches."""
+    once a replay.  ``pred``: the model's scoring head.  Returns the
+    launches."""
     from gnn_recsys_tpu_torch.train import graph_step
 
     phase = ("train_graph_dedup" if dedup else "train_graph") + (
-        "_bf16" if dtype == torch.bfloat16 else "")
+        "_nn" if pred == "nn" else "") + ("_bf16" if dtype == torch.bfloat16 else "")
     g = data.graph
-    kw = dict(medium_kwargs(g, hidden, out), dtype=dtype)
+    kw = dict(medium_kwargs(g, hidden, out), dtype=dtype, pred=pred)
     model = ConvModel(**kw, leaf_kernel=True)
     etypes = tuple(data.train_pairs)
     per_epoch = max(1, steps // 2)
@@ -2358,6 +2509,10 @@ def phase_train_graph(dev, data, hidden=256, out=128, steps=200, valid_steps=10,
               "edges_per_s_train_epochs": hist["edges_per_s"][1:], "wall_s": wall_s,
               "train_loss": losses, "valid_loss": hist["valid_loss"], "updates": state.step,
               "launches": launches, "launches_expected": want, "launches_per_step": per_step}
+    if pred == "nn":  # the tower's engagement: its pairs over every pair the head scored
+        report.update(tower_pairs=pt.pred_tower.pairs, head_pairs=PredictingLayer.pairs)
+        if on_card and not pt.pred_tower.pairs:
+            raise AssertionError(f"{phase}: the tower scored no pair")
     if tap:
         report["gather_launches_by_shape"] = {
             name: {"B{}_K{}_N{}_D{}".format(*shape): c for shape, c in by_shape.items()}
@@ -4073,6 +4228,11 @@ def two_process_check(dev, data) -> dict:
     return {"backend": backend, "losses": losses, "one_process": one, "seconds": seconds}
 
 
+def cards(n: int) -> list:
+    """The first ``n`` cards."""
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def dp_over_cards(dev, world, steps=10) -> dict:
     """The bf16 dp step over every card (one shard a card), eager and as one
     CUDA graph a shard: each design's wall time a step (host clock, every
@@ -4080,7 +4240,7 @@ def dp_over_cards(dev, world, steps=10) -> dict:
     replay timed alone on its card (CUDA events)."""
     g, feats, kw, etypes, tables, cfg, store, batches = world
     n = torch.cuda.device_count()
-    devices = [torch.device("cuda", i) for i in range(n)]
+    devices = cards(n)
     mesh = data_mesh(devices)
     batch = store.batch(next(batches), True, dev)
     out = {"cards": n}
@@ -4113,6 +4273,59 @@ def dp_over_cards(dev, world, steps=10) -> dict:
     return out
 
 
+def nn_over_cards(dev, world, devices, steps=3) -> dict:
+    """The dp step with the MLP head (``pred='nn'``: the tower on each
+    shard's dense pool) over ``devices``, a shard each, in one process: in
+    f32 and bf16, one eager step against the same step over as many shards
+    on ``dev`` (the same seeds, so the same draws; loss and gradients by
+    :func:`check_same_step`), then ``steps`` steps with each shard one CUDA
+    graph on a card.  Each shard launches the tower's forward and backward
+    once an etype (the kernels' shared-memory limit is set in each card's
+    context)."""
+    g, feats, kw, etypes, tables, cfg, store, batches = world
+    batch = store.batch(next(batches), True, dev)
+    kw = dict(kw, pred="nn")
+    on_card = dev.type == "cuda"
+    kernels = (pt.pred_tower_fwd, pt.pred_tower_bwd)
+    out = {"shards": len(devices), "devices": [str(d) for d in devices]}
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+        runs, launches = {}, {}
+        for name, devs in (("over_devices", devices), ("one_device", [dev] * len(devices))):
+            model = fresh_model(dev, kw, leaf_kernel=True, dtype=dtype)
+            step = make_shardmap_dp_step(model, cfg, etypes, data_mesh(devs), capture=False)
+            zero_counts()
+            _, loss = step(TrainState.create(model, lr=cfg.lr), g, feats, batch, tables,
+                           shard_draws(devs, 40))
+            sync_all(devs)
+            launches[name] = [k.launches for k in kernels]
+            runs[name] = (float(loss), {n: v.float() for n, v in grads_of(model).items()})
+        want = [len(devices) * len(etypes) if on_card else 0] * 2
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"nn dp step ({tag}): tower launches {launches}, "
+                                 f"expected {want} each")
+        report = check_same_step(f"nn dp step ({tag}), over devices vs one",
+                                 *runs["over_devices"], *runs["one_device"])
+        report["bit_identical"] = runs["over_devices"][0] == runs["one_device"][0] and all(
+            torch.equal(v, runs["one_device"][1][n]) for n, v in runs["over_devices"][1].items())
+        model = fresh_model(dev, kw, leaf_kernel=True, dtype=dtype)
+        state = TrainState.create(model, lr=cfg.lr)
+        mesh = data_mesh(devices)
+        step = make_shardmap_dp_step(model, cfg, etypes, mesh, capture=on_card)
+        draws = shard_draws(mesh.shard_devices("data"), 41)
+        zero_counts()
+        losses = [float(step(state, g, feats, batch, tables, draws)[1]) for _ in range(steps)]
+        sync_all(devices)
+        warm = WARMUP_STEPS if on_card else 0  # the captures' eager warm-up steps
+        want = len(devices) * len(etypes) * (steps + warm) if on_card else 0
+        got = [k.launches for k in kernels]
+        if got != [want] * 2 or not np.isfinite(losses).all():
+            raise AssertionError(f"nn dp steps ({tag}): tower launches {got}, expected {want}; "
+                                 f"losses {losses}")
+        report.update(captured_losses=losses, captured_launches=got)
+        out[tag] = report
+    return out
+
+
 def phase_train_sharded(dev, data, steps=50, tp_steps=50, on_card=True,
                         shapes=SHARDED_SHAPES, epoch_steps=20, adj_capacity=2560,
                         cards_only=False) -> dict:
@@ -4121,14 +4334,17 @@ def phase_train_sharded(dev, data, steps=50, tp_steps=50, on_card=True,
     out 128, 2048 edges a step over every shard, dense pool of 2560 a
     shard, fanouts (8, 4); exclusion, max-margin, Adam).  Returns the main
     path's launches: the dp runs' (bf16 leaf and pool mask) and the dedup'd
-    dp check's (gather mean, f32).  ``cards_only``: only the two-process
-    check and the dp step over every card (a host with several)."""
+    dp check's (gather mean, f32).  On a host with several cards, also the
+    dp step over every card and the MLP head's dp step over two
+    (:func:`nn_over_cards`).  ``cards_only``: only the two-process check and
+    the steps over cards."""
     t_phase = time.perf_counter()
     world = sharded_world(dev, data, *shapes)
     report, launches = {}, {name: 0 for name in train_counters()}
     if cards_only:  # the parts that run across cards, alone
         report["two_processes"] = two_process_check(dev, data)
         report["over_cards"] = dp_over_cards(dev, world)
+        report["nn_over_cards"] = nn_over_cards(dev, world, cards(2))
         report["seconds"] = time.perf_counter() - t_phase
         say("train_sharded", **report)
         return launches
@@ -4146,6 +4362,7 @@ def phase_train_sharded(dev, data, steps=50, tp_steps=50, on_card=True,
         report["two_processes"] = two_process_check(dev, data)
         if torch.cuda.device_count() > 1:
             report["over_cards"] = dp_over_cards(dev, world)
+            report["nn_over_cards"] = nn_over_cards(dev, world, cards(2))
     report["seconds"] = time.perf_counter() - t_phase
     say("train_sharded", **report)
     return launches
@@ -4240,6 +4457,10 @@ def main() -> int:
         for name in GATHER_KERNELS:
             into.update({f"{name}{tag}:{label}": run_tap.launches[name][shape]
                          for shape, label in labels.items()})
+    # The MLP head's tower: phase 10's tree step with pred='nn'.
+    nn_launches = phase_train_graph(dev, data, dtype=torch.bfloat16, pred="nn")
+    for name in PRED_TOWER_KERNELS:
+        launches[f"{name}:bf16"] = nn_launches[name]
     # The full-batch trainer (BASELINE config[0]) with each scoring head.
     full_batch_launches = phase_train_full_batch(dev, "cos")
     phase_train_full_batch(dev, "nn", num_users=5_000, num_items=1_500, epochs=20)

@@ -810,7 +810,8 @@ class ConvModel(nn.Module):
                 scores = (l2_normalize(ue) @ pool_norm.T).float()  # [B, P]
                 neg_scores[et] = scores if idx is None else scores.gather(1, idx.long())
             elif idx is None:  # the MLP head on every (positive, pool item)
-                neg_scores[et] = self.score_emb_pairs(ue[:, None, :], pool_emb[None, :, :])
+                with span("gnn.pred.score"):
+                    neg_scores[et] = self.pred_layer.score_cross(ue, pool_emb)
             else:
                 neg_scores[et] = self.score_emb_pairs(ue[:, None, :], _take_rows(pool_emb, idx))
             neg_dsts[et] = (neg_pool[None, :].expand(hi - lo, -1) if idx is None

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gnn_recsys_tpu_torch.ops.cuda.lstm_cell import lstm_cell
+from gnn_recsys_tpu_torch.ops.cuda.pred_tower import pred_tower
 from gnn_recsys_tpu_torch.utils.profiling import counter, span
 
 AGGREGATOR_TYPES = (
@@ -313,6 +314,8 @@ class PredictingLayer(nn.Module):
     reference ``src/model.py:240-272``): concat(u, i) -> Dense 128 -> ReLU ->
     Dense 32 -> ReLU -> Dense 1 -> sigmoid, in the model's computation
     dtype.  ``in_feats`` is the concat's width (twice the embedding's).
+    :meth:`score_cross` scores every pair of two row sets with layer 1
+    factorised, without forming their concat.
 
     Each call counts the pairs it scores, the score tensor's element count,
     in a counter on the class (``pairs``; ``utils/profiling.py:counter``)."""
@@ -335,6 +338,29 @@ class PredictingLayer(nn.Module):
         x = torch.relu(dense(self.hidden_1, x, self.dtype))
         x = torch.relu(dense(self.hidden_2, x, self.dtype))
         return torch.sigmoid(dense(self.output, x, self.dtype))
+
+    def score_cross(self, u: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+        """The head on ``concat(u[b], items[p])`` for every pair: ``[B, P]``
+        f32 from u ``[B, D]`` and items ``[P, D]``.  Layer 1 splits into its
+        user and item halves, ``u W1_u^T`` and ``items W1_i^T``, each computed
+        once in f32 from the computation dtype's operands (so each pair's
+        pre-activation is rounded at most once, to the dtype, as the tower's
+        input); :func:`.pred_tower` adds them per pair with the bias and runs
+        the rest of the head (hand-written kernels on a CUDA device)."""
+        PredictingLayer.pairs += u.shape[0] * items.shape[0]
+
+        def cast(t: torch.Tensor) -> torch.Tensor:
+            return t if self.dtype is None else t.to(self.dtype)
+
+        u, items = cast(u), cast(items)
+        wide = torch.promote_types(u.dtype, torch.float32)
+        w1 = cast(self.hidden_1.weight).to(wide)
+        d = u.shape[-1]
+        a_u = F.linear(u.to(wide), w1[:, :d])
+        a_i = F.linear(items.to(wide), w1[:, d:])
+        return pred_tower(a_u, a_i, cast(self.hidden_1.bias), cast(self.hidden_2.weight),
+                          cast(self.hidden_2.bias), cast(self.output.weight[0]),
+                          cast(self.output.bias))
 
 
 counter(PredictingLayer, "pairs")

@@ -140,7 +140,7 @@ def launch_counters() -> Dict[str, object]:
     """Every kernel wrapper of this package, by name: the owners of the
     ``launches`` counters declared in ``utils/profiling.py``."""
     from gnn_recsys_tpu_torch.ops.cuda import (  # noqa: F401 (their wrappers declare them)
-        gather_mean, leaf_agg, lstm_cell, pool_mask, topk_mips)
+        gather_mean, leaf_agg, lstm_cell, pool_mask, pred_tower, topk_mips)
 
     return {owner.__name__: owner for owner, attr in profiling.DECLARED.values()
             if attr == "launches" and owner.__module__.startswith(__package__ + ".")}

@@ -14,14 +14,15 @@ KERNELS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean
            "pool_membership_mask", "gather_mean_fwd", "gather_mean_bwd"]
 # The kernels line's rows of the kernel phase: each kernel, the leaf and
 # gather-mean kernels again in bf16, the gather-mean kernels at a
-# full-fanout shape in f32 and bf16, and the LSTM cell's in f32 and bf16.
+# full-fanout shape in f32 and bf16, the LSTM cell's in f32 and bf16, and
+# the MLP head's tower in bf16.
 WIDE = "wide:B9_K40_N7_D12"
 ROWS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
         "leaf_mean_nn_fwd:bf16", "leaf_mean_nn_bwd:bf16", "pool_membership_mask",
         "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16", "gather_mean_bwd:bf16",
         f"gather_mean_fwd:{WIDE}", f"gather_mean_bwd:{WIDE}", f"gather_mean_fwd:bf16:{WIDE}",
         f"gather_mean_bwd:bf16:{WIDE}", "lstm_cell_fwd", "lstm_cell_bwd", "lstm_cell_fwd:bf16",
-        "lstm_cell_bwd:bf16"]
+        "lstm_cell_bwd:bf16", "pred_tower_fwd:bf16", "pred_tower_bwd:bf16"]
 NO_YARDSTICK = ["leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "pool_membership_mask"]
 
 
@@ -34,22 +35,26 @@ def test_kernel_phase_rehearsal():
     rows = chip_smoke.phase_kernels(torch.device("cpu"), num_users=40, num_items=300,
                                     dim=16, k=6, leaf=(4, 37, 5, 16), pool=(40, 8, 70),
                                     gather=(41, 5, 30, 12), wide=(9, 40, 7, 12),
-                                    lstm=((7, 21), 12), timed=False)
+                                    lstm=((7, 21), 12), pred=(19, 37), timed=False)
     assert [r["name"] for r in rows] == ROWS
     for row in rows:
         assert row["max_abs_err"] == 0.0
         assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
         assert row["source"].startswith("gnn_recsys_tpu_torch/csrc/")
-        # The LSTM cell replaces no Pallas kernel: its rows name the JAX
-        # package's reducer.
+        # The LSTM cell and the head's tower replace no Pallas kernel: their
+        # rows name the JAX package's reducer and head.
         lstm = row["name"].startswith("lstm_cell")
+        no_twin = lstm or row["name"].startswith("pred_tower")
         assert row["replaces"].startswith(
-            "gnn_recsys_tpu/models/layers.py:" if lstm else "gnn_recsys_tpu/ops/pallas/")
+            "gnn_recsys_tpu/models/layers.py:" if no_twin else "gnn_recsys_tpu/ops/pallas/")
         assert not lstm or row["bit_equal_share"] == 1.0
         assert ("library" in row) == (row["name"].split(":")[0] in NO_YARDSTICK)
-    # At the serving shape the ranking is bound by f32 operations.
+    # At the serving shape the ranking is bound by f32 operations; the
+    # tower's bf16 rows by the tensor cores'.
     ms, by = chip_smoke.bound(2.0 * 4096 * 30_000 * 128, 4.0 * (4096 + 30_000) * 128)
     assert by == "operations" and abs(ms - 0.4695) < 1e-3
+    ms, by = chip_smoke.bound(1024 * 2560 * 8256.0, 0.0, chip_smoke.PEAK_BF16_FLOPS)
+    assert by == "operations" and abs(ms - 0.02189) < 1e-4
 
 
 def test_slice_and_train_phase_rehearsal(data, capsys):
@@ -134,6 +139,26 @@ def test_train_graph_bf16_rehearsal(data, dedup):
                                             dedup=dedup, on_card=False, check_steps=3,
                                             dtype=torch.bfloat16, random_recall=0.0)
     assert set(launches) == set(KERNELS[3:]) and not any(launches.values())
+
+
+def test_train_graph_nn_rehearsal(data, capsys):
+    """Phase 10's step with the MLP head on the CPU: the dense pool's cross
+    form (the tower's plain version) through the device epochs' eager body,
+    the loss falls, the eager-against-graph check agrees, and the step
+    counts the tower's two forward and two backward calls."""
+    launches = chip_smoke.phase_train_graph(torch.device("cpu"), data, hidden=32, out=16,
+                                            steps=8, valid_steps=2, batch_size=128, pool=48,
+                                            on_card=False, check_steps=3, dtype=torch.bfloat16,
+                                            pred="nn")
+    assert set(launches) == set(KERNELS[3:]) | {"pred_tower_fwd", "pred_tower_bwd"}
+    assert not any(launches.values())
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["launches_per_step"]["pred_tower_fwd"] == 2
+    assert report["launches_per_step"]["pred_tower_bwd"] == 2
+    # Each step scores 2 x 64 positives alone and against the 48 pool items;
+    # the tower takes the pool's pairs (the counters count the eager body too).
+    assert report["tower_pairs"] > 0
+    assert report["tower_pairs"] * 49 == report["head_pairs"] * 48
 
 
 @pytest.mark.parametrize("pred", ["cos", "nn"])
@@ -419,12 +444,15 @@ def test_gather_ptxas_rows_hold_the_dedup_steps_instantiations():
 
 def test_topk_and_pool_mask_ptxas_rows():
     """Serving's f32 topk_kernel instantiations (the top-k and boost
-    epilogues with lists in the shared buffer, the LSE epilogue) and the pool
-    mask get a row each; the other instantiations are reported by the build
-    phase but hold no row; a spill in a row's kernel fails the run."""
+    epilogues with lists in the shared buffer, the LSE epilogue), the pool
+    mask and the head's tower in bf16 (its forward; its dW2 pass and sums,
+    not its dA pass) get a row each; the other instantiations are reported
+    by the build phase but hold no row; a spill in a row's kernel fails the
+    run."""
     args = "EEEvPKT_S3_iiiiiiPKffS5_S5_PfPiS6_"
+    bf16 = "I13__nv_bfloat16EEvPKfS3_"
 
-    def info(topk_spill=0, boost_spill=0):
+    def info(topk_spill=0, boost_spill=0, dw2_spill=0):
         return {"leaf_agg": {"ptxas": _leaf_lines()}, "gather_mean": {"ptxas": _gather_lines()},
                 "topk_mips": {"ptxas": _ptxas_lines((
                     (f"topk_kernelIfLb1ELi0{args}", 168, topk_spill),
@@ -435,13 +463,22 @@ def test_topk_and_pool_mask_ptxas_rows():
                     ("topk_kernelI13__nv_bfloat16Lb1ELi0EEEvPKT_S4_iiiiiiPKffS6_S6_PfPiS7_",
                      166, 0)))},
                 "pool_mask": {"ptxas": _ptxas_lines((
-                    ("pool_mask_kernelEPKiS1_iiiiPf", 40, 0),))}}
+                    ("pool_mask_kernelEPKiS1_iiiiPf", 40, 0),))},
+                "pred_tower": {"ptxas": _ptxas_lines((
+                    (f"pred_tower_fwd_kernel{bf16}PKT_S6_S6_S6_S6_iiPf", 77, 0),
+                    (f"pred_tower_bwd_kernel{bf16}S3_S3_PKT_S6_S6_S6_iiPfS7_S7_", 255, 80),
+                    (f"pred_tower_dw2_kernel{bf16}S3_S3_PKT_S6_S6_S6_iiPf", 227, dw2_spill),
+                    ("pred_tower_fwd_kernelIfEEvPKfS2_PKT_S5_S5_S5_S5_iiPf", 80, 0),
+                    ("pred_tower_sum_kernelEPKfixPf", 22, 0)))}}
 
     got = chip_smoke.kernel_ptxas(info())
     assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "leaf_mean_nn_fwd:bf16",
                         "leaf_mean_nn_bwd:bf16", "gather_mean_fwd", "gather_mean_bwd",
                         "gather_mean_fwd:bf16", "gather_mean_bwd:bf16", "mips_topk", "mips_lse",
-                        "mips_boost", "pool_membership_mask"}
+                        "mips_boost", "pool_membership_mask", "pred_tower_fwd:bf16",
+                        "pred_tower_bwd:bf16"}
+    assert set(got["pred_tower_bwd:bf16"]) == {"pred_tower_dw2_kernelI13__nv_bfloat16E",
+                                               "pred_tower_sum_kernel"}
     assert got["mips_topk"] == {"topk_kernelIfLb1ELi0EE": {"registers": 168, "spill_bytes": 0}}
     assert got["mips_boost"] == {"topk_kernelIfLb1ELi1EE": {"registers": 172, "spill_bytes": 0}}
     assert got["mips_lse"] == {"topk_kernelIfLb0ELi2EE": {"registers": 150, "spill_bytes": 0}}
@@ -450,6 +487,8 @@ def test_topk_and_pool_mask_ptxas_rows():
         chip_smoke.kernel_ptxas(info(topk_spill=8))
     with pytest.raises(AssertionError, match="topk_kernelIfLb1ELi1EE spills 12 bytes"):
         chip_smoke.kernel_ptxas(info(boost_spill=8))
+    with pytest.raises(AssertionError, match="dw2_kernelI13__nv_bfloat16E spills 12 bytes"):
+        chip_smoke.kernel_ptxas(info(dw2_spill=8))
 
 
 def test_kernel_probe_patches_apply_to_the_sources():
@@ -574,3 +613,18 @@ def test_train_sharded_rehearsal(data, capsys):
     mesh = report["train_minibatch_mesh"]
     assert len(mesh["train_loss_row_sharded"]) == 2
     assert "two_processes" not in report and "over_cards" not in report
+
+
+def test_nn_over_cards_rehearsal(data):
+    """The MLP head's dp step over two devices on the CPU (two CPU entries,
+    the tower's plain version): the step over the devices equals the step
+    over as many shards on one, bit for bit, in f32 and bf16, three more
+    steps give finite losses, and no kernel launches."""
+    cpu = torch.device("cpu")
+    world = chip_smoke.sharded_world(cpu, data, 32, 16, 128, 48, (4, 3))
+    report = chip_smoke.nn_over_cards(cpu, world, [cpu, cpu])
+    assert report["shards"] == 2
+    for tag in ("f32", "bf16"):
+        run = report[tag]
+        assert run["bit_identical"] and run["grad_excess_over_rtol"] <= 0.0
+        assert len(run["captured_losses"]) == 3 and run["captured_launches"] == [0, 0]

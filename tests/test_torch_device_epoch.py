@@ -40,6 +40,7 @@ from gnn_recsys_tpu_torch.ops.cuda import gather_mean as gm
 from gnn_recsys_tpu_torch.ops.cuda import leaf_agg as la
 from gnn_recsys_tpu_torch.ops.cuda import lstm_cell as lc
 from gnn_recsys_tpu_torch.ops.cuda import pool_mask as pm
+from gnn_recsys_tpu_torch.ops.cuda import pred_tower as pt
 from gnn_recsys_tpu_torch.ops.cuda import topk_mips as tm
 from gnn_recsys_tpu_torch.ops.membership import PaddedPairSet, build_padded_pair_set
 from gnn_recsys_tpu_torch.ops.sampling import Draws, ReplayDraws
@@ -300,8 +301,8 @@ def test_capture_guards_hold_a_replay_to_its_capture():
 
 def test_launch_counters_name_the_ten_wrappers(monkeypatch):
     """``build.launch_counters()`` reads the registry and names exactly the
-    ten kernel wrappers of the package: a ``launches`` counter declared
-    elsewhere is not one of them."""
+    kernel wrappers of the package (twelve, with the head's tower's two): a
+    ``launches`` counter declared elsewhere is not one of them."""
     monkeypatch.setattr(profiling, "DECLARED", dict(profiling.DECLARED))
 
     def stand_in():
@@ -310,7 +311,7 @@ def test_launch_counters_name_the_ten_wrappers(monkeypatch):
     profiling.counter(stand_in, "launches")
     fns = (la.leaf_mean_nn_fwd, la.leaf_mean_nn_bwd, pm.pool_membership_mask,
            gm.gather_mean_fwd, gm.gather_mean_bwd, tm.mips_topk, tm.mips_lse, tm.mips_boost,
-           lc.lstm_cell_fwd, lc.lstm_cell_bwd)
+           lc.lstm_cell_fwd, lc.lstm_cell_bwd, pt.pred_tower_fwd, pt.pred_tower_bwd)
     assert build.launch_counters() == {fn.__name__: fn for fn in fns}
     assert all(profiling.DECLARED[f"{fn.__name__}.launches"] == (fn, "launches") for fn in fns)
 
