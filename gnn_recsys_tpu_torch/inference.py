@@ -133,7 +133,10 @@ def inference_ondemand(
     inside it ``load_run``'s, ``gnn.serve.build`` (the model and its
     parameters' copy), ``gnn.serve.embed``, ``gnn.serve.bought_table``,
     ``gnn.serve.rank`` and ``gnn.serve.to_host`` (the wait for the ranking,
-    and the id maps).
+    and the id maps).  Ranking a ``pred='nn'`` run opens, inside
+    ``gnn.serve.rank``, one ``gnn.pred.rank`` span a chunk of users
+    (:func:`~gnn_recsys_tpu_torch.retrieval.recs.make_mlp_score_fn`: the MLP
+    head over the whole catalog), apart from the top-k.
 
     ``mesh``: serve over the devices of a
     :class:`~gnn_recsys_tpu_torch.parallel.mesh.Mesh` (``inference.py:

@@ -43,7 +43,7 @@ from gnn_recsys_tpu_torch.ops.membership import (
     pair_set_contains,
     scatter_row_mask,
 )
-from gnn_recsys_tpu_torch.utils.profiling import to_device
+from gnn_recsys_tpu_torch.utils.profiling import counter, span, to_device
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # ([C,D],[I,D]) -> [C,I]
 
@@ -71,7 +71,9 @@ def make_mlp_score_fn(params: Union[nn.Module, Mapping[str, torch.Tensor]],
     item_tile`` items.  ``params``: a ``pred='nn'`` model or its state_dict.
     Products in full f32.  Returns a ``ScoreFn`` for :func:`get_recs`
     (``torch`` route), which moves the weights to a device at its first call
-    there."""
+    there.  Each call runs in a ``gnn.pred.rank`` span (both halves of the
+    first Dense, the tiles and the sigmoid) and adds the score tensor's
+    elements (C x I) to the counter ``make_mlp_score_fn.pairs``."""
     sd = params.state_dict() if isinstance(params, nn.Module) else params
     w1, b1, w2, b2, w3, b3 = (sd[f"pred_layer.{lin}.{leaf}"].detach().float()
                               for lin in ("hidden_1", "hidden_2", "output")
@@ -84,7 +86,7 @@ def make_mlp_score_fn(params: Union[nn.Module, Mapping[str, torch.Tensor]],
         if dev not in on_device:
             on_device[dev] = tuple(t.to(dev) for t in (w1, b1, w2, b2, w3, b3))
         w1d, b1d, w2d, b2d, w3d, b3d = on_device[dev]
-        with full_f32_matmul():
+        with span("gnn.pred.rank"), full_f32_matmul():
             uh = u_chunk @ w1d[:, :d].T + b1d  # [C, 128]
             ih = item_emb @ w1d[:, d:].T  # [I, 128]
             tiles = []
@@ -92,9 +94,14 @@ def make_mlp_score_fn(params: Union[nn.Module, Mapping[str, torch.Tensor]],
                 h = torch.relu(uh[:, None, :] + ih[None, lo:lo + item_tile, :])  # [C, T, 128]
                 h = torch.relu(h @ w2d.T + b2d)  # [C, T, 32]
                 tiles.append(torch.sigmoid(h @ w3d.T + b3d)[..., 0])
-        return torch.cat(tiles, dim=1).float()
+            scores = torch.cat(tiles, dim=1).float()
+        make_mlp_score_fn.pairs += scores.numel()
+        return scores
 
     return score_fn
+
+
+counter(make_mlp_score_fn, "pairs")
 
 
 def model_score_fn(pred: str, params) -> Optional[ScoreFn]:
