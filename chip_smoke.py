@@ -301,7 +301,12 @@ from gnn_recsys_tpu_torch.parallel.sharded import (
     shard_adjacency,
     strip_adjacency,
 )
-from gnn_recsys_tpu_torch.retrieval.recs import get_recs, make_mlp_score_fn, model_score_fn
+from gnn_recsys_tpu_torch.retrieval.recs import (
+    get_recs,
+    head_layer1,
+    make_mlp_score_fn,
+    model_score_fn,
+)
 from gnn_recsys_tpu_torch.retrieval.sharded import (
     catalog_axis,
     get_recs_sharded,
@@ -388,6 +393,12 @@ LSTM = ("gnn_recsys_tpu_torch/csrc/lstm_cell.cu", "gnn_recsys_tpu/models/layers.
 # Nor does the MLP head's tower: its rows name the JAX PredictingLayer,
 # which XLA runs (gnn_recsys_tpu/models/layers.py:211).
 PRED = ("gnn_recsys_tpu_torch/csrc/pred_tower.cu", "gnn_recsys_tpu/models/layers.py")
+# Nor mlp_topk: its row names the JAX package's ranking by the head, in XLA
+# (gnn_recsys_tpu/retrieval/recs.py:68, make_mlp_score_fn).
+MLP_RANK = ("gnn_recsys_tpu_torch/csrc/topk_mips.cu", "gnn_recsys_tpu/retrieval/recs.py")
+# mlp_topk's scores against its plain version's: sigmoid values near 0.5,
+# whose f32 step is 6e-8, from sums in another order.
+MLP_TOL = 1e-6
 # The tower's gradients in bf16, by the norm of each difference over the
 # plain version's norm: the kernels round dz2 to bf16, the plain version
 # dz2 W2, about 2^-9 of each per-pair term (0.0023-0.0044 measured).
@@ -499,18 +510,18 @@ def smi() -> str:
 # Checks
 # ----------------------------------------------------------------------
 
-def check_topk(what, vals, idx, rvals, ridx, exact_score) -> float:
-    """Values within TOL of the plain version's; indices equal except at
-    near-tied slots, where the kernel's item must score within TOL of the
-    slot's plain value.  ``exact_score(rows, items)`` gives f64 scores.
+def check_topk(what, vals, idx, rvals, ridx, exact_score, tol=TOL) -> float:
+    """Values within ``tol`` of the plain version's; indices equal except at
+    near-tied slots, where the kernel's item must score within ``tol`` of
+    the slot's plain value.  ``exact_score(rows, items)`` gives f64 scores.
     Returns the largest value difference."""
     err = float((vals - rvals).abs().max()) if vals.numel() else 0.0
-    if not err <= TOL:
+    if not err <= tol:
         raise AssertionError(f"{what}: values differ by {err}")
     rows, cols = torch.nonzero(idx != ridx, as_tuple=True)
     if rows.numel():
         gap = (exact_score(rows, idx[rows, cols]) - rvals[rows, cols].double()).abs()
-        if not float(gap.max()) <= TOL:
+        if not float(gap.max()) <= tol:
             raise AssertionError(f"{what}: {rows.numel()} index mismatches, "
                                  f"largest score gap {float(gap.max())}")
     srt = idx.sort(dim=1).values
@@ -560,7 +571,8 @@ def _gather_pieces(direction: str, elem: str, vec: int) -> tuple:
 # gather-mean kernels' 16-byte paths at K = 8 and 4 (the dedup step's) and
 # the full-fanout design's (:func:`_gather_pieces`), in f32 and bf16;
 # topk_kernel's f32 ones that serving runs (mips_topk and mips_boost with
-# lists of k <= 32 in the shared buffer, the LSE epilogue), the pool mask.
+# lists of k <= 32 in the shared buffer, the LSE epilogue) and mlp_topk's
+# with lists of k <= 32 (an nn run's), the pool mask.
 # None may spill.
 NO_SPILL = {
     "leaf_mean_nn_fwd": ("leaf_agg", ("leaf_fwd_kernelIfLi8EE",)),
@@ -576,6 +588,7 @@ NO_SPILL = {
     "mips_lse": ("topk_mips", ("topk_kernelIfLb0ELi2EE",)),
     "mips_boost": ("topk_mips", ("topk_kernelIfLb1ELi1EE",)),
     "pool_membership_mask": ("pool_mask", ("pool_mask_kernel",)),
+    "mlp_topk": ("topk_mips", ("mlp_topk_kernelILb1EE",)),
     # The tower's bf16 forward, its dW2 pass and the sums; not its dA pass,
     # which spills 80 bytes beside its 64 dA_i and 17 small-gradient sums.
     "pred_tower_fwd:bf16": ("pred_tower", (f"pred_tower_fwd_kernelI{BF16}E",)),
@@ -612,11 +625,15 @@ def phase_build() -> dict:
 
 
 def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, flops, nbytes,
-               **extra) -> dict:
+               plain_reps=20, **extra) -> dict:
     """One row of the kernels line, appended to ``rows`` and printed: the
     bound from ``flops`` and ``nbytes`` (at ``extra["peak_flops"]`` where
     given) and, with ``timed``, the device ms of ``kernel``, ``plain`` and
-    ``library`` (None: no one-call yardstick)."""
+    ``library`` (None: no one-call yardstick).  ``plain_reps``: the profiled
+    calls of ``plain`` and ``library``, fewer for calls of thousands of
+    launches: 20 profiled calls of ``mlp_topk``'s plain version and library
+    held 600,000 kernel records, and the profiler then lost the records of
+    the next row's profile."""
     b_ms, b_by = bound(flops, nbytes, extra.pop("peak_flops", PEAK_F32_FLOPS))
     row = {"name": name, "route": "cuda", "source": files[0],
            "replaces": f"{files[1]}:{tpu_line}", "launches": None,
@@ -626,10 +643,11 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
         row["library"] = NO_YARDSTICK
     if timed:
         with tm.full_f32_matmul():
-            # One clock for all three: 20 profiled calls each.
-            row.update(ms=device_ms(kernel), events_ms=time_ms(kernel), plain_ms=device_ms(plain))
+            # One clock for all three: profiled calls.
+            row.update(ms=device_ms(kernel), events_ms=time_ms(kernel),
+                       plain_ms=device_ms(plain, reps=plain_reps))
             if library is not None:
-                row["library_ms"] = device_ms(library)
+                row["library_ms"] = device_ms(library, reps=plain_reps)
     rows.append(row)
     say("kernel", **row)
     return row
@@ -638,12 +656,14 @@ def kernel_row(rows, timed, name, files, tpu_line, err, kernel, plain, library, 
 def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
                   weight=1.0, leaf=(8, 18_432, 8, 256), pool=(1024, 32, 2560),
                   gather=(38_912, 8, 30_000, 256), wide=(904, 1280, 3000, 256),
-                  lstm=((2048, 4608, 8192, 18_432), 256), pred=(1024, 2560), timed=True,
-                  seed=0) -> list:
+                  lstm=((2048, 4608, 8192, 18_432), 256), pred=(1024, 2560),
+                  mlp=((20, 42, 266), 300, 100_000), timed=True, seed=0) -> list:
     """Each kernel against its plain version on ``dev``; returns the rows of
     the kernels line (without launches).  ``leaf`` is (K, P, F, H),
     ``pool`` (B, K, P), ``gather`` and ``wide`` (B, K, N, D), ``lstm``
-    (the rows N of each cell update's shape, H), ``pred`` (B, P)."""
+    (the rows N of each cell update's shape, H), ``pred`` (B, P), ``mlp``
+    mlp_topk's fetches, the users of its case with catalog splits and those
+    of the serving cell's case (:func:`mlp_topk_rows`)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ue = l2_normalize(torch.randn(num_users, dim, generator=gen, device=dev))
     ie = l2_normalize(torch.randn(num_items, dim, generator=gen, device=dev))
@@ -722,6 +742,7 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
            lambda: tm.mips_boost_reference(ue, ie, pop, rm, rs, k, weight=weight),
            lambda: torch.topk(torch.softmax(ue @ ie.T, dim=1) + weight * pop, k, dim=1),
            flops, emb_bytes + 4.0 * num_items + 8.0 * num_users + topk_bytes)
+    mlp_topk_rows(dev, record, num_users, num_items, *mlp, seed=seed)
     leaf_rows(dev, gen, record, *leaf)
     pool_rows(dev, gen, record, *pool)
     gather_rows(dev, gen, record, *gather)
@@ -729,6 +750,84 @@ def phase_kernels(dev, num_users=4096, num_items=30_000, dim=128, k=26,
     lstm_cell_rows(dev, record, *lstm, timed=timed)
     pred_tower_rows(dev, record, *pred, timed=timed)
     return rows
+
+
+def mlp_case(dev, num_users, num_items, seed) -> tuple:
+    """A head at a trained head's scales beside user and item embeddings of
+    width 128: (its score function, the embeddings ue and ie, mlp_topk's
+    inputs: layer 1's halves a_u (its bias in them) and a_i, then w2, b2, w3
+    and b3)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    h1, h2 = tm.MLP_H1, tm.MLP_H2
+    fn = make_mlp_score_fn({
+        "pred_layer.hidden_1.weight": randn(h1, 2 * 128, scale=0.044),
+        "pred_layer.hidden_1.bias": randn(h1, scale=0.1),
+        "pred_layer.hidden_2.weight": randn(h2, h1, scale=0.1),
+        "pred_layer.hidden_2.bias": randn(h2, scale=0.1),
+        "pred_layer.output.weight": randn(1, h2, scale=0.3),
+        "pred_layer.output.bias": randn(1, scale=0.1)})
+    ue, ie = randn(num_users, 128, scale=1.0), randn(num_items, 128, scale=1.0)
+    w1, b1, *head = fn.head(dev)
+    with tm.full_f32_matmul():
+        halves = head_layer1(w1, b1, ue, ie)
+    return fn, ue, ie, [*halves, *head]
+
+
+def mlp_exact(args):
+    """The head's f64 score of pairs (rows r, items i) from mlp_topk's inputs."""
+    a_u, a_i, w2, b2, w3, b3 = (t.double() for t in args)
+
+    def score(r, i):
+        z = torch.relu(torch.relu(a_u[r] + a_i[i]) @ w2.T + b2)
+        return torch.sigmoid(z @ w3.reshape(-1) + b3)
+    return score
+
+
+def mlp_topk_rows(dev, record, num_users, num_items, fetches, split_users, serve_users,
+                  seed=0) -> None:
+    """``mlp_topk`` against its plain version (the tile loop and a stable
+    sort) at U x I and each of ``fetches``; at the first fetch with
+    ``split_users`` users (a few user blocks, so catalog splits) and with
+    ``serve_users`` users (the serving cell's shape at 100,000: one user
+    block per 128 users, no split), each case's splits reported; then a row
+    at the first fetch (the serving cell's: k 10 and 10 bought items a user)
+    at U x I, whose library is the route the head ranked by before the
+    kernel: ``get_recs``'s torch route, a chunk of 128 users at a time
+    through both halves of layer 1, the tiles and a stable sort.  The bound
+    is layers 2 and 3's 8,256 operations a pair at 67 TFLOP/s (layer 1's two
+    products are cuBLAS's, outside the kernel)."""
+    fn, ue, ie, args = mlp_case(dev, num_users, num_items, seed + 28)
+    errs = []
+
+    def case(name, case_args, k):
+        errs.append(check_topk(f"mlp_topk {name}", *tm.mlp_topk(*case_args, k),
+                               *tm.mlp_topk_reference(*case_args, k), mlp_exact(case_args),
+                               tol=MLP_TOL))
+        users = case_args[0].shape[0]
+        say("kernel_case", name="mlp_topk", case=name, shape=[users, num_items, k],
+            max_abs_err=errs[-1], splits=tm._lib().mlp_topk_splits(users, num_items, k)
+            if dev.type == "cuda" else None)
+
+    for k in fetches:
+        case(f"k={min(k, num_items)}", args, min(k, num_items))
+    k = min(fetches[0], num_items)
+    case("splits", mlp_case(dev, split_users, num_items, seed + 29)[3], k)
+    case("serve", mlp_case(dev, serve_users, num_items, seed + 30)[3], k)
+    tied = [args[0][:256], args[1][:1].expand(num_items, tm.MLP_H1), *args[2:]]
+    _, tidx = tm.mlp_topk(*tied, k)
+    if not torch.equal(tidx, torch.arange(k, device=dev).expand(tidx.shape[0], k)):
+        raise AssertionError("mlp_topk: ties must go to the lowest indices")
+    uids = torch.arange(num_users, device=dev)
+    record("mlp_topk", MLP_RANK, 68, max(errs), lambda: tm.mlp_topk(*args, k),
+           lambda: tm.mlp_topk_reference(*args, k),
+           lambda: get_recs(ue, ie, uids, k, score_fn=fn, backend="torch"),
+           float(num_users) * num_items * 2.0 * (tm.MLP_H1 * tm.MLP_H2 + tm.MLP_H2),
+           4.0 * (num_users + num_items) * tm.MLP_H1 + 12.0 * num_users * k,
+           plain_reps=2)
 
 
 def boosted_cases(num_users, num_items, dim, k, k_max) -> dict:
@@ -1623,6 +1722,8 @@ def phase_slice(dev, data, hidden=256, out=128, request_sizes=(1, 128, 4096), k=
         sync(dev)
         report["metrics_s"] = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in (tm.mips_topk, tm.mips_lse, tm.mips_boost)}
+        if tm.mlp_topk.launches:
+            raise AssertionError("cosine serving launched mlp_topk")
         # Each request's bought table by its route: the graph's rows, or the host pack.
         routes = {"requests": inference_ondemand.requests,
                   "from_graph": bought_table.from_graph, "packed": bought_table.packed}
@@ -2700,10 +2801,21 @@ def serve_nn_run(dev, data, model, kw, users, k) -> dict:
     uids = rng.choice(data.num_users, users, replace=False).tolist()
     with tempfile.TemporaryDirectory() as run_dir:
         save_run(run_dir, model.state_dict(), run_model_kwargs(kw), graph=data.graph)
+        before = (make_mlp_score_fn.pairs, tm.mlp_topk.pairs, tm.mlp_topk.launches)
         t0 = time.perf_counter()
         card = inference_ondemand(run_dir, uids, k=k, use_popularity=False, device=dev)
         sync(dev)
         report["request_s"] = time.perf_counter() - t0
+        head_pairs, kernel_pairs, launched = (
+            n - n0 for n, n0 in zip((make_mlp_score_fn.pairs, tm.mlp_topk.pairs,
+                                     tm.mlp_topk.launches), before))
+        # Engagement: the head's pairs that the kernel ranked (1.0 on the card).
+        report.update(head_pairs=head_pairs, mlp_topk_pairs=kernel_pairs,
+                      mlp_topk_launches=launched)
+        if head_pairs != users * data.num_items or (
+                dev.type == "cuda" and (kernel_pairs != head_pairs or launched != 1)):
+            raise AssertionError(f"the request's head pairs {head_pairs}, mlp_topk's "
+                                 f"{kernel_pairs} in {launched} launches")
         t0 = time.perf_counter()
         load_run(run_dir)
         report["load_run_s"] = time.perf_counter() - t0
@@ -2780,7 +2892,7 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
                                    cfg, already_bought=bought, device=dev)
     sync(dev)
     report["train_s"] = time.perf_counter() - t0
-    launches = {"mips_topk": tm.mips_topk.launches}
+    launches = {"mips_topk": tm.mips_topk.launches, "mlp_topk": tm.mlp_topk.launches}
     epoch_ms = 1e3 * np.asarray(hist["epoch_time"])
     report.update(epochs=len(hist["loss"]), loss=hist["loss"], recall=hist["recall"],
                   precision=hist["precision"], coverage=hist["coverage"],
@@ -2794,8 +2906,9 @@ def phase_train_full_batch(dev, pred="cos", num_users=10_000, num_items=3_000, h
     if not hist["recall"][-1] > random_recall:
         raise AssertionError(f"{phase}: trained recall@{k} {hist['recall'][-1]} <= random "
                              f"weights' {random_recall}")
-    if on_card and pred == "cos" and not launches["mips_topk"]:
-        raise AssertionError(f"{phase}: the cosine evaluation never launched mips_topk")
+    ranker = "mips_topk" if pred == "cos" else "mlp_topk"
+    if on_card and not launches[ranker]:
+        raise AssertionError(f"{phase}: the {pred} evaluation never launched {ranker}")
     if pred == "cos":
         report["eval_routes"] = eval_routes_check(
             dev, compute_embeddings(model, g, feats, device=dev), data.test_ground_truth,
@@ -4463,7 +4576,9 @@ def main() -> int:
         launches[f"{name}:bf16"] = nn_launches[name]
     # The full-batch trainer (BASELINE config[0]) with each scoring head.
     full_batch_launches = phase_train_full_batch(dev, "cos")
-    phase_train_full_batch(dev, "nn", num_users=5_000, num_items=1_500, epochs=20)
+    # The MLP head's evaluations rank through mlp_topk: its row's launches.
+    launches["mlp_topk"] = full_batch_launches.pop("mlp_topk") + phase_train_full_batch(
+        dev, "nn", num_users=5_000, num_items=1_500, epochs=20)["mlp_topk"]
     # The hyperparameter search: three trials on the hard synthetic world.
     hp_launches, hp_rows = phase_hp_search(dev)
     # The user's path from raw CSV logs: the ETL, run_trial and the CLIs.

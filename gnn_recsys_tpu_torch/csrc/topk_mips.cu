@@ -1,5 +1,7 @@
 // Full-catalog maximum-inner-product search for Hopper (sm_90a): one
-// score-tile kernel, topk_kernel<T, SHARED_LIST, EPI>, with three epilogues.
+// score-tile kernel, topk_kernel<T, SHARED_LIST, EPI>, with three epilogues;
+// and mlp_topk_kernel, which ranks by the MLP head instead of a dot product
+// with the same top-k lists (its own note, further down).
 //
 // Replaces the three Pallas kernels of gnn_recsys_tpu/ops/pallas/topk_mips.py:
 //   * mips_topk           (_mips_kernel,  topk_mips.py:52)  -> EPI_TOPK
@@ -270,6 +272,76 @@ __device__ __forceinline__ void sort64(float (&v)[2], int (&id)[2], int lane) {
           id[h] = pi;
         }
       }
+    }
+  }
+}
+
+// A user's buffer of n (<= BUF) entries, bv / bi, loaded two a lane and
+// sorted in list order (empty slots last).  Called by a whole warp.
+__device__ __forceinline__ void sorted_buffer(const float* bv, const int* bi, int n,
+                                              float (&v)[2], int (&id)[2], int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = lane + 32 * h;
+    v[h] = e < n ? bv[e] : -INFINITY;
+    id[h] = e < n ? bi[e] : INT_MAX;
+  }
+  sort64(v, id, lane);
+}
+
+// Sort a user's full buffer (n entries) and raise the user's k-th value
+// *thr.  SHARED_LIST: the buffer keeps its k best (*ccnt of them); else the
+// sorted entries merge into the user's list in device memory (lv, li; *cnt
+// entries) and the buffer empties.  Called by a whole warp; lane 0 writes
+// the counters.
+template <bool SHARED_LIST>
+__device__ __forceinline__ void flush_buffer(float* bv, int* bi, int n, int k, int* ccnt,
+                                             float* thr, int* cnt, float* lv, int* li,
+                                             int lane) {
+  float v[2];
+  int id[2];
+  sorted_buffer(bv, bi, n, v, id, lane);
+  if constexpr (SHARED_LIST) {
+    const int kept = min(n, k);
+    if (lane < kept) {
+      bv[lane] = v[0];
+      bi[lane] = id[0];
+    }
+    const float kth = __shfl_sync(FULL, v[0], k - 1);
+    if (lane == 0) {
+      *ccnt = kept;
+      *thr = kept == k ? kth : -INFINITY;
+    }
+  } else {
+    const int kept = merge_chunk<2>(lv, li, *cnt, k, v, id, n, lane);
+    if (lane == 0) {
+      *cnt = kept;
+      *ccnt = 0;
+      *thr = kept == k ? lv[k - 1] : -INFINITY;
+    }
+  }
+}
+
+// Write a user's top-k list to its row of the partial lists (lv, li) from
+// the buffer's n entries: SHARED_LIST, the buffer's k best (-inf, -1 past
+// them); else the buffer merged into the cnt entries already there, the
+// tail past the list empty.  Called by a whole warp.
+template <bool SHARED_LIST>
+__device__ __forceinline__ void finish_list(const float* bv, const int* bi, int n, int k,
+                                            int cnt, float* lv, int* li, int lane) {
+  float v[2];
+  int id[2];
+  sorted_buffer(bv, bi, n, v, id, lane);
+  if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
+    if (lane < k) {
+      lv[lane] = lane < n ? v[0] : -INFINITY;
+      li[lane] = lane < n ? id[0] : -1;
+    }
+  } else {  // the buffer's rest merged into the list; the tail past it empty
+    const int kept = merge_chunk<2>(lv, li, cnt, k, v, id, n, lane);
+    for (int p = kept + lane; p < k; p += 32) {
+      lv[p] = -INFINITY;
+      li[p] = -1;
     }
   }
 }
@@ -573,36 +645,9 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
           todo &= todo - 1;
           const int r = warp + NWARPS * j;
           const int n = min(__shfl_sync(FULL, mine, j), BUF);
-          float v[2];
-          int id[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = lane + 32 * h;
-            v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
-            id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
-          }
-          sort64(v, id, lane);
-          if constexpr (SHARED_LIST) {
-            const int kept = min(n, k);
-            if (lane < kept) {
-              buf_v[r * BUF + lane] = v[0];
-              buf_i[r * BUF + lane] = id[0];
-            }
-            const float kth = __shfl_sync(FULL, v[0], k - 1);
-            if (lane == 0) {
-              ccnt[r] = kept;
-              thr[r] = kept == k ? kth : -INFINITY;
-            }
-          } else {
-            const size_t row = ((size_t)split * num_users + u0 + r) * k;
-            const int kept = merge_chunk<2>(part_vals + row, part_idx + row, cnt[r], k, v, id, n,
-                                            lane);
-            if (lane == 0) {
-              cnt[r] = kept;
-              ccnt[r] = 0;
-              thr[r] = kept == k ? part_vals[row + k - 1] : -INFINITY;
-            }
-          }
+          const size_t row = ((size_t)split * num_users + u0 + r) * k;
+          flush_buffer<SHARED_LIST>(buf_v + r * BUF, buf_i + r * BUF, n, k, ccnt + r, thr + r,
+                                    cnt + r, part_vals + row, part_idx + row, lane);
         }
         __syncthreads();
 #pragma unroll
@@ -647,30 +692,273 @@ topk_kernel(const T* __restrict__ users, const T* __restrict__ items, int num_us
       const int u = u0 + r;
       if (u >= num_users) continue;
       const size_t row = ((size_t)split * num_users + u) * k;
-      const int n = min(ccnt[r], BUF);
-      float v[2];
-      int id[2];
+      finish_list<SHARED_LIST>(buf_v + r * BUF, buf_i + r * BUF, min(ccnt[r], BUF), k, cnt[r],
+                               part_vals + row, part_idx + row, lane);
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
+// mlp_topk_kernel
+// ----------------------------------------------------------------------
+//
+// The top-k of the MLP head's scores (pred='nn') over the whole catalog.
+// It replaces no Pallas kernel: the JAX package ranks with the head in XLA,
+// a user chunk's [C, T, 128] tiles at a time (gnn_recsys_tpu/retrieval/
+// recs.py:68-115, make_mlp_score_fn).  The caller factorises the first
+// Dense, a_u = u W1_u^T + b1 [U, 128] and a_i = i W1_i^T [I, 128] (two f32
+// GEMMs), and the kernel does the rest for every pair (u, i):
+//
+//   h = relu(a_u[u] + a_i[i]);  z = relu(h W2^T + b2);  s = sigmoid(z . w3 + b3)
+//
+// and ranks s as EPI_TOPK ranks a score.  No score leaves the registers.
+//
+// What bounds it.  Layers 2 and 3 are 4,128 FMAs a pair against two
+// 128-float rows: 8,256 operations, 2.5e13 for 100,000 users against 30,000
+// items.  So f32 FMA throughput on the CUDA cores bounds it (67 TFLOP/s),
+// with no TF32 and no tensor cores: the products are full f32, as the plain
+// version's.  The adds and maxes that form h, the loads of W2 and layer 3
+// take issue slots besides, about an eighth of them.
+//
+// The design.  A block of 256 threads owns BU=128 users, resident in shared
+// memory beside W2 transposed ([128][32]: a warp's reads of a row of it are
+// broadcasts), and walks its catalog range in tiles of BI=64 items of a_i,
+// streamed through a two-stage cp.async ring (a tile is 128 users x 64 items
+// of work, so two stages hide the copy).  Each warp owns 16 of the users and
+// scores them two at a time against the tile's items, two a lane: a thread's
+// register tile is 2 users x 2 items x the 32 outputs of layer 2, 128
+// accumulators, so each step of the 128-wide sum costs 4 adds, 4 maxes and 8
+// float4 loads of W2 for 128 FMAs, and a float4 of each of the four rows per
+// 4 steps.  h is formed in registers and never stored.  The sum over the 128
+// inputs runs in order, one FMA each, then b2 is added; layer 3 is FMAs in
+// order over the 32 outputs, then b3; the sigmoid is 1 / (1 + expf(-x)) with
+// the IEEE division, as PyTorch's sigmoid computes it.  On the H100 at 4,096
+// users x 30,000 items it runs at 56% of the f32 peak: edited copies with W2
+// taken from registers ran 9% faster, with no top-k 2%; one with W2 as
+// constant-bank operands of a fully unrolled sum ran at half the speed.
+//
+// Top-k.  A warp owns its users, so it offers their scores with no atomic
+// and no block barrier: per user a ballot of the lanes whose scores reach the
+// user's k-th value, a prefix count that places them in the user's BUF-entry
+// buffer, and a full buffer flushed at once by the same warp (flush_buffer:
+// EPI_TOPK's sort, its SHARED_LIST route for k <= 32 and its merge into the
+// list in device memory for larger k).  The lists, catalog splits and
+// merge_kernel are EPI_TOPK's, so ties go to the lowest index.
+namespace mk {
+constexpr int H1 = 128;     // the head's first hidden width: a_u and a_i rows
+constexpr int H2 = 32;      // its second
+constexpr int BU = tk::BU;  // users per block: 16 a warp
+constexpr int BI = 64;      // catalog items per tile: lane and lane + 32
+constexpr int THREADS = tk::THREADS;
+constexpr int NWARPS = tk::NWARPS;
+constexpr int STAGES = 2;   // a_i tiles in the ring
+constexpr int LDI = H1 + 4; // floats a staged item row: 8 lanes' float4 reads of 8 rows
+                            // fall on distinct banks
+constexpr int BUF = tk::BUF;
+// Shared memory: ring, users, W2^T, b2, w3 (floats); buffers; three counters a user.
+constexpr int SMEM_BYTES =
+    4 * (STAGES * BI * LDI + BU * H1 + H1 * H2 + 2 * H2) + BU * BUF * 8 + 3 * BU * 4;
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
+static_assert(BU % (2 * NWARPS) == 0, "a warp scores its users two at a time");
+}  // namespace mk
+
+__device__ __forceinline__ float component(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The head's scores of two users (rows ua, ub of the resident users) against
+// a lane's two items (rows it and it + 32 of the staged tile): s[p][q] for
+// user p and item q.
+__device__ __forceinline__ void tower_scores(const float* ua, const float* ub, const float* it,
+                                             const float* w2t, const float* b2s,
+                                             const float* w3s, float b3, float (&s)[2][2]) {
+  constexpr int H1 = mk::H1, H2 = mk::H2, LDI = mk::LDI;
+  float acc[2][2][H2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = lane + 32 * h;
-        v[h] = e < n ? buf_v[r * BUF + e] : -INFINITY;
-        id[h] = e < n ? buf_i[r * BUF + e] : INT_MAX;
-      }
-      sort64(v, id, lane);
-      if constexpr (SHARED_LIST) {  // the buffer's k best, in list order
-        if (lane < k) {
-          part_vals[row + lane] = lane < n ? v[0] : -INFINITY;
-          part_idx[row + lane] = lane < n ? id[0] : -1;
-        }
-      } else {  // the buffer's rest merged into the list; the tail past it empty
-        const int kept = merge_chunk<2>(part_vals + row, part_idx + row, cnt[r], k, v, id, n,
-                                        lane);
-        for (int p = kept + lane; p < k; p += 32) {
-          part_vals[row + p] = -INFINITY;
-          part_idx[row + p] = -1;
-        }
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int j = 0; j < H2; ++j) acc[p][q][j] = 0.f;
+  // The rows' next 4 inputs are loaded a step ahead (the last step loads
+  // the first again, unused), two steps a loop: 4.6% faster at 4,096 x
+  // 30,000 than neither (28.5 -> 27.2 ms on the H100).
+  float4 x[2] = {load4(ua), load4(ub)};
+  float4 y[2] = {load4(it), load4(it + 32 * LDI)};
+#pragma unroll 2
+  for (int c = 0; c < H1; c += 4) {
+    const int cn = (c + 4) & (H1 - 1);
+    const float4 xn[2] = {load4(ua + cn), load4(ub + cn)};
+    const float4 yn[2] = {load4(it + cn), load4(it + 32 * LDI + cn)};
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float h[2][2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          h[p][q] = fmaxf(component(x[p], cc) + component(y[q], cc), 0.f);
+      const float* w = w2t + (c + cc) * H2;
+#pragma unroll
+      for (int j = 0; j < H2; j += 4) {
+        const float4 wj = load4(w + j);
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            acc[p][q][j] = fmaf(h[p][q], wj.x, acc[p][q][j]);
+            acc[p][q][j + 1] = fmaf(h[p][q], wj.y, acc[p][q][j + 1]);
+            acc[p][q][j + 2] = fmaf(h[p][q], wj.z, acc[p][q][j + 2]);
+            acc[p][q][j + 3] = fmaf(h[p][q], wj.w, acc[p][q][j + 3]);
+          }
       }
     }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      x[p] = xn[p];
+      y[p] = yn[p];
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float logit = 0.f;
+#pragma unroll
+      for (int j = 0; j < H2; ++j)
+        logit = fmaf(fmaxf(acc[p][q][j] + b2s[j], 0.f), w3s[j], logit);
+      s[p][q] = 1.f / (1.f + expf(-(logit + b3)));
+    }
+}
+
+// Offer a lane's two scores v[q] (items i0 + lane + 32 q, those below i_end)
+// to a user's buffer (bv, bi; its counters ccnt, thr, cnt; its list lv, li),
+// which only the calling warp touches: the scores that reach the user's k-th
+// value go in by a prefix count over the lanes, and a full buffer is flushed
+// and the rest filtered again.  Called by a whole warp.
+template <bool SHARED_LIST>
+__device__ __forceinline__ void offer_warp(const float (&v)[2], int i0, int i_end, int k,
+                                           float* bv, int* bi, int* ccnt, float* thr, int* cnt,
+                                           float* lv, int* li, int lane) {
+  const unsigned below = (1u << lane) - 1u;
+  const float t = *thr;
+  bool pass[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) pass[q] = i0 + lane + 32 * q < i_end && v[q] >= t;
+  while (true) {
+    const unsigned m0 = __ballot_sync(FULL, pass[0]);
+    const unsigned m1 = __ballot_sync(FULL, pass[1]);
+    const int n = __popc(m0) + __popc(m1);
+    if (n == 0) return;
+    const int c = *ccnt;
+    const int pos[2] = {c + __popc(m0 & below), c + __popc(m0) + __popc(m1 & below)};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (pass[q] && pos[q] < tk::BUF) {
+        bv[pos[q]] = v[q];
+        bi[pos[q]] = i0 + lane + 32 * q;
+        pass[q] = false;
+      }
+    }
+    __syncwarp();
+    if (c + n <= tk::BUF) {
+      if (lane == 0) *ccnt = c + n;
+      __syncwarp();
+      return;
+    }
+    flush_buffer<SHARED_LIST>(bv, bi, tk::BUF, k, ccnt, thr, cnt, lv, li, lane);
+    __syncwarp();
+    const float raised = *thr;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) pass[q] = pass[q] && v[q] >= raised;
+  }
+}
+
+// Ranks users [u0, u0 + BU) by the head over catalog range [i_begin, i_end)
+// and writes the range's top-k per user to part_vals / part_idx
+// [split][user][k] (idx -1 past the range's item count).  a_u [U][H1], a_i
+// [I][H1], w2 [H2][H1], b2 [H2], w3 [H2], b3 [1], all f32.  SHARED_LIST: k
+// <= SHARED_K.
+template <bool SHARED_LIST>
+__global__ void __launch_bounds__(mk::THREADS, 1)
+mlp_topk_kernel(const float* __restrict__ a_u, const float* __restrict__ a_i,
+                const float* __restrict__ w2, const float* __restrict__ b2,
+                const float* __restrict__ w3, const float* __restrict__ b3, int num_users,
+                int num_items, int k, int split_items, float* __restrict__ part_vals,
+                int* __restrict__ part_idx) {
+  constexpr int BU = mk::BU, BI = mk::BI, H1 = mk::H1, H2 = mk::H2, LDI = mk::LDI;
+  constexpr int THREADS = mk::THREADS, NWARPS = mk::NWARPS, BUF = mk::BUF;
+  extern __shared__ __align__(16) unsigned char mksmem[];
+  float* ring = reinterpret_cast<float*>(mksmem);    // [STAGES][BI][LDI]
+  float* us = ring + mk::STAGES * BI * LDI;          // [BU][H1]
+  float* w2t = us + BU * H1;                         // [H1][H2]
+  float* b2s = w2t + H1 * H2;                        // [H2]
+  float* w3s = b2s + H2;                             // [H2]
+  float* buf_v = w3s + H2;                           // [BU][BUF]
+  int* buf_i = reinterpret_cast<int*>(buf_v + BU * BUF);  // [BU][BUF]
+  int* ccnt = buf_i + BU * BUF;                      // [BU] entries in the buffer
+  float* thr = reinterpret_cast<float*>(ccnt + BU);  // [BU] k-th value, -inf until k
+  int* cnt = reinterpret_cast<int*>(thr + BU);       // [BU] list entries (k > SHARED_K)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int u0 = blockIdx.x * BU;
+  const int split = blockIdx.y;
+  const int i_begin = split * split_items;
+  const int i_end = min(num_items, i_begin + split_items);
+  const int tiles = (i_end - i_begin + BI - 1) / BI;
+
+  for (int r = tid; r < BU; r += THREADS) {
+    ccnt[r] = 0;
+    cnt[r] = 0;
+    thr[r] = -INFINITY;
+  }
+  for (int e = tid; e < H1 * H2; e += THREADS) w2t[e] = w2[(e % H2) * H1 + e / H2];
+  if (tid < H2) {
+    b2s[tid] = b2[tid];
+    w3s[tid] = w3[tid];
+  }
+  const float bias3 = *b3;
+  // The users go in the first tile's commit group.
+  copy_rows<H1>(us, H1, a_u, u0, BU, num_users, 0, H1, H1);
+  auto issue = [&](int t) {
+    if (t < tiles)
+      copy_rows<H1>(ring + (t % mk::STAGES) * BI * LDI, LDI, a_i, i_begin + t * BI, BI, i_end,
+                    0, H1, H1);
+    cp_async_commit();
+  };
+  issue(0);
+#pragma unroll 1
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1
+    issue(t + 1);
+    const float* it = ring + (t % mk::STAGES) * BI * LDI + lane * LDI;
+    const int i0 = i_begin + t * BI;
+#pragma unroll 1
+    for (int r = warp; r < BU; r += 2 * NWARPS) {  // users r and r + NWARPS
+      if (u0 + r >= num_users) break;
+      float s[2][2];
+      tower_scores(us + r * H1, us + (r + NWARPS) * H1, it, w2t, b2s, w3s, bias3, s);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int ru = r + p * NWARPS;
+        if (u0 + ru >= num_users) break;
+        const size_t row = ((size_t)split * num_users + u0 + ru) * k;
+        offer_warp<SHARED_LIST>(s[p], i0, i_end, k, buf_v + ru * BUF, buf_i + ru * BUF,
+                                ccnt + ru, thr + ru, cnt + ru, part_vals + row,
+                                part_idx + row, lane);
+      }
+    }
+  }
+  // A warp's users are its own: no barrier before their lists.
+  for (int r = warp; r < BU; r += NWARPS) {
+    const int u = u0 + r;
+    if (u >= num_users) continue;
+    const size_t row = ((size_t)split * num_users + u) * k;
+    finish_list<SHARED_LIST>(buf_v + r * BUF, buf_i + r * BUF, min(ccnt[r], BUF), k, cnt[r],
+                             part_vals + row, part_idx + row, lane);
   }
 }
 
@@ -835,6 +1123,14 @@ cudaError_t launch_merge(const void* part_vals, const void* part_idx, int splits
   return cudaGetLastError();
 }
 
+using MkKernel = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const float*, int, int, int, int, float*, int*);
+
+// The instantiation of mlp_topk_kernel a launch with k runs.
+MkKernel mk_kernel(int k) {
+  return k <= tk::SHARED_K ? mlp_topk_kernel<true> : mlp_topk_kernel<false>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -904,6 +1200,43 @@ int mips_boost_launch(const void* users, const void* items, const void* pop,
   cudaError_t err = launch_scores(EPI_BOOST, bf16, users, items, num_users, num_items, D, k,
                                   resident, splits, pop, weight, m_in, s_in, part_vals,
                                   part_idx, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_merge(part_vals, part_idx, splits, num_users, k, out_vals, out_idx, st);
+}
+
+// The MLP head's widths mlp_topk_kernel is built for: 0, the first hidden
+// layer's; 1, the second's.
+int mlp_topk_widths(int which) { return which == 0 ? mk::H1 : mk::H2; }
+
+// Number of catalog splits an mlp_topk launch with these sizes uses; the
+// caller sizes the partial lists [splits][num_users][k].
+int mlp_topk_splits(int num_users, int num_items, int k) {
+  int blocks_per_sm = 1;
+  if (configure(mk_kernel(k), mk::THREADS, mk::SMEM_BYTES, &blocks_per_sm) != cudaSuccess)
+    return 1;
+  return split_count((num_users + mk::BU - 1) / mk::BU, (num_items + mk::BI - 1) / mk::BI,
+                     blocks_per_sm);
+}
+
+int mlp_topk_launch(const void* a_u, const void* a_i, const void* w2, const void* b2,
+                    const void* w3, const void* b3, int num_users, int num_items, int k,
+                    int splits, void* part_vals, void* part_idx, void* out_vals, void* out_idx,
+                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k < 1 || k > tk::MAX_K || splits < 1) return (int)cudaErrorInvalidValue;
+  const MkKernel kernel = mk_kernel(k);
+  int blocks_per_sm = 0;
+  cudaError_t err = configure(kernel, mk::THREADS, mk::SMEM_BYTES, &blocks_per_sm);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (num_items + mk::BI - 1) / mk::BI;
+  const int split_items = ((tiles + splits - 1) / splits) * mk::BI;
+  const dim3 grid((num_users + mk::BU - 1) / mk::BU, splits);
+  kernel<<<grid, mk::THREADS, mk::SMEM_BYTES, st>>>(
+      static_cast<const float*>(a_u), static_cast<const float*>(a_i),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(b3), num_users, num_items, k,
+      split_items, static_cast<float*>(part_vals), static_cast<int*>(part_idx));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_vals, part_idx, splits, num_users, k, out_vals, out_idx, st);
 }

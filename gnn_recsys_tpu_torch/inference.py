@@ -133,8 +133,10 @@ def inference_ondemand(
     inside it ``load_run``'s, ``gnn.serve.build`` (the model and its
     parameters' copy), ``gnn.serve.embed``, ``gnn.serve.bought_table``,
     ``gnn.serve.rank`` and ``gnn.serve.to_host`` (the wait for the ranking,
-    and the id maps).  Ranking a ``pred='nn'`` run opens, inside
-    ``gnn.serve.rank``, one ``gnn.pred.rank`` span a chunk of users
+    and the id maps).  Ranking a ``pred='nn'`` run opens ``gnn.pred.rank``
+    spans inside ``gnn.serve.rank``: on a card without the boost one, around
+    the head's first layer and ``mlp_topk`` (the MLP head and the top-k over
+    the whole catalog in one kernel); else one a chunk of users
     (:func:`~gnn_recsys_tpu_torch.retrieval.recs.make_mlp_score_fn`: the MLP
     head over the whole catalog), apart from the top-k.
 

@@ -12,6 +12,9 @@ it and how each epilogue works):
 * :func:`mips_boost` — per user, the top-``k`` of ``exp(u.i - m) / s +
   weight * pop[i]`` (pass 2).
 * :func:`mips_topk_boosted` — the two passes together.
+* :func:`mlp_topk` — per user, the top-``k`` of the MLP head's score
+  (``pred='nn'``) over the whole catalog, from layer 1's two halves; the
+  file's second kernel, ``mlp_topk_kernel``, with the same top-k lists.
 
 Ties go to the lowest item index (the TPU kernel's rule), so every plain
 version selects with a stable descending sort; ``torch.topk`` does not
@@ -20,6 +23,8 @@ lie on the CPU; for CUDA tensors it launches the kernel or raises (at any
 width: :func:`kernel_inputs` zero-pads it to a multiple of 4).  Each wrapper
 of a kernel counts its launches in a plain integer attribute ``.launches``;
 :func:`mips_topk_boosted` launches none of its own (its passes count).
+:func:`mlp_topk` also counts the pairs it scores in ``.pairs``, on either
+route.
 """
 
 from __future__ import annotations
@@ -55,6 +60,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         _P, _P, _P, _P, _P, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
     ]
     lib.mips_boost_launch.restype = _I
+    lib.mlp_topk_widths.argtypes = [_I]
+    lib.mlp_topk_widths.restype = _I
+    lib.mlp_topk_splits.argtypes = [_I, _I, _I]
+    lib.mlp_topk_splits.restype = _I
+    lib.mlp_topk_launch.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 5
+    lib.mlp_topk_launch.restype = _I
+    if (lib.mlp_topk_widths(0), lib.mlp_topk_widths(1)) != (MLP_H1, MLP_H2):
+        raise RuntimeError("csrc/topk_mips.cu and its wrapper disagree on the head's widths")
     for d in (36, 128, 256):  # the host's plan must be the kernel's
         for bf16 in (False, True):
             for resident in (False, True):
@@ -86,6 +99,7 @@ EPILOGUES = (EPI_TOPK, EPI_BOOST, EPI_LSE)
 # tile, dims a ring stage, ring stages, entries of a user's buffer.
 _TK_BU, _TK_BI, _TK_BK, _TK_STAGES, _TK_BUF = 128, 128, 32, 3, 64
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use
+MLP_H1, MLP_H2 = 128, 32  # the MLP head's widths: mlp_topk_kernel's fixed tile shapes
 
 
 class TopkPlan(NamedTuple):
@@ -209,6 +223,37 @@ def mips_topk_boosted_reference(user_emb, item_emb, popularity, k: int,
     m, s = mips_lse_reference(user_emb, item_emb, bf16=bf16)
     return mips_boost_reference(user_emb, item_emb, popularity, m, s, k,
                                 weight=weight, bf16=bf16)
+
+
+def mlp_scores(a_u, a_i, w2, b2, w3, b3, item_tile: int = 512) -> torch.Tensor:
+    """The MLP head's scores of every (user, item) pair from layer 1's two
+    halves, ``a_u = u W1_u^T + b1`` [U, 128] and ``a_i = i W1_i^T`` [I,
+    128]: ``sigmoid(relu(relu(a_u + a_i) W2^T + b2) w3^T + b3)``, [U, I] f32,
+    through ``[U, item_tile, 128]`` tiles of PyTorch operations (``w3`` [1,
+    32], ``b3`` [1], the head's Linear shapes).  The caller picks the
+    matmul precision."""
+    tiles = []
+    for lo in range(0, a_i.shape[0], item_tile):
+        h = torch.relu(a_u[:, None, :] + a_i[None, lo:lo + item_tile, :])  # [U, T, 128]
+        h = torch.relu(h @ w2.T + b2)  # [U, T, 32]
+        tiles.append(torch.sigmoid(h @ w3.T + b3)[..., 0])
+    return torch.cat(tiles, dim=1).float()
+
+
+# Users per tile loop in the plain version of mlp_topk: get_recs's chunk.
+_MLP_CHUNK = 128
+
+
+def mlp_topk_reference(a_u, a_i, w2, b2, w3, b3, k: int):
+    """Plain version of :func:`mlp_topk`: :func:`mlp_scores` by chunks of
+    128 users in full f32, then a stable sort."""
+    w3, b3 = w3.reshape(1, -1), b3.reshape(1)
+    vals, idx = _empty_topk(a_u.shape[0], k, a_u.device)
+    with full_f32_matmul():
+        for lo in range(0, a_u.shape[0], _MLP_CHUNK):
+            hi = lo + _MLP_CHUNK
+            vals[lo:hi], idx[lo:hi] = stable_topk(mlp_scores(a_u[lo:hi], a_i, w2, b2, w3, b3), k)
+    return vals, idx
 
 
 # ----------------------------------------------------------------------
@@ -378,3 +423,59 @@ def mips_topk_boosted(user_emb: torch.Tensor, item_emb: torch.Tensor,
                                            weight=weight, bf16=bf16)
     m, s = mips_lse(user_emb, item_emb, bf16=bf16)
     return mips_boost(user_emb, item_emb, popularity, m, s, k, weight=weight, bf16=bf16)
+
+
+def _check_mlp(a_u, a_i, w2, b2, w3, b3, k: int) -> Tuple[int, int]:
+    named = dict(a_u=a_u, a_i=a_i, w2=w2, b2=b2, w3=w3, b3=b3)
+    for name, t in named.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"mlp_topk: {name} must be float32, got {t.dtype}")
+    if a_u.dim() != 2 or a_i.dim() != 2 or a_u.shape[1] != MLP_H1 or a_i.shape[1] != MLP_H1:
+        raise ValueError(f"mlp_topk: a_u and a_i must be [*, {MLP_H1}], got "
+                         f"{tuple(a_u.shape)} and {tuple(a_i.shape)}")
+    if (tuple(w2.shape) != (MLP_H2, MLP_H1) or tuple(b2.shape) != (MLP_H2,)
+            or w3.numel() != MLP_H2 or b3.numel() != 1):
+        raise ValueError(f"mlp_topk: the head must be w2 [{MLP_H2}, {MLP_H1}], b2 [{MLP_H2}], "
+                         f"w3 of {MLP_H2} and b3 of 1, got {tuple(w2.shape)}, "
+                         f"{tuple(b2.shape)}, {tuple(w3.shape)}, {tuple(b3.shape)}")
+    num_items = a_i.shape[0]
+    if not 1 <= k <= num_items:
+        raise ValueError(f"mlp_topk: k={k} must be in [1, num_items={num_items}]")
+    return a_u.shape[0], num_items
+
+
+def mlp_topk(a_u: torch.Tensor, a_i: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+             w3: torch.Tensor, b3: torch.Tensor, k: int):
+    """Top-k items of each user by the MLP head's score: (values [U, k] f32,
+    indices [U, k] int64), value descending, then index ascending.
+
+    ``a_u = u W1_u^T + b1`` [U, 128] and ``a_i = i W1_i^T`` [I, 128] are
+    layer 1's two halves; ``w2`` [32, 128], ``b2`` [32], ``w3`` (32
+    values), ``b3`` (one) the rest of the head, all f32.  Every pair is
+    scored in full f32 (:func:`mlp_scores` is the function)."""
+    num_users, num_items = _check_mlp(a_u, a_i, w2, b2, w3, b3, k)
+    mlp_topk.pairs += num_users * num_items
+    if build.on_cpu(a_u, a_i, w2, b2, w3, b3):
+        return mlp_topk_reference(a_u, a_i, w2, b2, w3, b3, k)
+    if k > max_k():
+        raise ValueError(f"k={k} exceeds the CUDA kernel's limit {max_k()}")
+    dev = a_u.device
+    # Contiguous; the rows of a_u and a_i 16-byte aligned for the kernel's copies.
+    args = [t.contiguous() for t in (a_u, a_i, w2, b2, w3.reshape(-1), b3.reshape(-1))]
+    args[:2] = [t.clone() if t.data_ptr() % 16 else t for t in args[:2]]
+    vals, idx = _empty_topk(num_users, k, dev)
+    if num_users:
+        lib = _lib()
+        with torch.cuda.device(dev):
+            splits = lib.mlp_topk_splits(num_users, num_items, k)
+            pv, pi = _partials(splits, num_users, k, dev)
+            err = lib.mlp_topk_launch(
+                *(t.data_ptr() for t in args), num_users, num_items, k, splits,
+                pv.data_ptr(), pi.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                build.stream(dev))
+        build.check(lib, err, "mlp_topk")
+        mlp_topk.launches += 1
+    return vals, idx
+
+
+counter(mlp_topk, "launches", "pairs")

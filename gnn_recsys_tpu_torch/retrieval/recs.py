@@ -8,10 +8,14 @@ optional popularity boost ``softmax(ratings) + w * popularity`` per row
 
 * ``torch`` (the JAX ``xla`` route): user chunks, one full-f32 ``[C, I]``
   product each (no TF32), then a tie-stable top-k.
-* ``cuda`` (the JAX ``pallas`` route): the hand-written MIPS kernels of
+* ``cuda`` (the JAX ``pallas`` route): the hand-written kernels of
   :mod:`gnn_recsys_tpu_torch.ops.cuda.topk_mips`, which never hold the
-  ``[U, I]`` score block.  On CPU tensors the wrapper runs its plain version.
-* ``auto``: ``cuda`` for cosine scoring on CUDA tensors, else ``torch``.
+  ``[U, I]`` score block: the MIPS kernels for cosine scoring, ``mlp_topk``
+  for the MLP head without a popularity boost (the head's score function
+  carries its weights, ``score_fn.head``).  On CPU tensors each wrapper runs
+  its plain version.
+* ``auto``: ``cuda`` on CUDA tensors for cosine scoring and for the MLP head
+  without a boost, else ``torch``.
 
 Already-bought filtering routes by row width; both routes are exact and
 equal to the reference's filter-after-ranking:
@@ -36,6 +40,8 @@ from gnn_recsys_tpu_torch.ops.cuda.topk_mips import (
     full_f32_matmul,
     mips_topk,
     mips_topk_boosted,
+    mlp_scores,
+    mlp_topk,
     stable_topk,
 )
 from gnn_recsys_tpu_torch.ops.membership import (
@@ -59,45 +65,53 @@ def cosine_score_fn(u_chunk: torch.Tensor, item_emb: torch.Tensor) -> torch.Tens
         return l2_normalize(u_chunk) @ l2_normalize(item_emb).T
 
 
+def head_layer1(w1: torch.Tensor, b1: torch.Tensor, user_rows: torch.Tensor,
+                item_emb: torch.Tensor):
+    """Layer 1 of the MLP head, factorised: ``concat(u, i) @ W1^T + b1 =
+    (u @ W1[:, :D]^T + b1) + i @ W1[:, D:]^T``, so the user half ``a_u``
+    [C, 128] and the item half ``a_i`` [I, 128] are one product each.  The
+    caller picks the matmul precision."""
+    d = user_rows.shape[-1]
+    return user_rows @ w1[:, :d].T + b1, item_emb @ w1[:, d:].T
+
+
 def make_mlp_score_fn(params: Union[nn.Module, Mapping[str, torch.Tensor]],
                       item_tile: int = 512) -> ScoreFn:
     """Full-catalog scores of the trained MLP head (``pred='nn'``;
     ``recs.py:68-115``, reference ``src/metrics.py:61-63``).
 
-    The first Dense on ``concat(u, i)`` factorises exactly: ``concat(u, i)
-    @ W1 = u @ W1[:D] + i @ W1[D:]``, so the item half is one ``[I, 128]``
-    product shared by every user chunk, and only the ``[C, T, 128]``
-    broadcast add and the 128 -> 32 -> 1 towers run per item tile of ``T =
-    item_tile`` items.  ``params``: a ``pred='nn'`` model or its state_dict.
-    Products in full f32.  Returns a ``ScoreFn`` for :func:`get_recs`
-    (``torch`` route), which moves the weights to a device at its first call
-    there.  Each call runs in a ``gnn.pred.rank`` span (both halves of the
-    first Dense, the tiles and the sigmoid) and adds the score tensor's
-    elements (C x I) to the counter ``make_mlp_score_fn.pairs``."""
+    The first Dense on ``concat(u, i)`` factorises exactly
+    (:func:`head_layer1`), so the item half is one ``[I, 128]`` product
+    shared by every user chunk, and only the ``[C, T, 128]`` broadcast add
+    and the 128 -> 32 -> 1 towers run per item tile of ``T = item_tile``
+    items (:func:`~gnn_recsys_tpu_torch.ops.cuda.topk_mips.mlp_scores`).
+    ``params``: a ``pred='nn'`` model or its state_dict.  Products in full
+    f32.  Returns a ``ScoreFn`` for :func:`get_recs` (``torch`` route), which
+    carries the head's f32 weights: ``score_fn.head(device)`` gives (w1, b1,
+    w2, b2, w3, b3) on ``device``, moved there once (a mesh's shards call
+    from several), and :func:`get_recs` ranks by it with ``mlp_topk``.  Each
+    call runs in a ``gnn.pred.rank`` span (both halves of the first Dense,
+    the tiles and the sigmoid) and adds the score tensor's elements (C x I)
+    to the counter ``make_mlp_score_fn.pairs``."""
     sd = params.state_dict() if isinstance(params, nn.Module) else params
-    w1, b1, w2, b2, w3, b3 = (sd[f"pred_layer.{lin}.{leaf}"].detach().float()
-                              for lin in ("hidden_1", "hidden_2", "output")
-                              for leaf in ("weight", "bias"))
+    weights = tuple(sd[f"pred_layer.{lin}.{leaf}"].detach().float()
+                    for lin in ("hidden_1", "hidden_2", "output") for leaf in ("weight", "bias"))
+    on_device = {}
 
-    on_device = {}  # the weights moved once a device (a mesh's shards call from several)
+    def head(dev: torch.device):
+        if dev not in on_device:
+            on_device[dev] = tuple(t.to(dev) for t in weights)
+        return on_device[dev]
 
     def score_fn(u_chunk: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
-        dev, d = u_chunk.device, u_chunk.shape[-1]
-        if dev not in on_device:
-            on_device[dev] = tuple(t.to(dev) for t in (w1, b1, w2, b2, w3, b3))
-        w1d, b1d, w2d, b2d, w3d, b3d = on_device[dev]
+        w1, b1, w2, b2, w3, b3 = head(u_chunk.device)
         with span("gnn.pred.rank"), full_f32_matmul():
-            uh = u_chunk @ w1d[:, :d].T + b1d  # [C, 128]
-            ih = item_emb @ w1d[:, d:].T  # [I, 128]
-            tiles = []
-            for lo in range(0, ih.shape[0], item_tile):
-                h = torch.relu(uh[:, None, :] + ih[None, lo:lo + item_tile, :])  # [C, T, 128]
-                h = torch.relu(h @ w2d.T + b2d)  # [C, T, 32]
-                tiles.append(torch.sigmoid(h @ w3d.T + b3d)[..., 0])
-            scores = torch.cat(tiles, dim=1).float()
+            a_u, a_i = head_layer1(w1, b1, u_chunk, item_emb)
+            scores = mlp_scores(a_u, a_i, w2, b2, w3, b3, item_tile)
         make_mlp_score_fn.pairs += scores.numel()
         return scores
 
+    score_fn.head = head
     return score_fn
 
 
@@ -131,6 +145,30 @@ def as_device_tensor(x, dtype, dev) -> torch.Tensor:
     return to_device(torch.as_tensor(np.asarray(x), dtype=dtype), dev)
 
 
+def ranking_route(backend: str, dev: torch.device, score_fn: Optional[ScoreFn],
+                  boosted: bool, hub_rows: bool, mlp: bool = True) -> str:
+    """How retrieval ranks: ``"mips"`` (the MIPS kernels, cosine scoring),
+    ``"mlp"`` (``mlp_topk``, a score function that carries the MLP head's
+    weights, ``score_fn.head``, without a boost) or ``"torch"`` (user chunks
+    through the score function, then a stable sort).  ``auto`` takes a
+    kernel on CUDA devices where one scores the request; hub rows
+    (``hub_rows``) mask-then-rank on the torch route on both backends.
+    ``mlp=False``: the caller has no ``mlp`` route, so the head ranks on the
+    torch route, and the cuda backend scores by cosine only."""
+    kernel_scores = score_fn is None or (mlp and hasattr(score_fn, "head") and not boosted)
+    if backend == "auto":
+        backend = "cuda" if dev.type == "cuda" and kernel_scores else "torch"
+    if backend not in ("torch", "cuda"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "cuda" and not kernel_scores:
+        what = ", or by the MLP head without a popularity boost," if mlp else " only"
+        raise ValueError(f"the cuda backend scores by cosine{what} (use 'torch' for "
+                         "other score functions)")
+    if backend == "torch" or hub_rows:
+        return "torch"
+    return "mips" if score_fn is None else "mlp"
+
+
 def get_recs(
     user_emb,
     item_emb,
@@ -159,22 +197,16 @@ def get_recs(
         popularity = as_device_tensor(popularity, torch.float32, dev).reshape(-1)
     if already_bought is not None:
         already_bought = already_bought.to(dev)
-    if backend == "auto":
-        backend = "cuda" if dev.type == "cuda" and score_fn is None else "torch"
-    if backend not in ("torch", "cuda"):
-        raise ValueError(f"unknown backend {backend!r}")
-
     mask_rows = (already_bought is not None and remove_already_bought
                  and already_bought.max_row > 0)
     hub_rows = mask_rows and already_bought.max_row > OVERFETCH_MAX_ROW
-    if backend == "cuda":
-        if score_fn is not None:
-            raise ValueError("the cuda backend scores by cosine only (use 'torch' "
-                             "for custom score functions)")
-        if not hub_rows:
-            return _get_recs_cuda(user_emb, item_emb, user_ids, k, already_bought,
-                                  mask_rows, popularity, weight_popularity)
-        # Hub rows: mask-then-rank on the torch route, bounded by the catalog.
+    route = ranking_route(backend, dev, score_fn, popularity is not None, hub_rows)
+    if route == "mlp":
+        return _get_recs_mlp(score_fn.head(dev), user_emb, item_emb, user_ids, k,
+                             already_bought, mask_rows)
+    if route == "mips":
+        return _get_recs_cuda(user_emb, item_emb, user_ids, k, already_bought,
+                              mask_rows, popularity, weight_popularity)
     if score_fn is None:
         score_fn = cosine_score_fn
     num_items = item_emb.shape[0]
@@ -216,16 +248,44 @@ def _drop_bought(idx: torch.Tensor, user_ids: torch.Tensor,
 
 def _get_recs_cuda(user_emb, item_emb, user_ids, k, already_bought, mask_rows,
                    popularity, weight_popularity) -> torch.Tensor:
-    """Kernel retrieval with over-fetch masking: fetch top-(k + max_row)
-    from the MIPS kernel and drop bought entries afterwards (the counterpart
-    of the JAX ``_get_recs_pallas``)."""
-    fetch = min(k + (already_bought.max_row if mask_rows else 0), item_emb.shape[0])
-    ue = l2_normalize(user_emb[user_ids])
-    ie = l2_normalize(item_emb)
-    if popularity is not None:
-        _, idx = mips_topk_boosted(ue, ie, popularity, fetch, weight=float(weight_popularity))
-    else:
-        _, idx = mips_topk(ue, ie, fetch)
+    """Kernel retrieval by cosine (the counterpart of the JAX
+    ``_get_recs_pallas``): the MIPS kernel's top-(k + max_row), then
+    :func:`_overfetched`."""
+
+    def rank(fetch):
+        ue = l2_normalize(user_emb[user_ids])
+        ie = l2_normalize(item_emb)
+        if popularity is not None:
+            return mips_topk_boosted(ue, ie, popularity, fetch, weight=float(weight_popularity))
+        return mips_topk(ue, ie, fetch)
+
+    return _overfetched(rank, item_emb.shape[0], user_ids, k, already_bought, mask_rows)
+
+
+def _get_recs_mlp(weights, user_emb, item_emb, user_ids, k, already_bought,
+                  mask_rows) -> torch.Tensor:
+    """Ranking by the MLP head's ``weights`` (w1, b1, w2, b2, w3, b3) in one
+    kernel: layer 1's two halves once a request, then ``mlp_topk`` for
+    top-(k + max_row), inside one ``gnn.pred.rank`` span, then
+    :func:`_overfetched`; adds U x I to ``make_mlp_score_fn.pairs``."""
+    w1, b1, w2, b2, w3, b3 = weights
+
+    def rank(fetch):
+        with span("gnn.pred.rank"), full_f32_matmul():
+            a_u, a_i = head_layer1(w1, b1, user_emb[user_ids], item_emb)
+            ranked = mlp_topk(a_u, a_i, w2, b2, w3, b3, fetch)
+        make_mlp_score_fn.pairs += user_ids.shape[0] * item_emb.shape[0]
+        return ranked
+
+    return _overfetched(rank, item_emb.shape[0], user_ids, k, already_bought, mask_rows)
+
+
+def _overfetched(rank, num_items, user_ids, k, already_bought, mask_rows) -> torch.Tensor:
+    """Over-fetch masking around a kernel's ranking: ``rank(fetch)`` gives
+    each user's (values, indices) top-``fetch``, fetch = k + max_row (at
+    most the catalog); bought entries are dropped afterwards."""
+    fetch = min(k + (already_bought.max_row if mask_rows else 0), num_items)
+    _, idx = rank(fetch)
     if not mask_rows:
         return idx[:, :k]
     return _drop_bought(idx, user_ids, already_bought, k)

@@ -54,6 +54,7 @@ from gnn_recsys_tpu_torch.retrieval.recs import (
     _drop_bought,
     as_device_tensor,
     cosine_score_fn,
+    ranking_route,
 )
 
 Blocks = List[torch.Tensor]
@@ -259,20 +260,15 @@ def get_recs_sharded(
     user_ids = as_device_tensor(user_ids, torch.int64, home)
     users = _per_device(devices, lambda d: as_device_tensor(user_emb, torch.float32, d))
     uids = _per_device(devices, lambda d: user_ids.to(d))
-    if backend == "auto":
-        backend = "cuda" if home.type == "cuda" and score_fn is None else "torch"
-    if backend not in ("torch", "cuda"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "cuda" and score_fn is not None:
-        raise ValueError("the cuda backend scores by cosine only (use 'torch' "
-                         "for custom score functions)")
-
     mask_rows = (already_bought is not None and remove_already_bought
                  and already_bought.max_row > 0)
     hub_rows = mask_rows and already_bought.max_row > OVERFETCH_MAX_ROW
+    # No sharded mlp_topk route: the MLP head ranks on the torch route.
+    route = ranking_route(backend, home, score_fn, popularity is not None, hub_rows,
+                          mlp=False)
     fetch = k if hub_rows else min(k + (already_bought.max_row if mask_rows else 0), num_items)
     fl = min(fetch, blocks[0].shape[0])
-    if backend == "cuda" and not hub_rows:
+    if route == "mips":
         queried = _per_device(devices, lambda d: l2_normalize(users[d][uids[d]]))
         vals, idx = _cuda_candidates(devices, queried, blocks, pop_blocks, num_items, fl,
                                      weight_popularity)

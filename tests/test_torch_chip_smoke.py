@@ -15,11 +15,13 @@ KERNELS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean
 # The kernels line's rows of the kernel phase: each kernel, the leaf and
 # gather-mean kernels again in bf16, the gather-mean kernels at a
 # full-fanout shape in f32 and bf16, the LSTM cell's in f32 and bf16, and
-# the MLP head's tower in bf16.
+# the MLP head's tower in bf16; mlp_topk, the MLP head's ranking, after the
+# MIPS kernels.
 WIDE = "wide:B9_K40_N7_D12"
-ROWS = ["mips_topk", "mips_lse", "mips_boost", "leaf_mean_nn_fwd", "leaf_mean_nn_bwd",
-        "leaf_mean_nn_fwd:bf16", "leaf_mean_nn_bwd:bf16", "pool_membership_mask",
-        "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16", "gather_mean_bwd:bf16",
+ROWS = ["mips_topk", "mips_lse", "mips_boost", "mlp_topk", "leaf_mean_nn_fwd",
+        "leaf_mean_nn_bwd", "leaf_mean_nn_fwd:bf16", "leaf_mean_nn_bwd:bf16",
+        "pool_membership_mask", "gather_mean_fwd", "gather_mean_bwd", "gather_mean_fwd:bf16",
+        "gather_mean_bwd:bf16",
         f"gather_mean_fwd:{WIDE}", f"gather_mean_bwd:{WIDE}", f"gather_mean_fwd:bf16:{WIDE}",
         f"gather_mean_bwd:bf16:{WIDE}", "lstm_cell_fwd", "lstm_cell_bwd", "lstm_cell_fwd:bf16",
         "lstm_cell_bwd:bf16", "pred_tower_fwd:bf16", "pred_tower_bwd:bf16"]
@@ -35,18 +37,20 @@ def test_kernel_phase_rehearsal():
     rows = chip_smoke.phase_kernels(torch.device("cpu"), num_users=40, num_items=300,
                                     dim=16, k=6, leaf=(4, 37, 5, 16), pool=(40, 8, 70),
                                     gather=(41, 5, 30, 12), wide=(9, 40, 7, 12),
-                                    lstm=((7, 21), 12), pred=(19, 37), timed=False)
+                                    lstm=((7, 21), 12), pred=(19, 37),
+                                    mlp=((20, 42, 266), 300, 700), timed=False)
     assert [r["name"] for r in rows] == ROWS
     for row in rows:
         assert row["max_abs_err"] == 0.0
         assert row["bound_by"] in ("bytes", "operations") and row["bound_ms"] > 0
         assert row["source"].startswith("gnn_recsys_tpu_torch/csrc/")
-        # The LSTM cell and the head's tower replace no Pallas kernel: their
-        # rows name the JAX package's reducer and head.
+        # The LSTM cell, the head's tower and its ranking replace no Pallas
+        # kernel: their rows name the JAX package's reducer, head and ranking.
         lstm = row["name"].startswith("lstm_cell")
         no_twin = lstm or row["name"].startswith("pred_tower")
         assert row["replaces"].startswith(
-            "gnn_recsys_tpu/models/layers.py:" if no_twin else "gnn_recsys_tpu/ops/pallas/")
+            "gnn_recsys_tpu/retrieval/recs.py:" if row["name"] == "mlp_topk"
+            else "gnn_recsys_tpu/models/layers.py:" if no_twin else "gnn_recsys_tpu/ops/pallas/")
         assert not lstm or row["bit_equal_share"] == 1.0
         assert ("library" in row) == (row["name"].split(":")[0] in NO_YARDSTICK)
     # At the serving shape the ranking is bound by f32 operations; the
@@ -171,7 +175,7 @@ def test_train_full_batch_rehearsal(pred, capsys):
     launches = chip_smoke.phase_train_full_batch(
         torch.device("cpu"), pred, num_users=300, num_items=120, hidden=32, out=16, epochs=20,
         check_size=(300, 120), serve_users=16, on_card=False)
-    assert launches == {"mips_topk": 0}
+    assert launches == {"mips_topk": 0, "mlp_topk": 0}
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["phase"] == "train_full_batch" + ("_nn" if pred == "nn" else "")
     assert len(report["loss"]) == 20 and report["epoch_ms_min"] <= report["epoch_ms_median"]
@@ -444,11 +448,11 @@ def test_gather_ptxas_rows_hold_the_dedup_steps_instantiations():
 
 def test_topk_and_pool_mask_ptxas_rows():
     """Serving's f32 topk_kernel instantiations (the top-k and boost
-    epilogues with lists in the shared buffer, the LSE epilogue), the pool
-    mask and the head's tower in bf16 (its forward; its dW2 pass and sums,
-    not its dA pass) get a row each; the other instantiations are reported
-    by the build phase but hold no row; a spill in a row's kernel fails the
-    run."""
+    epilogues with lists in the shared buffer, the LSE epilogue), mlp_topk's
+    with lists in the shared buffer, the pool mask and the head's tower in
+    bf16 (its forward; its dW2 pass and sums, not its dA pass) get a row
+    each; the other instantiations are reported by the build phase but hold
+    no row; a spill in a row's kernel fails the run."""
     args = "EEEvPKT_S3_iiiiiiPKffS5_S5_PfPiS6_"
     bf16 = "I13__nv_bfloat16EEvPKfS3_"
 
@@ -461,7 +465,9 @@ def test_topk_and_pool_mask_ptxas_rows():
                     (f"topk_kernelIfLb0ELi1{args}", 174, 0),
                     (f"topk_kernelIfLb0ELi2{args}", 150, 0),
                     ("topk_kernelI13__nv_bfloat16Lb1ELi0EEEvPKT_S4_iiiiiiPKffS6_S6_PfPiS7_",
-                     166, 0)))},
+                     166, 0),
+                    ("mlp_topk_kernelILb1EEEvPKfS2_S2_S2_S2_S2_iiiiPfPi", 214, 0),
+                    ("mlp_topk_kernelILb0EEEvPKfS2_S2_S2_S2_S2_iiiiPfPi", 214, 0)))},
                 "pool_mask": {"ptxas": _ptxas_lines((
                     ("pool_mask_kernelEPKiS1_iiiiPf", 40, 0),))},
                 "pred_tower": {"ptxas": _ptxas_lines((
@@ -475,13 +481,14 @@ def test_topk_and_pool_mask_ptxas_rows():
     assert set(got) == {"leaf_mean_nn_fwd", "leaf_mean_nn_bwd", "leaf_mean_nn_fwd:bf16",
                         "leaf_mean_nn_bwd:bf16", "gather_mean_fwd", "gather_mean_bwd",
                         "gather_mean_fwd:bf16", "gather_mean_bwd:bf16", "mips_topk", "mips_lse",
-                        "mips_boost", "pool_membership_mask", "pred_tower_fwd:bf16",
+                        "mips_boost", "mlp_topk", "pool_membership_mask", "pred_tower_fwd:bf16",
                         "pred_tower_bwd:bf16"}
     assert set(got["pred_tower_bwd:bf16"]) == {"pred_tower_dw2_kernelI13__nv_bfloat16E",
                                                "pred_tower_sum_kernel"}
     assert got["mips_topk"] == {"topk_kernelIfLb1ELi0EE": {"registers": 168, "spill_bytes": 0}}
     assert got["mips_boost"] == {"topk_kernelIfLb1ELi1EE": {"registers": 172, "spill_bytes": 0}}
     assert got["mips_lse"] == {"topk_kernelIfLb0ELi2EE": {"registers": 150, "spill_bytes": 0}}
+    assert got["mlp_topk"] == {"mlp_topk_kernelILb1EE": {"registers": 214, "spill_bytes": 0}}
     assert got["pool_membership_mask"]["pool_mask_kernel"]["registers"] == 40
     with pytest.raises(AssertionError, match="topk_kernelIfLb1ELi0EE spills 12 bytes"):
         chip_smoke.kernel_ptxas(info(topk_spill=8))

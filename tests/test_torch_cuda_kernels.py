@@ -40,14 +40,14 @@ def _emb(rng, n, d, dev, shift=0.0):
                         device=dev)
 
 
-def assert_topk_close(vals, idx, rvals, ridx, exact_scores):
-    """Values within TOL; indices equal except at near-tied slots, where the
-    kernel's item must score within TOL of the slot's plain value."""
+def assert_topk_close(vals, idx, rvals, ridx, exact_scores, tol=TOL):
+    """Values within ``tol``; indices equal except at near-tied slots, where
+    the kernel's item must score within ``tol`` of the slot's plain value."""
     vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
     rvals, ridx = rvals.cpu().numpy(), ridx.cpu().numpy()
-    np.testing.assert_allclose(vals, rvals, rtol=0, atol=TOL)
+    np.testing.assert_allclose(vals, rvals, rtol=0, atol=tol)
     for r, c in zip(*np.nonzero(idx != ridx)):
-        assert abs(exact_scores[r, idx[r, c]] - rvals[r, c]) <= TOL, (r, c)
+        assert abs(exact_scores[r, idx[r, c]] - rvals[r, c]) <= tol, (r, c)
     for row in idx:
         assert len(set(row.tolist())) == len(row)
 
@@ -161,6 +161,73 @@ def test_cpu_tensors_take_the_plain_version(dev):
     assert tm.mips_topk.launches == n0
     with pytest.raises(ValueError):
         tm.mips_topk(ue.to(dev), ie, 3)
+
+
+# The MLP head's sigmoid scores lie near 0.5, whose f32 step is 6e-8: the
+# kernel's sums in another order than the plain version's products move them
+# by a few steps.
+MLP_TOL = 1e-6
+
+
+def _mlp_case(dev, u, i, seed=0):
+    """mlp_topk's inputs at a trained head's scales: a_u, a_i, w2, b2, w3, b3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale):
+        return scale * torch.randn(*shape, generator=g, device=dev)
+
+    return [randn(u, 128, scale=0.5), randn(i, 128, scale=0.5), randn(32, 128, scale=0.1),
+            randn(32, scale=0.1), randn(1, 32, scale=0.3), randn(1, scale=0.1)]
+
+
+def _mlp_exact(args):
+    """The head's f64 score of pairs (rows r, items i), on the card."""
+    a_u, a_i, w2, b2, w3, b3 = (t.double() for t in args)
+
+    def score(r, i):
+        z = torch.relu(torch.relu(a_u[r] + a_i[i]) @ w2.T + b2)
+        return torch.sigmoid(z @ w3.reshape(-1) + b3)
+    return score
+
+
+@pytest.mark.parametrize("u,i,k", [
+    (4096, 30000, 20), (4093, 3001, 42), (300, 30000, 266), (130, 1001, 5), (130, 11, 11),
+    (1, 70, 3), (257, 5000, 1024)])
+def test_mlp_topk_matches_plain(dev, u, i, k):
+    """Lists of k <= 32 in shared memory and larger in device memory, catalog
+    splits (few user blocks), ragged user blocks and tiles, k = max_k().
+    Values within MLP_TOL of the plain version's; indices equal except at
+    near-tied slots, where the kernel's item scores (in f64) within MLP_TOL
+    of the slot's plain value."""
+    args = _mlp_case(dev, u, i, seed=u + i + k)
+    n0 = tm.mlp_topk.launches
+    vals, idx = tm.mlp_topk(*args, k)
+    torch.cuda.synchronize()
+    assert tm.mlp_topk.launches == n0 + 1
+    rvals, ridx = tm.mlp_topk_reference(*args, k)
+    assert float((vals - rvals).abs().max()) <= MLP_TOL
+    rows, cols = torch.nonzero(idx != ridx, as_tuple=True)
+    if rows.numel():
+        gap = (_mlp_exact(args)(rows, idx[rows, cols]) - rvals[rows, cols].double()).abs()
+        assert float(gap.max()) <= MLP_TOL
+    srt = idx.sort(dim=1).values
+    assert not (srt[:, 1:] == srt[:, :-1]).any()
+
+
+@pytest.mark.parametrize("k", [6, 40])
+def test_mlp_topk_ties_lowest_index(dev, k):
+    a_u, a_i, *head = _mlp_case(dev, 300, 1, seed=k)
+    _, idx = tm.mlp_topk(a_u, a_i.expand(900, 128), *head, k)
+    assert (idx.cpu() == torch.arange(k)).all()
+
+
+def test_mlp_topk_cpu_tensors_take_the_plain_version(dev):
+    args = _mlp_case("cpu", 9, 50)
+    n0 = tm.mlp_topk.launches
+    tm.mlp_topk(*args, 3)
+    assert tm.mlp_topk.launches == n0
+    with pytest.raises(ValueError):
+        tm.mlp_topk(args[0].to(dev), *args[1:], 3)
 
 
 def _leaf_case(dev, k, p, f, h, seed=0, dtype=torch.float32):

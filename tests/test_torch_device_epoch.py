@@ -301,8 +301,9 @@ def test_capture_guards_hold_a_replay_to_its_capture():
 
 def test_launch_counters_name_the_ten_wrappers(monkeypatch):
     """``build.launch_counters()`` reads the registry and names exactly the
-    kernel wrappers of the package (twelve, with the head's tower's two): a
-    ``launches`` counter declared elsewhere is not one of them."""
+    kernel wrappers of the package (thirteen, with the head's tower's two and
+    its ranking's): a ``launches`` counter declared elsewhere is not one of
+    them."""
     monkeypatch.setattr(profiling, "DECLARED", dict(profiling.DECLARED))
 
     def stand_in():
@@ -311,7 +312,8 @@ def test_launch_counters_name_the_ten_wrappers(monkeypatch):
     profiling.counter(stand_in, "launches")
     fns = (la.leaf_mean_nn_fwd, la.leaf_mean_nn_bwd, pm.pool_membership_mask,
            gm.gather_mean_fwd, gm.gather_mean_bwd, tm.mips_topk, tm.mips_lse, tm.mips_boost,
-           lc.lstm_cell_fwd, lc.lstm_cell_bwd, pt.pred_tower_fwd, pt.pred_tower_bwd)
+           lc.lstm_cell_fwd, lc.lstm_cell_bwd, pt.pred_tower_fwd, pt.pred_tower_bwd,
+           tm.mlp_topk)
     assert build.launch_counters() == {fn.__name__: fn for fn in fns}
     assert all(profiling.DECLARED[f"{fn.__name__}.launches"] == (fn, "launches") for fn in fns)
 
